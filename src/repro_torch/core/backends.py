@@ -1,0 +1,154 @@
+"""Kernel backends for the local query programs.
+
+Every local program in ``core/local_ops.py`` is staged:
+
+  lookup   learned key search — lower bounds ([s, e) intervals or probe
+           positions) against a chunk of partitions;
+  scan     the per-partition point work inside those bounds;
+  merge    the cross-partition reduction — owned by the program.
+
+A backend supplies lookup and scan. Both take a whole chunk of
+partitions per call (every leaf has a leading partition axis), so one
+kernel launch covers the chunk: the kernels put the partition axis in
+their grid.
+
+  torch   the plain PyTorch stages (the kernels' plain versions), on any
+          device; bitwise the JAX package's ``xla`` backend.
+  cuda    routes lower_bound, range_scan, point_scan and knn_scan to the
+          hand-written CUDA kernels in ``repro_torch/kernels``.
+
+``resolve_backend("auto", device)`` picks cuda on a CUDA device and torch
+on the CPU. ``torch`` on a CUDA device is allowed: it is how a kernel is
+held against its plain version on the card.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch._num import stable_topk
+from repro_torch.core.plan import BACKENDS
+from repro_torch.kernels import knn_topk as _knn
+from repro_torch.kernels import point_probe as _pp
+from repro_torch.kernels import range_filter as _rf
+from repro_torch.kernels import spline_search as _ss
+
+
+def _lookup_args(ch):
+    return (ch["knot_keys"], ch["knot_pos"], ch["radix_table"],
+            ch["keys_f"], ch["radix_kmin"], ch["radix_scale"],
+            ch["n_knots"], ch["count"])
+
+
+def _map_vid(vid, neg, idx):
+    """Kernel positions -> point ids; empty slots (NEG) -> -1."""
+    c, n_pad = vid.shape
+    safe = idx.clamp(0, n_pad - 1).to(torch.int64).reshape(c, -1)
+    out = torch.gather(vid, 1, safe).reshape(idx.shape)
+    return torch.where((idx >= 0) & (neg > _knn.NEG), out, -1)
+
+
+class TorchBackend:
+    """Plain PyTorch lookup/scan stages (CPU or GPU)."""
+
+    name = "torch"
+
+    # -- lookup stage -----------------------------------------------------
+
+    def lower_bound(self, ch, qkf, *, radix_bits: int, probe: int):
+        """(C, Q) int32 exact learned lower bounds of (Q,) keys."""
+        return _ss.spline_search_plain(qkf, *_lookup_args(ch), probe=probe,
+                                       radix_bits=radix_bits)
+
+    def bounds(self, ch, klo_f, khi_f, *, radix_bits: int, probe: int):
+        """[s, e) covering all keys in [klo, khi]: (C, Q) int32 each
+        (both ends share one lookup call)."""
+        qn = klo_f.shape[0]
+        pos = self.lower_bound(ch, torch.cat([klo_f, khi_f + 1.0]),
+                               radix_bits=radix_bits, probe=probe)
+        return pos[:, :qn].contiguous(), pos[:, qn:].contiguous()
+
+    # -- scan stage -------------------------------------------------------
+
+    def filter_mask(self, ch, rects, s, e, active=None):
+        """(C, Q, n_pad) bool — in [s, e) AND in rect AND valid."""
+        return _rf.range_mask(rects, s, e, ch["count"], ch["x"], ch["y"],
+                              active)
+
+    def range_scan(self, ch, rects, s, e, active=None):
+        """(C, Q) exact in-rect counts within learned [s, e)."""
+        return _rf.range_count_plain(rects, s, e, active, ch["count"],
+                                     ch["x"], ch["y"])
+
+    def point_windows(self, parts, pid, start, probe: int):
+        """Each query's (probe,) key/x/y window from ITS partition."""
+        return _pp.gather_windows(pid, start, probe, parts["keys_f"],
+                                  parts["x"], parts["y"])
+
+    def point_scan(self, parts, pid, start, qkf, qx, qy, *, probe: int):
+        """(Q,) exact membership: equality probe of the window
+        [start, start+probe) of each query's partition."""
+        wk, wx, wy = self.point_windows(parts, pid, start, probe)
+        return _pp.count_matches(qkf, qx, qy, wk, wx, wy) > 0
+
+    def knn_scan(self, ch, qx, qy, k: int):
+        """Per-partition kNN candidates: (neg_d2, vid), (C, Q, k) each,
+        nearest first, ties to the lowest position."""
+        neg, idx = _knn.knn_topk_plain(qx, qy, ch["count"], ch["x"],
+                                       ch["y"], k=k)
+        return neg, _map_vid(ch["vid"], neg, idx)
+
+    # -- merge stage helper ----------------------------------------------
+
+    def topk_merge(self, carry_n, carry_v, chunk_n, chunk_v, k: int):
+        """Fold a (Q, W) candidate chunk into the running (Q, k) best.
+        The carry precedes the chunk and ties go to the lowest index,
+        so the streamed result equals one top-k over the whole plane."""
+        cn = torch.cat([carry_n, chunk_n], dim=1)
+        cv = torch.cat([carry_v, chunk_v], dim=1)
+        bn, ix = stable_topk(cn, k)
+        return bn, torch.gather(cv, 1, ix)
+
+
+class CudaBackend(TorchBackend):
+    """Lookup and scan stages on the hand-written CUDA kernels."""
+
+    name = "cuda"
+
+    def lower_bound(self, ch, qkf, *, radix_bits: int, probe: int):
+        return _ss.spline_search(qkf.contiguous(), *_lookup_args(ch),
+                                 probe=probe, radix_bits=radix_bits)
+
+    def range_scan(self, ch, rects, s, e, active=None):
+        if active is None:
+            active = torch.ones(s.shape, dtype=torch.bool, device=s.device)
+        return _rf.range_count(rects, s, e, active.contiguous(),
+                               ch["count"], ch["x"], ch["y"])
+
+    def point_scan(self, parts, pid, start, qkf, qx, qy, *, probe: int):
+        hits = _pp.point_probe(pid.to(torch.int32), start.to(torch.int32),
+                               qkf, qx, qy, parts["keys_f"], parts["x"],
+                               parts["y"], probe=probe)
+        return hits > 0
+
+    def knn_scan(self, ch, qx, qy, k: int):
+        neg, idx = _knn.knn_topk(qx, qy, ch["count"], ch["x"], ch["y"],
+                                 k=k)
+        return neg, _map_vid(ch["vid"], neg, idx)
+
+
+def resolve_backend(name: str, device: torch.device):
+    """Backend instance for an EngineConfig.backend string on ``device``.
+
+    "auto" picks the CUDA kernels on a CUDA device and the plain stages
+    on the CPU; "cuda" on a CPU device raises."""
+    if name not in BACKENDS:
+        raise ValueError(
+            f"unknown backend {name!r}: expected one of {BACKENDS}")
+    if name == "auto":
+        name = "cuda" if device.type == "cuda" else "torch"
+    if name == "cuda":
+        if device.type != "cuda":
+            raise ValueError("backend 'cuda' needs a CUDA device, got "
+                             f"{device}")
+        return CudaBackend()
+    return TorchBackend()

@@ -1,0 +1,30 @@
+"""Hand-written CUDA kernels for Hopper (sm_90a), one module each.
+
+Every module holds the kernel's wrapper (which launches the kernel on
+CUDA tensors and runs the plain version on CPU tensors), its plain
+PyTorch version, and ``launches``, the number of kernel launches so far.
+The CUDA sources live in ``csrc/`` and are built on first use
+(``_build``).
+"""
+from __future__ import annotations
+
+from repro_torch.kernels import knn_topk, point_probe, range_filter
+from repro_torch.kernels import spline_search
+
+# kernel name -> module holding its wrapper and launch count
+KERNELS = {
+    "spline_search": spline_search,
+    "range_count": range_filter,
+    "point_probe": point_probe,
+    "knn_topk": knn_topk,
+}
+
+
+def launch_counts() -> dict:
+    """{kernel name: launches so far}."""
+    return {name: mod.launches for name, mod in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for mod in KERNELS.values():
+        mod.launches = 0

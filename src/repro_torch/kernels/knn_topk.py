@@ -1,0 +1,78 @@
+"""Exact per-partition kNN top-k: CUDA kernel, plain version, wrapper.
+
+Replaces the Pallas TPU kernel ``src/repro/kernels/knn_topk.py``
+(``knn_topk``; wrapper ``kernels/ops.py:knn_topk``). Source:
+``csrc/knn_topk.cu``. One launch covers a chunk of partitions; a warp
+per (query, partition) keeps per-lane sorted top-k lists and merges them.
+Bound: operations (a distance per query-point pair).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch._num import fma_f32, stable_topk
+from repro_torch.kernels._args import I, P, on_cpu, ptr, stream
+
+launches = 0        # kernel launches (not plain-version calls)
+MAX_K = 128         # largest k csrc/knn_topk.cu instantiates
+NEG = -3.0e38       # empty slot value (as the reference's kernel)
+
+_SIG = {"knn_topk_launch": [P, P, P, P, P, I, I, I, I, P, P, P]}
+
+
+def knn_topk_plain(qx, qy, count, x, y, *, k: int):
+    """(neg_d2 (C, Q, k) f32, idx (C, Q, k) int32) — each query's k
+    nearest of each partition's first ``count`` points, nearest first,
+    ties to the lowest position; empty slots hold (NEG, -1)."""
+    n_pad = x.shape[1]
+    dx = x[:, None, :] - qx[None, :, None]                 # (C, Q, n)
+    dy = y[:, None, :] - qy[None, :, None]
+    d2 = fma_f32(dx, dx, dy * dy)         # XLA:CPU's contraction
+    del dx, dy
+    valid = torch.arange(n_pad, device=x.device)[None, :] < count[:, None]
+    d2 = torch.where(valid[:, None, :], d2, torch.tensor(
+        3.0e38, dtype=torch.float32, device=x.device))
+    kk = min(k, n_pad)
+    neg, idx = stable_topk(-d2, kk)
+    hit = -neg < 3.0e38
+    neg = torch.where(hit, neg, torch.tensor(NEG, dtype=torch.float32,
+                                             device=x.device))
+    idx = torch.where(hit, idx, -1).to(torch.int32)
+    if kk < k:                            # fewer slots than k: pad
+        pad = (0, k - kk)
+        neg = torch.nn.functional.pad(neg, pad, value=NEG)
+        idx = torch.nn.functional.pad(idx, pad, value=-1)
+    return neg, idx
+
+
+def knn_topk(qx, qy, count, x, y, *, k: int):
+    """Per-partition top-k nearest points of each query.
+
+    qx, qy (Q,) f32; count (C,) int32; x, y (C, n_pad) f32. Returns
+    (neg_d2 (C, Q, k) f32, idx (C, Q, k) int32 positions in the row).
+    CPU tensors run the plain version; CUDA tensors launch the kernel.
+    """
+    args = (qx, qy, count, x, y)
+    if on_cpu(*args):
+        return knn_topk_plain(*args, k=k)
+    if not 0 < k <= MAX_K:
+        raise ValueError(f"k={k} outside (0, {MAX_K}]")
+    c, n_pad = x.shape
+    nq = qx.shape[0]
+    f32, i32 = torch.float32, torch.int32
+    ptrs = [ptr(qx, "qx", f32, (nq,)), ptr(qy, "qy", f32, (nq,)),
+            ptr(count, "count", i32, (c,)), ptr(x, "x", f32, (c, n_pad)),
+            ptr(y, "y", f32, (c, n_pad))]
+    neg = torch.empty((c, nq, k), dtype=f32, device=x.device)
+    idx = torch.empty((c, nq, k), dtype=i32, device=x.device)
+    if nq == 0 or c == 0:
+        return neg, idx
+    from repro_torch.kernels import _build
+    lib = _build.load("knn_topk", _SIG)
+    err = lib.knn_topk_launch(*ptrs, nq, n_pad, c, k,
+                              ptr(neg, "neg", f32, (c, nq, k)),
+                              ptr(idx, "idx", i32, (c, nq, k)), stream())
+    _build.check(lib, "knn_topk", err)
+    global launches
+    launches += 1
+    return neg, idx

@@ -37,6 +37,11 @@ def built_index(small_spatial):
     return x, y, part, build_index(x, y, part)
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skips where there is none")
+
+
 def range_oracle(x, y, rects):
     return np.array([np.sum((x >= r[0]) & (x <= r[2]) &
                             (y >= r[1]) & (y <= r[3])) for r in rects])

@@ -1,0 +1,178 @@
+"""On the card: each CUDA kernel against its plain version, and the
+engine's cuda backend against its torch backend and the golden fixture.
+
+This file imports neither jax nor the JAX package, so it runs where only
+the port is installed. Every test carries the ``gpu`` marker and skips
+where there is no card:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+"""
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import EngineConfig, SpatialEngine, build_index, fit
+from repro_torch.core import keys as K
+from repro_torch.core import local_ops as L
+from repro_torch.data import spatial as ds
+from repro_torch.kernels import knn_topk as t_knn
+from repro_torch.kernels import point_probe as t_pp
+from repro_torch.kernels import range_filter as t_rf
+from repro_torch.kernels import spline_search as t_ss
+
+pytestmark = pytest.mark.gpu
+
+GOLDEN = os.path.join(os.path.dirname(__file__), "golden",
+                      "spatial_golden.json")
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def index():
+    """A port index with duplicate points (ties, long key runs),
+    partitions below n_pad, and two empty padding partitions (CPU)."""
+    x, y = ds.make("taxi", 5000, seed=3)
+    dup = np.random.default_rng(0).integers(0, 5000, 600)
+    x = np.concatenate([x, x[dup]])
+    y = np.concatenate([y, y[dup]])
+    idx = build_index(x, y, fit("kdtree", x, y, 6, seed=0), device="cpu")
+    return x, y, L.pad_partitions(idx, 8)
+
+
+def _on(dev, *arrays):
+    return [torch.as_tensor(np.asarray(a)).to(dev) for a in arrays]
+
+
+def _query_keys(idx, rng, nq):
+    kf = K.keys_to_f32(idx.key).numpy()
+    cnt = idx.count.numpy()
+    sent = float(idx.key_spec.sentinel)
+    data = kf[0, rng.integers(0, cnt[0], nq // 2)]
+    rand = rng.integers(0, 1 << 22, nq - nq // 2 - 6).astype(np.float32)
+    edge = np.asarray([0, 1, sent - 1, sent, sent + 1, kf[1, cnt[1] - 1]],
+                      np.float32)
+    return np.concatenate([data, rand, edge]).astype(np.float32)
+
+
+def test_gpu_spline_search_matches_plain(index, cuda):
+    _, _, idx = index
+    q = _query_keys(idx, np.random.default_rng(1), 1000)
+    args = _on(cuda, q, idx.knot_keys, idx.knot_pos, idx.radix_table,
+               K.keys_to_f32(idx.key), idx.radix_kmin, idx.radix_scale,
+               idx.n_knots, idx.count)
+    kw = dict(probe=idx.probe, radix_bits=idx.radix_bits)
+    n0 = t_ss.launches
+    got = t_ss.spline_search(*args, **kw)
+    assert t_ss.launches == n0 + 1
+    assert torch.equal(got, t_ss.spline_search_plain(*args, **kw))
+
+
+def test_gpu_spline_search_wide_knot_row(cuda):
+    """A knot row too wide for shared memory (eps 0 on distinct random
+    keys) takes the kernel's global-memory path."""
+    from repro_torch.core.build import fit_partitions
+
+    rng = np.random.default_rng(3)
+    n = 61440
+    keys = np.sort(rng.choice(1 << 22, n, replace=False))[None, :]
+    count = np.asarray([n], np.int32)
+    fit = fit_partitions(keys, count, eps=0, m_pad=n, radix_bits=10)
+    assert (2 * n + 1026) * 4 > 200 * 1024 and fit["n_knots"][0] > 1000
+    keys_f = keys.astype(np.float32)
+    q = np.concatenate([keys_f[0, ::7], rng.integers(
+        0, 1 << 22, 3000).astype(np.float32)])
+    args = _on(cuda, q, fit["knot_keys"], fit["knot_pos"],
+               fit["radix_table"], keys_f, fit["radix_kmin"],
+               fit["radix_scale"], fit["n_knots"], count)
+    kw = dict(probe=64, radix_bits=10)
+    got = t_ss.spline_search(*args, **kw)
+    assert torch.equal(got, t_ss.spline_search_plain(*args, **kw))
+    want = np.searchsorted(keys_f[0], q).astype(np.int32)
+    assert np.array_equal(got[0].cpu().numpy(), want)
+
+
+def test_gpu_range_count_matches_plain(index, cuda):
+    _, _, idx = index
+    rng = np.random.default_rng(5)
+    nq, (c, n_pad) = 300, idx.x.shape
+    rects = ds.random_rects(nq, 3e-2, (0, 0, 1, 1), seed=5)
+    s = rng.integers(0, n_pad, (c, nq)).astype(np.int32)
+    e = (s + rng.integers(-50, n_pad, (c, nq))).astype(np.int32)
+    s[:, 0], e[:, 0] = 0, n_pad                 # the whole row
+    e = np.minimum(e, n_pad + 64)               # e may pass n_pad
+    active = rng.random((c, nq)) < 0.7
+    args = _on(cuda, rects, s, e, active, idx.count, idx.x, idx.y)
+    got = t_rf.range_count(*args)
+    assert int(got.sum()) > 0
+    assert torch.equal(got, t_rf.range_count_plain(*args))
+
+
+def test_gpu_point_probe_matches_plain(index, cuda):
+    _, _, idx = index
+    rng = np.random.default_rng(5)
+    nq, (p_tot, n_pad), probe = 300, idx.x.shape, idx.probe
+    cnt = idx.count.numpy()
+    pid = rng.integers(0, 6, nq).astype(np.int32)
+    pos = (rng.random(nq) * cnt[pid]).astype(np.int64)
+    keys_f = K.keys_to_f32(idx.key).numpy()
+    px, py = idx.x.numpy(), idx.y.numpy()
+    qk, qx, qy = keys_f[pid, pos], px[pid, pos].copy(), py[pid, pos].copy()
+    qx[rng.random(nq) < 0.3] += 1e-3            # misses
+    start = np.clip(pos - probe // 2, 0, n_pad - probe).astype(np.int32)
+    start[0], start[-1] = 0, n_pad - probe      # both ends of the row
+    pid[-1] = p_tot - 1                         # an empty padding row
+    args = _on(cuda, pid, start, qk, qx, qy, keys_f, px, py)
+    got = t_pp.point_probe(*args, probe=probe)
+    assert (got > 1).any()                      # duplicates counted
+    assert torch.equal(got, t_pp.point_probe_plain(*args, probe=probe))
+
+
+@pytest.mark.parametrize("k", [1, 10, 40, 100])
+def test_gpu_knn_topk_matches_plain(index, cuda, k):
+    x, y, idx = index
+    ix = np.random.default_rng(k).integers(0, len(x), 200)
+    qx, qy = x[ix].copy(), y[ix].copy()
+    qx[::3] += np.float32(1e-4)
+    args = _on(cuda, qx, qy, idx.count, idx.x, idx.y)
+    gn, gi = t_knn.knn_topk(*args, k=k)
+    wn, wi = t_knn.knn_topk_plain(*args, k=k)
+    assert torch.equal(gn, wn) and torch.equal(gi, wi)
+    assert (gi[-1] == -1).all()                 # the empty padding row
+
+
+def test_gpu_engine_golden_and_backends_agree(cuda):
+    """The golden fixture replayed with backend="cuda", and the cuda
+    backend bitwise the torch backend on the card."""
+    with open(GOLDEN) as f:
+        golden = json.load(f)
+    x, y = ds.make("gaussian", 12000, seed=7)
+    part = fit("kdtree", x, y, 12, seed=0)
+    rng = np.random.default_rng(11)
+    ix = rng.integers(0, len(x), 32)
+    qx = np.concatenate([x[ix[:16]],
+                         rng.random(16).astype(np.float32) * 2 - 0.5])
+    qy = np.concatenate([y[ix[:16]],
+                         rng.random(16).astype(np.float32) * 2 - 0.5])
+    rects = ds.random_rects(16, 1e-4, part.bounds, seed=13, centers=(x, y))
+    idx = build_index(x, y, part, device=cuda)
+    eng = SpatialEngine(idx, EngineConfig(backend="cuda"), device=cuda)
+    plain = SpatialEngine(idx, EngineConfig(backend="torch"), device=cuda)
+    assert eng.point_query(qx, qy).tolist() == golden["point"]
+    assert eng.range_count(rects).tolist() == golden["range_count"]
+    d2, vid = eng.knn(qx[:8], qy[:8], 3, mode="exact")
+    assert d2.tolist() == golden["knn_exact_d2"]
+    assert vid.tolist() == golden["knn_exact_vid"]
+    assert torch.equal(eng.point_query(qx, qy), plain.point_query(qx, qy))
+    assert torch.equal(eng.range_count(rects), plain.range_count(rects))
+    for a, b in zip(eng.knn(qx, qy, 10, mode="exact"),
+                    plain.knn(qx, qy, 10, mode="exact")):
+        assert torch.equal(a, b)

@@ -1,0 +1,247 @@
+"""Port parity of the four kernels of this slice.
+
+Each kernel's plain PyTorch version (what the wrapper runs on CPU
+tensors, and what the kernel is held against on the card) is checked
+bitwise against the JAX package's oracle (``kernels/ref.py``), and
+range_count, point_probe and knn_topk also against the Pallas kernel in
+interpret mode. ``spline_search``'s Pallas kernel cannot run on this jax
+(``pl.load`` is gone), so it is checked against ``ref.spline_search``.
+
+The CUDA kernels themselves are held against these plain versions on the
+card by ``tests/test_torch_gpu.py``.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import build_index as j_build, fit as j_fit
+from repro.core import keys as JK
+from repro.core import local_ops as JL
+from repro.data import spatial as jds
+from repro.kernels import ops, ref
+from repro_torch import kernels as TKERN
+from repro_torch.kernels import knn_topk as t_knn
+from repro_torch.kernels import point_probe as t_pp
+from repro_torch.kernels import range_filter as t_rf
+from repro_torch.kernels import spline_search as t_ss
+
+# the oracles as the engine runs them: compiled, where XLA:CPU contracts
+# dx*dx + dy*dy and p0 + t*(p1 - p0) into FMAs (eager jax does not)
+ref_spline_search = jax.jit(ref.spline_search,
+                            static_argnames=("probe", "radix_bits"))
+ref_knn_topk = jax.jit(ref.knn_topk, static_argnames=("k",))
+
+
+@pytest.fixture(scope="module")
+def jidx():
+    """A JAX index with duplicate points (ties, long key runs), partitions
+    below n_pad, and two empty padding partitions."""
+    x, y = jds.make("taxi", 5000, seed=3)
+    rng = np.random.default_rng(0)
+    dup = rng.integers(0, 5000, 600)
+    x = np.concatenate([x, x[dup]])
+    y = np.concatenate([y, y[dup]])
+    idx = j_build(x, y, j_fit("kdtree", x, y, 6, seed=0))
+    return x, y, JL.pad_partitions(idx, 8)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _query_keys(idx, rng, nq):
+    kf = np.asarray(JK.keys_to_f32(idx.key))
+    cnt = np.asarray(idx.count)
+    sent = float(idx.key_spec.sentinel)
+    data = kf[0, rng.integers(0, cnt[0], nq // 2)]
+    rand = rng.integers(0, 1 << 22, nq - nq // 2 - 6).astype(np.float32)
+    edge = np.asarray([0, 1, sent - 1, sent, sent + 1, kf[1, cnt[1] - 1]],
+                      np.float32)
+    return np.concatenate([data, rand, edge]).astype(np.float32)
+
+
+@pytest.mark.parametrize("nq", [20, 300])
+def test_spline_search_plain_vs_ref(jidx, nq):
+    _, _, idx = jidx
+    rng = np.random.default_rng(nq)
+    q = _query_keys(idx, rng, nq)
+    keys_f = np.asarray(JK.keys_to_f32(idx.key))
+    kw = dict(probe=idx.probe, radix_bits=idx.radix_bits)
+    got = t_ss.spline_search(
+        _t(q), _t(idx.knot_keys), _t(idx.knot_pos), _t(idx.radix_table),
+        _t(keys_f), _t(idx.radix_kmin), _t(idx.radix_scale),
+        _t(idx.n_knots), _t(idx.count), **kw).numpy()
+    assert got.shape == (idx.num_partitions, len(q))
+    for p in range(idx.num_partitions):
+        want = np.asarray(ref_spline_search(
+            jnp.asarray(q), idx.knot_keys[p], idx.knot_pos[p],
+            idx.radix_table[p], keys_f[p], idx.radix_kmin[p],
+            idx.radix_scale[p], idx.n_knots[p], idx.count[p], **kw))
+        assert np.array_equal(got[p], want), p
+        c = int(idx.count[p])
+        assert np.array_equal(got[p], np.searchsorted(keys_f[p, :c], q))
+
+
+def _range_inputs(idx, nq, seed):
+    rng = np.random.default_rng(seed)
+    rects = jds.random_rects(nq, 3e-2, (0, 0, 1, 1), seed=seed)
+    c, n_pad = idx.num_partitions, idx.n_pad
+    s = rng.integers(0, n_pad, (c, nq)).astype(np.int32)
+    e = (s + rng.integers(-50, n_pad, (c, nq))).astype(np.int32)
+    s[:, 0], e[:, 0] = 0, n_pad                 # the whole row
+    e = np.minimum(e, n_pad + 64)               # e may pass n_pad
+    active = rng.random((c, nq)) < 0.7
+    return rects, s, e, active
+
+
+@pytest.mark.parametrize("nq", [3, 129])
+def test_range_count_plain_vs_ref_and_pallas(jidx, nq):
+    _, _, idx = jidx
+    rects, s, e, active = _range_inputs(idx, nq, nq)
+    got = t_rf.range_count(_t(rects), _t(s), _t(e), _t(active),
+                           _t(idx.count), _t(idx.x), _t(idx.y)).numpy()
+    assert got.dtype == np.int32 and got.sum() > 0
+    for p in range(idx.num_partitions):
+        se = jnp.asarray(np.stack([s[p], e[p]], 1), jnp.float32)
+        args = (jnp.asarray(rects), se, idx.count[p], idx.x[p], idx.y[p])
+        want = np.asarray(ref.range_count(*args))
+        pallas = np.asarray(ops.range_count(*args, interpret=True))
+        assert np.array_equal(want, pallas)
+        assert np.array_equal(got[p], np.where(active[p], want, 0)), p
+
+
+def _point_inputs(idx, nq, seed):
+    """Queries on real points (some duplicated), misses, and windows at
+    both ends of the row."""
+    rng = np.random.default_rng(seed)
+    p_tot, n_pad, probe = idx.num_partitions, idx.n_pad, idx.probe
+    cnt = np.asarray(idx.count)
+    pid = rng.integers(0, 6, nq).astype(np.int32)
+    pos = (rng.random(nq) * cnt[pid]).astype(np.int64)
+    keys_f = np.asarray(JK.keys_to_f32(idx.key))
+    px, py = np.asarray(idx.x), np.asarray(idx.y)
+    qk, qx, qy = keys_f[pid, pos], px[pid, pos].copy(), py[pid, pos].copy()
+    qx[rng.random(nq) < 0.3] += 1e-3            # misses
+    start = np.clip(pos - probe // 2, 0, n_pad - probe).astype(np.int32)
+    start[0], start[-1] = 0, n_pad - probe      # both ends of the row
+    pid[-1] = p_tot - 1                         # an empty padding row
+    return pid, start, qk, qx, qy
+
+
+@pytest.mark.parametrize("nq", [2, 150])
+def test_point_probe_plain_vs_ref_and_pallas(jidx, nq):
+    _, _, idx = jidx
+    pid, start, qk, qx, qy = _point_inputs(idx, nq, nq)
+    keys_f = np.asarray(JK.keys_to_f32(idx.key))
+    probe = idx.probe
+    got = t_pp.point_probe(_t(pid), _t(start), _t(qk), _t(qx), _t(qy),
+                           _t(keys_f), _t(idx.x), _t(idx.y),
+                           probe=probe).numpy()
+    lanes = start[:, None] + np.arange(probe)[None, :]
+    win = [jnp.asarray(np.asarray(a)[pid[:, None], lanes])
+           for a in (keys_f, idx.x, idx.y)]
+    qargs = (jnp.asarray(qk), jnp.asarray(qx), jnp.asarray(qy))
+    want = np.asarray(ref.point_probe(*qargs, *win, probe=probe))
+    pallas = np.asarray(ops.point_probe(*qargs, *win, probe=probe,
+                                        interpret=True))
+    assert np.array_equal(got, want) and np.array_equal(want, pallas)
+    assert (got > 1).any() or nq < 100         # duplicates counted
+
+
+@pytest.mark.parametrize("k", [1, 5, 16])
+@pytest.mark.parametrize("nq", [4, 130])
+def test_knn_topk_plain_vs_ref_and_pallas(jidx, k, nq):
+    x, y, idx = jidx
+    rng = np.random.default_rng(k * 7 + nq)
+    ix = rng.integers(0, len(x), nq)
+    qx, qy = x[ix].copy(), y[ix].copy()
+    qx[::3] += np.float32(1e-4)
+    gn, gi = t_knn.knn_topk(_t(qx), _t(qy), _t(idx.count), _t(idx.x),
+                            _t(idx.y), k=k)
+    gn, gi = gn.numpy(), gi.numpy()
+    assert gn.shape == gi.shape == (idx.num_partitions, nq, k)
+    qxy = jnp.asarray(np.stack([qx, qy], 1))
+    for p in range(idx.num_partitions):
+        wn, wi = ref_knn_topk(qxy, idx.count[p], idx.x[p], idx.y[p], k=k)
+        assert np.array_equal(gn[p], np.asarray(wn)), p
+        assert np.array_equal(gi[p], np.asarray(wi)), p
+        if p in (0, idx.num_partitions - 1):    # a full and an empty row
+            pn, pi = ops.knn_topk(qxy, idx.count[p], idx.x[p], idx.y[p],
+                                  k=k, interpret=True)
+            assert np.array_equal(gn[p], np.asarray(pn)), p
+            assert np.array_equal(gi[p], np.asarray(pi)), p
+    assert (gi[-1] == -1).all() and (gn[-1] == np.float32(-3e38)).all()
+
+
+def test_knn_topk_tie_order_lowest_position():
+    x = torch.tensor([[0.5, 0.3, 0.7, 0.5, 0.5, 0.3, 9.0]], dtype=torch.float32)
+    y = torch.tensor([[0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 9.0]], dtype=torch.float32)
+    neg, idx = t_knn.knn_topk(torch.tensor([0.5]), torch.tensor([0.5]),
+                              torch.tensor([6], dtype=torch.int32), x, y,
+                              k=6)
+    assert idx[0, 0].tolist() == [0, 3, 4, 1, 2, 5]
+
+
+def test_cpu_wrappers_never_count_launches(jidx):
+    _, _, idx = jidx
+    TKERN.reset_launch_counts()
+    t_knn.knn_topk(_t(idx.x[0, :3]), _t(idx.y[0, :3]), _t(idx.count),
+                   _t(idx.x), _t(idx.y), k=2)
+    assert TKERN.launch_counts() == {n: 0 for n in TKERN.KERNELS}
+
+
+def test_wrappers_reject_mixed_devices(jidx):
+    _, _, idx = jidx
+    with pytest.raises(ValueError):
+        t_knn.knn_topk(_t(idx.x[0, :3]), _t(idx.y[0, :3]),
+                       _t(idx.count).to("meta"), _t(idx.x), _t(idx.y), k=2)
+
+
+
+def test_filter_mask_matches_xla_backend(jidx):
+    """TorchBackend.filter_mask (the range_count kernel's mask) against
+    the JAX package's XlaBackend.filter_mask, partition by partition."""
+    from repro.core.backends import XlaBackend
+    from repro_torch.core.backends import TorchBackend
+
+    _, _, idx = jidx
+    rects, s, e, active = _range_inputs(idx, 40, 4)
+    ch = {"count": _t(idx.count), "x": _t(idx.x), "y": _t(idx.y)}
+    got = TorchBackend().filter_mask(ch, _t(rects), _t(s), _t(e),
+                                     _t(active)).numpy()
+    keys_f = JK.keys_to_f32(idx.key)
+    for p in range(idx.num_partitions):
+        part = {"keys_f": keys_f[p], "count": idx.count[p], "x": idx.x[p],
+                "y": idx.y[p]}
+        want = XlaBackend().filter_mask(part, jnp.asarray(rects),
+                                        jnp.asarray(s[p]), jnp.asarray(e[p]),
+                                        jnp.asarray(active[p]))
+        assert np.array_equal(got[p], np.asarray(want)), p
+
+
+def test_geometry_helpers_bitwise(jidx):
+    """The global filter's box tests and the kNN box distance, bitwise
+    the JAX package's (jitted, where XLA:CPU contracts the distance)."""
+    from repro.core import queries as JQ
+    from repro_torch.core import queries as TQ
+
+    x, y, idx = jidx
+    boxes = np.asarray(idx.part_bounds)
+    rng = np.random.default_rng(8)
+    qx = np.concatenate([x[:50], rng.uniform(-0.5, 1.5, 50)]).astype(
+        np.float32)
+    qy = np.concatenate([y[:50], rng.uniform(-0.5, 1.5, 50)]).astype(
+        np.float32)
+    rects = jds.random_rects(64, 1e-2, (0, 0, 1, 1), seed=8)
+    jb = jnp.asarray(boxes)
+    assert np.array_equal(
+        TQ.rect_overlaps_box(_t(rects), _t(boxes)).numpy(),
+        np.asarray(JQ.rect_overlaps_box(jnp.asarray(rects), jb)))
+    assert np.array_equal(
+        TQ.point_in_box(_t(qx), _t(qy), _t(boxes)).numpy(),
+        np.asarray(JQ.point_in_box(jnp.asarray(qx), jnp.asarray(qy), jb)))
+    want = np.asarray(jax.jit(JQ.box_min_dist2)(qx, qy, jb))
+    got = TQ.box_min_dist2(_t(qx), _t(qy), _t(boxes)).numpy()
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
