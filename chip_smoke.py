@@ -398,7 +398,9 @@ def main() -> int:
     lt = timed(sweep(torch.searchsorted, [
         (ch["keys_f"], q2[None, :].expand(ch["keys_f"].shape[0], -1)
          .contiguous()) for _, ch in chunks]), 20)
-    st = Q.learned_window_start(parts, q2, **kw)
+    st = SS.window_start(q2, parts["knot_keys"], parts["knot_pos"],
+                         parts["radix_table"], n_pad, parts["radix_kmin"],
+                         parts["radix_scale"], parts["n_knots"], **kw)
     m, r = parts["knot_keys"].shape[1], parts["radix_table"].shape[1]
     nq2 = q2.shape[0]
     nbytes = 4 * (nq2 * len(chunks) + p_total * (2 * m + r + 4) +

@@ -1,82 +1,19 @@
 """Local query primitives (paper §4) on torch tensors.
 
-The learned search is exact: ``probe`` (fixed at build from eps and the
-longest duplicate-key run) keeps the true lower bound inside every probe
-window, so a windowed compare-count reproduces ``searchsorted``.
+The learned search against a chunk of partitions is the ``spline_search``
+kernel's plain version (``kernels/spline_search.py``); this module holds
+the per-query lookup of the point path and the global filter's geometry.
 
-Partition-centric functions take a dict of a CHUNK of partitions (every
-leaf has a leading partition axis C) and return (C, Q) results — the
-reference's ``vmap`` over partitions written out as a batch axis.
-
-Bitwise notes: the interpolation ``p0 + t*(p1 - p0)`` is the FMA that
-XLA:CPU contracts it to (``fma_f32``); ``torch.round`` rounds half to
-even like ``jnp.round``; float-to-int casts happen only on clamped,
-in-range values.
+Bitwise notes: the interpolation is the kernel module's FMA-matched
+``interpolate``; ``torch.round`` rounds half to even like ``jnp.round``;
+float-to-int casts happen only on clamped, in-range values.
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from repro_torch._num import fma_f32
-from repro_torch.core.radix import radix_locate
-
-_TINY = float(np.float32(1e-30))     # jnp.maximum(.., 1e-30) in float32
-
-
-def _interpolate(q, k0, k1, p0, p1):
-    """Spline interpolation, bitwise the reference's float32 math."""
-    t = torch.clamp((q - k0) / torch.clamp(k1 - k0, min=_TINY), 0.0, 1.0)
-    return fma_f32(t, p1 - p0, p0)
-
-
-def _probe_count(keys_f, start, q, probe: int):
-    """start + #{keys_f[start:start+probe] < q}; keys_f (C, n) and
-    start, q broadcastable to (C, Q)."""
-    c = keys_f.shape[0]
-    cols = start[..., None] + torch.arange(probe, device=keys_f.device)
-    win = torch.gather(keys_f, 1, cols.reshape(c, -1)).reshape(cols.shape)
-    return start + (win < q[..., None]).sum(-1)
-
-
-def learned_lower_bound(part, qkf, *, radix_bits: int, probe: int):
-    """Exact lower_bound (first idx with key >= q) for (Q,) keys against
-    each partition of a chunk.
-
-    part: dict with keys_f (C, n_pad), knot_keys/knot_pos (C, m),
-    n_knots (C,), radix_table (C, 2^b+2), radix_kmin/radix_scale (C,),
-    count (C,). Returns (C, Q) int32 positions in [0, count].
-    """
-    c = part["keys_f"].shape[0]
-    start = learned_window_start(part, qkf, radix_bits=radix_bits,
-                                 probe=probe)
-    pos = _probe_count(part["keys_f"], start,
-                       qkf[None, :].expand(c, -1), probe)
-    return torch.minimum(pos, part["count"].to(torch.int64)[:, None]
-                         ).to(torch.int32)
-
-
-def learned_window_start(part, qkf, *, radix_bits: int, probe: int):
-    """(C, Q) int64 start of each key's probe window: radix bucket ->
-    knot window -> segment -> interpolation -> round, clamped so the
-    window lies inside the row (the lookup before the compare-count)."""
-    kk, kp = part["knot_keys"], part["knot_pos"]
-    m = kk.shape[1]
-    n_pad = part["keys_f"].shape[1]
-    lo, hi = radix_locate(part["radix_table"], part["radix_kmin"],
-                          part["radix_scale"], part["n_knots"], qkf,
-                          bits=radix_bits)
-    # branchless segment locate restricted to the knot window [lo, hi]
-    idx = torch.arange(m, device=kk.device)
-    in_win = (idx >= lo[..., None]) & (idx <= hi[..., None])
-    lt = (kk[:, None, :] < qkf[None, :, None]) & in_win
-    seg = torch.clamp(lo + lt.sum(-1) - 1, min=0)
-    seg1 = torch.clamp(seg + 1, max=m - 1)
-    phat = _interpolate(qkf[None, :], torch.gather(kk, 1, seg),
-                        torch.gather(kk, 1, seg1), torch.gather(kp, 1, seg),
-                        torch.gather(kp, 1, seg1))
-    return torch.clamp(torch.round(phat).to(torch.int64) - probe // 2,
-                       0, n_pad - probe)
+from repro_torch.kernels.spline_search import interpolate
 
 
 def lower_bound_at(parts, pid, qkf, *, probe: int):
@@ -92,10 +29,10 @@ def lower_bound_at(parts, pid, qkf, *, probe: int):
     prow = parts["knot_pos"][pid]
     succ = (krow < qkf[:, None]).sum(1, keepdim=True)
     seg = torch.clamp(succ - 1, 0, m - 2)
-    phat = _interpolate(qkf[:, None], torch.gather(krow, 1, seg),
-                        torch.gather(krow, 1, seg + 1),
-                        torch.gather(prow, 1, seg),
-                        torch.gather(prow, 1, seg + 1))[:, 0]
+    phat = interpolate(qkf[:, None], torch.gather(krow, 1, seg),
+                       torch.gather(krow, 1, seg + 1),
+                       torch.gather(prow, 1, seg),
+                       torch.gather(prow, 1, seg + 1))[:, 0]
     start = torch.clamp(torch.round(phat).to(torch.int64) - probe // 2,
                         0, n_pad - probe)
     win = parts["keys_f"][pid[:, None],

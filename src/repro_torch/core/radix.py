@@ -4,13 +4,12 @@ Bucket the key range into 2^b equal cells; ``T[j]`` = index of the first
 knot whose bucket >= j. A lookup for key k then searches only the knots
 in [T[j], T[j+1]] (j = k's bucket). Built on the host in numpy right
 after the spline (core/spline.py), for every partition at once. The
-lookup side, ``radix_locate``, runs on torch tensors on the index's
-device.
+lookup side, ``radix_locate``, is a step of the learned search and lives
+with it in ``kernels/spline_search.py``.
 """
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 
 def build_radix(knot_keys: np.ndarray, n_knots: np.ndarray, *,
@@ -45,17 +44,3 @@ def build_radix(knot_keys: np.ndarray, n_knots: np.ndarray, *,
     table = np.minimum(table, last[:, None]).astype(np.int32)
     return {"table": table, "kmin": kmin.astype(np.float32),
             "scale": scale.astype(np.float32)}
-
-
-def radix_locate(table, kmin, scale, n_knots, q, *, bits: int):
-    """Knot-index search bounds [lo, hi] per (partition, query key).
-
-    table (C, 2^b+2) int32; kmin, scale, n_knots (C,); q (Q,) f32.
-    Returns (C, Q) int64 lo, hi."""
-    j = torch.floor((q[None, :] - kmin[:, None]) * scale[:, None])
-    j = torch.clamp(j, 0, 1 << bits).to(torch.int64)
-    tab = table.to(torch.int64)
-    lo = torch.gather(tab, 1, j)
-    hi = torch.gather(tab, 1, j + 1)
-    hmax = torch.clamp(n_knots.to(torch.int64) - 1, min=0)[:, None]
-    return lo, torch.minimum(torch.maximum(hi, lo), hmax)

@@ -5,12 +5,24 @@ Replaces the Pallas TPU kernel ``src/repro/kernels/spline_search.py``
 ``csrc/spline_search.cu``. One launch covers a chunk of partitions (grid:
 query blocks x partitions); each block stages its partition's knot and
 radix rows in shared memory. Bound: bytes (the probe windows).
+
+The plain version is the whole learned search on torch tensors: radix
+bucket -> knot window -> segment -> interpolation -> round -> a
+``probe``-wide compare-count. ``probe`` (fixed at build from eps and the
+longest duplicate-key run) keeps the true lower bound inside every probe
+window, so the windowed compare-count reproduces ``searchsorted``.
+
+Bitwise notes: the interpolation ``p0 + t*(p1 - p0)`` is the FMA that
+XLA:CPU contracts it to (``fma_f32``); ``torch.round`` rounds half to
+even like ``jnp.round``; float-to-int casts happen only on clamped,
+in-range values.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from repro_torch.core import queries as Q
+from repro_torch._num import fma_f32
 from repro_torch.kernels._args import I, P, on_cpu, ptr, stream
 
 launches = 0        # kernel launches (not plain-version calls)
@@ -18,16 +30,62 @@ launches = 0        # kernel launches (not plain-version calls)
 _SIG = {"spline_search_launch": [P, I, P, P, I, P, I, P, P, P, P, P, I,
                                  I, I, I, P, P]}
 
+_TINY = float(np.float32(1e-30))     # jnp.maximum(.., 1e-30) in float32
+
+
+def interpolate(q, k0, k1, p0, p1):
+    """Spline interpolation, bitwise the reference's float32 math."""
+    t = torch.clamp((q - k0) / torch.clamp(k1 - k0, min=_TINY), 0.0, 1.0)
+    return fma_f32(t, p1 - p0, p0)
+
+
+def radix_locate(table, kmin, scale, n_knots, q, *, bits: int):
+    """Knot-index search bounds [lo, hi] per (partition, query key).
+
+    table (C, 2^b+2) int32; kmin, scale, n_knots (C,); q (Q,) f32.
+    Returns (C, Q) int64 lo, hi."""
+    j = torch.floor((q[None, :] - kmin[:, None]) * scale[:, None])
+    j = torch.clamp(j, 0, 1 << bits).to(torch.int64)
+    tab = table.to(torch.int64)
+    lo = torch.gather(tab, 1, j)
+    hi = torch.gather(tab, 1, j + 1)
+    hmax = torch.clamp(n_knots.to(torch.int64) - 1, min=0)[:, None]
+    return lo, torch.minimum(torch.maximum(hi, lo), hmax)
+
+
+def window_start(q, knot_keys, knot_pos, radix_table, n_pad: int, kmin,
+                 scale, n_knots, *, probe: int, radix_bits: int):
+    """(C, Q) int64 start of each key's probe window: the lookup before
+    the compare-count, clamped so the window lies inside the row."""
+    m = knot_keys.shape[1]
+    lo, hi = radix_locate(radix_table, kmin, scale, n_knots, q,
+                          bits=radix_bits)
+    # branchless segment locate restricted to the knot window [lo, hi]
+    idx = torch.arange(m, device=knot_keys.device)
+    in_win = (idx >= lo[..., None]) & (idx <= hi[..., None])
+    lt = (knot_keys[:, None, :] < q[None, :, None]) & in_win
+    seg = torch.clamp(lo + lt.sum(-1) - 1, min=0)
+    seg1 = torch.clamp(seg + 1, max=m - 1)
+    phat = interpolate(q[None, :], torch.gather(knot_keys, 1, seg),
+                       torch.gather(knot_keys, 1, seg1),
+                       torch.gather(knot_pos, 1, seg),
+                       torch.gather(knot_pos, 1, seg1))
+    return torch.clamp(torch.round(phat).to(torch.int64) - probe // 2,
+                       0, n_pad - probe)
+
 
 def spline_search_plain(q, knot_keys, knot_pos, radix_table, keys_f, kmin,
                         scale, n_knots, count, *, probe: int,
                         radix_bits: int):
-    """(C, Q) int32 exact lower bounds — ``queries.learned_lower_bound``."""
-    part = {"keys_f": keys_f, "knot_keys": knot_keys, "knot_pos": knot_pos,
-            "n_knots": n_knots, "radix_table": radix_table,
-            "radix_kmin": kmin, "radix_scale": scale, "count": count}
-    return Q.learned_lower_bound(part, q, radix_bits=radix_bits,
-                                 probe=probe)
+    """(C, Q) int32 exact lower bounds (first index with key >= q, capped
+    at ``count``) of (Q,) keys against each of C partitions."""
+    c, n_pad = keys_f.shape
+    start = window_start(q, knot_keys, knot_pos, radix_table, n_pad, kmin,
+                         scale, n_knots, probe=probe, radix_bits=radix_bits)
+    cols = start[..., None] + torch.arange(probe, device=keys_f.device)
+    win = torch.gather(keys_f, 1, cols.reshape(c, -1)).reshape(cols.shape)
+    pos = start + (win < q[None, :, None]).sum(-1)
+    return torch.minimum(pos, count.to(torch.int64)[:, None]).to(torch.int32)
 
 
 def spline_search(q, knot_keys, knot_pos, radix_table, keys_f, kmin,
