@@ -11,25 +11,37 @@ result line):
   1. device   the card's name and power limit (nvidia-smi);
   2. build    every kernel of the main path from src/repro_torch/kernels/
               csrc, one nvcc per source, all at once;
-  3. golden   tests/golden/spatial_golden.json's point, range_count and
-              exact-kNN keys replayed bitwise with backend="cuda" on the
-              golden inputs rebuilt by the port;
+  3. golden   all 11 keys of tests/golden/spatial_golden.json replayed
+              bitwise with backend="cuda" on the golden inputs rebuilt by
+              the port, in tests/golden/gen_golden.py's order on one
+              engine (the strict loop starts from earlier sticky tiers);
   4. build    the full-size index on the card: taxi, 2^23 points, seed 0,
               kdtree with 128 partitions;
-  5. main     the main path once through SpatialEngine (1,024 point
+  5. main     the main path once through SpatialEngine: 1,024 point
               queries, 1,024 range counts at selectivity 1e-5, 256 exact
-              10-NN queries) with every launch count set to 0 just before
-              and read just after; results held bitwise against the
-              plain-PyTorch backend on the card and against a numpy
-              brute-force oracle on 64 queries; batch latencies, and
-              the device's busy time and idle share from a profiler
-              trace of each call;
-  6. kernels  each kernel against its plain version at the shapes the
-              main path gives it (bitwise), with its device time (a
-              torch.profiler trace), the plain version's, one library
-              call's where PyTorch has one, and the bound from this
-              run's inputs (bytes over 3.35 TB/s or float32 operations
-              over 67 TFLOP/s, whichever is larger).
+              10-NN queries; then, with the traffic of
+              src/repro/launch/spatial.py (256 queries), range_query on
+              rects at selectivity 1e-5, circle_count and circle_query on
+              circles of r = 0.01 centred on data points, the executor's
+              exact circle program (the strict loop's fallback, which the
+              ladder does not reach) on the same circles, pruned 10-NN,
+              and join_count windowed and full on 32 random polygons.
+              Every launch count is set to 0 just before and read just
+              after, with each path's own launches; results held bitwise
+              against the plain-PyTorch backend on the card, against each
+              other (join windowed == full, pruned d2 == exact d2, circle
+              counts == the exact program's) and against a numpy brute
+              force (64 queries of each exact kind; every range query
+              whose ok is true); per call the tier the strict loop settled
+              on, peak device memory, batch latency, and the device's
+              busy time, idle share and top activities from a profiler
+              trace;
+  6. kernels  each of the six kernels against its plain version at the
+              shapes the main path gives it (bitwise), with its device
+              time per main-path call (a torch.profiler trace), the plain
+              version's, one library call's where PyTorch has one, and
+              the bound from this run's inputs (bytes over 3.35 TB/s or
+              float32 operations over 67 TFLOP/s, whichever is larger).
 
 It prints the kernels line, the card line and, last, the result line.
 Details also go to chiprun_out/chip_smoke.json.
@@ -61,12 +73,16 @@ REPLACES = {
     "range_count": "src/repro/kernels/range_filter.py:57",
     "point_probe": "src/repro/kernels/point_probe.py:47",
     "knn_topk": "src/repro/kernels/knn_topk.py:83",
+    "circle_count": "src/repro/kernels/circle_filter.py:63",
+    "point_in_polygon": "src/repro/kernels/point_in_polygon.py:52",
 }
 SOURCES = {
     "spline_search": "src/repro_torch/kernels/csrc/spline_search.cu",
     "range_count": "src/repro_torch/kernels/csrc/range_filter.cu",
     "point_probe": "src/repro_torch/kernels/csrc/point_probe.cu",
     "knn_topk": "src/repro_torch/kernels/csrc/knn_topk.cu",
+    "circle_count": "src/repro_torch/kernels/csrc/circle_filter.cu",
+    "point_in_polygon": "src/repro_torch/kernels/csrc/point_in_polygon.cu",
 }
 
 
@@ -141,10 +157,11 @@ def timed(fn, reps: int, match=None) -> dict:
     return {"ms": wall, "wall_ms": wall, "source": "cuda events"}
 
 
-def host_ms(fn, reps: int) -> float:
+def host_ms(fn, reps: int, warm: bool = True) -> float:
     """Median wall time of one synchronised call (after a warm call)."""
     import torch
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
@@ -184,7 +201,34 @@ def golden_inputs(ds, fit):
     qy = np.concatenate([y[ix[:16]],
                          rng.random(16).astype(np.float32) * 2 - 0.5])
     rects = ds.random_rects(16, 1e-4, part.bounds, seed=13, centers=(x, y))
-    return x, y, part, qx, qy, rects
+    cx, cy = x[ix[16:28]], y[ix[16:28]]
+    cr = np.full(12, 0.04, np.float32)
+    polys, ne = ds.random_polygons(8, part.bounds, seed=17)
+    return x, y, part, qx, qy, rects, cx, cy, cr, polys, ne
+
+
+def replay_golden(eng, qx, qy, rects, cx, cy, cr, polys, ne) -> dict:
+    """Every golden key, in gen_golden.py's order on one engine."""
+    out = {"point": eng.point_query(qx, qy).tolist(),
+           "range_count": eng.range_count(rects).tolist()}
+    cnt, vids, ok = eng.range_query(rects)
+    out.update(range_query_cnt=cnt.tolist(), range_query_vids=vids.tolist(),
+               range_query_ok=ok.tolist())
+    out["circle_count"] = eng.circle_count(cx, cy, cr).tolist()
+    d2, vid = eng.knn(qx, qy, 5, mode="pruned")
+    out.update(knn_d2=d2.tolist(), knn_vid=vid.tolist())
+    d2, vid = eng.knn(qx[:8], qy[:8], 3, mode="exact")
+    out.update(knn_exact_d2=d2.tolist(), knn_exact_vid=vid.tolist())
+    out["join_count"] = eng.join_count(polys, ne).tolist()
+    return out
+
+
+def same(a, b) -> bool:
+    """Bitwise equality of two results (a tensor or a tuple of them)."""
+    import torch
+    a = a if isinstance(a, tuple) else (a,)
+    b = b if isinstance(b, tuple) else (b,)
+    return len(a) == len(b) and all(torch.equal(u, v) for u, v in zip(a, b))
 
 
 def oracle_checks(x, y, qx, qy, rects, kx, ky, found, counts, d2, vid, k):
@@ -205,6 +249,15 @@ def oracle_checks(x, y, qx, qy, rects, kx, ky, found, counts, d2, vid, k):
                 f"knn oracle ids, query {i}")
 
 
+def range_oracle_ids(x, y, order, xs, rect):
+    """Ids of the points inside ``rect`` (closed), by numpy brute force
+    over the points whose x lies in the rect's x range (``xs`` is x
+    sorted, ``order`` its argsort)."""
+    cand = order[np.searchsorted(xs, rect[0], side="left"):
+                 np.searchsorted(xs, rect[2], side="right")]
+    return np.sort(cand[(y[cand] >= rect[1]) & (y[cand] <= rect[3])])
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -220,7 +273,9 @@ def main() -> int:
     from repro_torch.core.backends import TorchBackend
     from repro_torch.data import spatial as ds
     from repro_torch.kernels import _build
+    from repro_torch.kernels import circle_filter as CF
     from repro_torch.kernels import knn_topk as KNN
+    from repro_torch.kernels import point_in_polygon as PIP
     from repro_torch.kernels import point_probe as PP
     from repro_torch.kernels import range_filter as RF
     from repro_torch.kernels import spline_search as SS
@@ -240,7 +295,8 @@ def main() -> int:
     libs = _build.build_all()
     report["build_s"] = time.perf_counter() - t0
     require(set(libs) == {"spline_search", "range_filter", "point_probe",
-                          "knn_topk"}, f"kernel sources: {sorted(libs)}")
+                          "knn_topk", "circle_filter", "point_in_polygon"},
+            f"kernel sources: {sorted(libs)}")
     log(f"[build] {len(libs)} kernels in {report['build_s']:.1f} s")
     for name in libs:
         for line in _build.build_log(name).splitlines():
@@ -250,17 +306,14 @@ def main() -> int:
     # 3. golden replay with the CUDA kernels
     with open(ROOT / "tests" / "golden" / "spatial_golden.json") as f:
         golden = json.load(f)
-    gx, gy, gpart, gqx, gqy, grects = golden_inputs(ds, fit)
+    gx, gy, gpart, *gq = golden_inputs(ds, fit)
     geng = SpatialEngine(build_index(gx, gy, gpart, device=DEVICE),
                          EngineConfig(backend=BACKEND), device=DEVICE)
-    require(geng.point_query(gqx, gqy).tolist() == golden["point"],
-            "golden point")
-    require(geng.range_count(grects).tolist() == golden["range_count"],
-            "golden range_count")
-    gd2, gvid = geng.knn(gqx[:8], gqy[:8], 3, mode="exact")
-    require(gd2.tolist() == golden["knn_exact_d2"], "golden knn_exact_d2")
-    require(gvid.tolist() == golden["knn_exact_vid"], "golden knn_exact_vid")
-    log("[golden] point, range_count, knn_exact_d2, knn_exact_vid: bitwise")
+    got = replay_golden(geng, *gq)
+    require(set(got) == set(golden), f"golden keys {sorted(golden)}")
+    for key in golden:
+        require(got[key] == golden[key], f"golden {key}")
+    log(f"[golden] all {len(golden)} keys bitwise: {', '.join(golden)}")
 
     # 4. full-size build on the card
     t0 = time.perf_counter()
@@ -293,50 +346,114 @@ def main() -> int:
     rects = ds.random_rects(1024, 1e-5, part.bounds, seed=2, centers=(x, y))
     kx, ky = qx[256:512], qy[256:512]
     k = 10
+    # src/repro/launch/spatial.py's traffic at its default --queries 256
+    rq_rects = ds.random_rects(256, 1e-5, part.bounds, seed=3,
+                               centers=(x, y))
+    cix = rng.integers(0, N_POINTS, 256)
+    cx, cy = x[cix], y[cix]
+    cr = np.full(256, 0.01, np.float32)
+    polys, ne = ds.random_polygons(32, part.bounds, seed=4)
 
+    def circle_exact(e):
+        return e.executor._circle_exact(e.executor._circle_args((cx, cy, cr)))
+
+    # name -> (call on an engine, kernels the call must launch, the
+    # sticky key of an adaptive call's spec family)
+    main_path = {
+        "point_1024": (lambda e: e.point_query(qx, qy), {"point_probe"},
+                       None),
+        "range_count_1024": (lambda e: e.range_count(rects),
+                             {"spline_search", "range_count"}, None),
+        "knn10_exact_256": (lambda e: e.knn(kx, ky, k, "exact"),
+                            {"knn_topk"}, None),
+        "range_query_256": (lambda e: e.range_query(rq_rects), set(),
+                            ("range",)),
+        "circle_count_256": (lambda e: e.circle_count(cx, cy, cr), set(),
+                             ("circle", False)),
+        "circle_query_256": (lambda e: e.circle_query(cx, cy, cr), set(),
+                             ("circle", True)),
+        "circle_exact_256": (circle_exact,
+                             {"spline_search", "circle_count"}, None),
+        "knn10_pruned_256": (lambda e: e.knn(kx, ky, k), set(),
+                             ("knn", k)),
+        "join_windowed_32": (lambda e: e.join_count(polys, ne), set(),
+                             ("join",)),
+        "join_full_32": (lambda e: e.join_count(polys, ne, mode="full"),
+                         {"spline_search", "point_in_polygon"}, None),
+    }
+    res, first_ms, peak, path_launches, tiers = {}, {}, {}, {}, {}
     KERN.reset_launch_counts()
-    found = eng.point_query(qx, qy)
-    counts = eng.range_count(rects)
-    d2, vid = eng.knn(kx, ky, k, mode="exact")
-    torch.cuda.synchronize()
+    for name, (fn, needs, base) in main_path.items():
+        before = KERN.launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res[name] = fn(eng)
+        torch.cuda.synchronize()
+        first_ms[name] = (time.perf_counter() - t0) * 1e3
+        peak[name] = torch.cuda.max_memory_allocated()
+        after = KERN.launch_counts()
+        path_launches[name] = {n: after[n] - before[n] for n in after
+                               if after[n] > before[n]}
+        require(all(n in path_launches[name] for n in needs),
+                f"{name} launched {path_launches[name]}, needs {needs}")
+        tiers[name] = ex._last_tier.get(base)
+        log(f"[main] {name}: first call {first_ms[name]:.1f} ms, tier "
+            f"{tiers[name]}, launches {path_launches[name]}, "
+            f"max_memory_allocated {peak[name]}")
     launches = KERN.launch_counts()
     log(f"[main] launches {launches}")
     require(all(n > 0 for n in launches.values()),
             f"a kernel of the main path never launched: {launches}")
+    report.update(first_call_ms=first_ms, max_memory_allocated_per_call=peak,
+                  path_launches=path_launches, tiers=tiers)
 
+    found = res["point_1024"]
+    counts = res["range_count_1024"]
+    d2, vid = res["knn10_exact_256"]
     require(found.shape == (1024,) and found.dtype == torch.bool, "point")
     require(counts.shape == (1024,) and counts.dtype == torch.int32, "rc")
     require(d2.shape == (256, k) and bool(torch.isfinite(d2).all()), "knn")
     require(bool(found[:512].all()), "every data point is found")
     plain = SpatialEngine(index, EngineConfig(backend="torch"),
                           device=DEVICE)
-    require(torch.equal(found, plain.point_query(qx, qy)), "point vs plain")
-    require(torch.equal(counts, plain.range_count(rects)), "rc vs plain")
-    pd2, pvid = plain.knn(kx, ky, k, mode="exact")
-    require(torch.equal(d2, pd2) and torch.equal(vid, pvid), "knn vs plain")
+    for name, (fn, _, _) in main_path.items():
+        require(same(res[name], fn(plain)), f"{name}: cuda vs torch backend")
     oracle_checks(x, y, qx, qy, rects, kx, ky, found.cpu().numpy(),
                   counts.cpu().numpy(), d2.cpu().numpy(), vid.cpu().numpy(),
                   k)
-    log("[main] cuda == torch backend bitwise; numpy oracle agrees on 64 "
-        f"queries each; mean range count {float(counts.float().mean()):.1f}")
+    require(torch.equal(res["join_windowed_32"], res["join_full_32"]),
+            "join windowed == full")
+    require(torch.equal(res["knn10_pruned_256"][0], d2),
+            "pruned kNN d2 == exact kNN d2")
+    ccount = res["circle_count_256"]
+    require(torch.equal(ccount, res["circle_exact_256"]),
+            "circle_count == the exact circle program")
+    require(torch.equal(res["circle_query_256"][0], ccount),
+            "circle_query counts == circle_count")
+    rq_cnt, rq_vids, rq_ok = (a.cpu().numpy() for a in res["range_query_256"])
+    order = np.argsort(x, kind="stable")
+    xs = x[order]
+    for i in np.flatnonzero(rq_ok):
+        want = range_oracle_ids(x, y, order, xs, rq_rects[i])
+        got_ids = np.sort(rq_vids[i][rq_vids[i] >= 0])
+        require(np.array_equal(got_ids, want) and rq_cnt[i] == len(want),
+                f"range query {i} vs numpy brute force")
+    log("[main] cuda == torch backend bitwise on every call; numpy oracle "
+        f"agrees on 64 queries each and on {int(rq_ok.sum())} of 256 range "
+        f"queries (those ok); join windowed == full; pruned == exact d2; "
+        f"circle_count == exact program; mean range count "
+        f"{float(counts.float().mean()):.1f}, mean circle count "
+        f"{float(ccount.float().mean()):.1f}, join counts "
+        f"{res['join_full_32'].tolist()}")
 
-    calls = {
-        "point_1024": lambda: eng.point_query(qx, qy),
-        "range_count_1024": lambda: eng.range_count(rects),
-        "knn10_exact_256": lambda: eng.knn(kx, ky, k, "exact"),
-    }
-    plain_calls = {
-        "point_1024": lambda: plain.point_query(qx, qy),
-        "range_count_1024": lambda: plain.range_count(rects),
-        "knn10_exact_256": lambda: plain.knn(kx, ky, k, "exact"),
-    }
-    lat = {n: host_ms(fn, 5) for n, fn in calls.items()}
-    lat_plain = {n: host_ms(fn, 3) for n, fn in plain_calls.items()}
-    report["batch_ms"] = lat
-    report["batch_ms_torch_backend"] = lat_plain
+    lat, lat_plain = {}, {}
     report["where"] = {}
-    for name, fn in calls.items():
-        prof = device_profile(fn, 3)
+    for name, (fn, _, _) in main_path.items():
+        slow = first_ms[name] > 1000
+        lat[name] = host_ms(lambda: fn(eng), 1 if slow else 5)
+        lat_plain[name] = host_ms(lambda: fn(plain), 1 if slow else 3)
+        prof = device_profile(lambda: fn(eng), 1 if slow else 3)
         busy = sum(prof.values())
         top = sorted(prof.items(), key=lambda kv: -kv[1])[:5]
         report["where"][name] = {"device_busy_ms": busy,
@@ -346,6 +463,8 @@ def main() -> int:
             f"{busy:.3f} ms, idle share {1.0 - busy / lat[name]:.3f}), "
             f"torch backend {lat_plain[name]:.3f} ms")
         log(f"[where] {name}: " + "; ".join(f"{n} {t:.4f}" for n, t in top))
+    report["batch_ms"] = lat
+    report["batch_ms_torch_backend"] = lat_plain
 
     # 6. each kernel against its plain version on the inputs the main
     # path gives it: every launch of one call (one per partition chunk,
@@ -368,16 +487,20 @@ def main() -> int:
     def sweep(fn, arglist, **kws):
         return lambda: [fn(*a, **kws) for a in arglist]
 
-    def entry(name, err, t, pt, nbytes, nops, lt):
+    def entry(name, err, t, pt, nbytes, nops, lt, call):
+        """One kernel row; ``call`` is the main-path call whose launches
+        were timed (``launches`` counts the whole main path's)."""
         t_bytes = nbytes / PEAK_BYTES * 1e3
         t_ops = nops / PEAK_F32 * 1e3
+        per_call = path_launches[call][name]
         row = {"name": name, "route": "cuda", "source": SOURCES[name],
                "replaces": REPLACES[name], "launches": launches[name],
                "max_abs_err": err, "ms": t["ms"], "plain_ms": pt["ms"],
                "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                "library_ms": None if lt is None else lt["ms"],
-               "ms_per_launch": t["ms"] / launches[name],
+               "timed_call": call, "timed_call_launches": per_call,
+               "ms_per_launch": t["ms"] / per_call,
                "ms_source": t["source"], "wall_ms": t["wall_ms"],
                "plain_wall_ms": pt["wall_ms"], "bytes": nbytes, "ops": nops}
         rows.append(row)
@@ -406,7 +529,7 @@ def main() -> int:
     nbytes = 4 * (nq2 * len(chunks) + p_total * (2 * m + r + 4) +
                   covered(st, st + probe, n_pad) + p_total * nq2)
     entry("spline_search", err, t, pt, nbytes,
-          p_total * nq2 * (probe + 16), lt)
+          p_total * nq2 * (probe + 16), lt, "range_count_1024")
 
     # range_count: every chunk. Bytes: the rects, bounds and flags, x and
     # y over the union of the active [s, min(e, count)) intervals, the
@@ -430,7 +553,8 @@ def main() -> int:
     nq = rect_t.shape[0]
     nbytes = (16 * nq * len(chunks) + 9 * p_total * nq + 4 * p_total +
               8 * covered(s_all, hi_all, n_pad) + 4 * p_total * nq)
-    entry("range_count", err, t, pt, nbytes, 4 * pairs, None)
+    entry("range_count", err, t, pt, nbytes, 4 * pairs, None,
+          "range_count_1024")
 
     # point_probe: the first-match and the overflow candidate sets. Bytes:
     # the queries, key/x/y over the union of the windows, the output.
@@ -457,7 +581,7 @@ def main() -> int:
     win = covered(flat, flat + probe, p_total * n_pad)
     entry("point_probe", err, t, pt,
           len(pp_args) * nq * 24 + 12 * win + 4 * len(pp_args) * nq,
-          3 * len(pp_args) * nq * probe, None)
+          3 * len(pp_args) * nq * probe, None, "point_1024")
 
     # knn_topk: every chunk. Bytes: the queries, x and y of the valid
     # points, the outputs.
@@ -476,10 +600,75 @@ def main() -> int:
     npts = int(parts["count"].sum())
     entry("knn_topk", err, t, pt,
           8 * npts + 8 * nq * len(chunks) + 8 * p_total * nq * k,
-          5 * nq * npts, None)
+          5 * nq * npts, None, "knn10_exact_256")
+
+    # circle_count: the exact circle program's chunks. Bytes: the MBRs and
+    # circles, bounds and flags, x and y over the union of the active
+    # [s, min(e, count)) intervals, the output; about ten operations per
+    # scanned position.
+    crect, cklo, ckhi, ccirc = ex._circle_args((cx, cy, cr))
+    c_overlap = Q.rect_overlaps_box(crect, ex.bounds)
+    cc_args, hi_all, s_all = [], [], []
+    for lo, ch in chunks:
+        s, e = tb.bounds(ch, cklo, ckhi, **kw)
+        act = c_overlap[:, lo:lo + c].t().contiguous()
+        cc_args.append((crect, s, e, ccirc, act, ch["count"], ch["x"],
+                        ch["y"]))
+        s_all.append(s)
+        hi_all.append(torch.where(act, torch.minimum(e, ch["count"][:, None]),
+                                  s))
+    err = 0
+    for a in cc_args:
+        err = max(err, int((CF.circle_count(*a) -
+                            CF.circle_count_plain(*a)).abs().max()))
+    t = timed(sweep(CF.circle_count, cc_args), 20, "circle_count_kernel")
+    pt = timed(sweep(CF.circle_count_plain, cc_args), 1)
+    s_all, hi_all = torch.cat(s_all), torch.cat(hi_all)
+    pairs = int((hi_all - s_all).clamp(min=0).sum())
+    nq = crect.shape[0]
+    nbytes = (28 * nq * len(chunks) + 9 * p_total * nq + 4 * p_total +
+              8 * covered(s_all, hi_all, n_pad) + 4 * p_total * nq)
+    entry("circle_count", err, t, pt, nbytes, 10 * pairs, None,
+          "circle_exact_256")
+
+    # point_in_polygon (the fused join count): the full join's chunks.
+    # Bytes: the polygons, MBRs, bounds and flags, x and y over the union
+    # of the active intervals, the output; operations: about 8 per edge
+    # per scanned point inside the polygon's MBR.
+    jpoly, jne, jmbr_k = ex._join_args((polys, ne))
+    jmbrs = jmbr_k[:, :4].contiguous()
+    jklo, jkhi = jmbr_k[:, 4].contiguous(), jmbr_k[:, 5].contiguous()
+    j_overlap = Q.rect_overlaps_box(jmbrs, ex.bounds)
+    jc_args, hi_all, s_all = [], [], []
+    in_mbr_edges = 0
+    for lo, ch in chunks:
+        s, e = tb.bounds(ch, jklo, jkhi, **kw)
+        act = j_overlap[:, lo:lo + c].t().contiguous()
+        a = (jpoly, jne, jmbrs, s, e, act, ch["count"], ch["x"], ch["y"])
+        jc_args.append(a)
+        s_all.append(s)
+        hi_all.append(torch.where(act, torch.minimum(e, ch["count"][:, None]),
+                                  s))
+        in_mbr = RF.range_mask(jmbrs, s, e, ch["count"], ch["x"], ch["y"],
+                               act).sum(-1)                   # (C, PG)
+        in_mbr_edges += int((in_mbr * jne[None, :]).sum())
+    err = 0
+    for a in jc_args:
+        err = max(err, int((PIP.join_count(*a) -
+                            PIP.join_count_plain(*a)).abs().max()))
+    t = timed(sweep(PIP.join_count, jc_args), 20, "join_count_kernel")
+    pt = timed(sweep(PIP.join_count_plain, jc_args), 1)
+    s_all, hi_all = torch.cat(s_all), torch.cat(hi_all)
+    npg, e_max = jpoly.shape[0], jpoly.shape[1]
+    nbytes = ((8 * e_max + 20) * npg * len(chunks) + 9 * p_total * npg +
+              4 * p_total + 8 * covered(s_all, hi_all, n_pad) +
+              4 * p_total * npg)
+    entry("point_in_polygon", err, t, pt, nbytes, 8 * in_mbr_edges, None,
+          "join_full_32")
 
     for row in rows:
         require(row["max_abs_err"] == 0, f"{row['name']} differs from plain")
+    require(len(rows) == len(KERN.KERNELS), "a kernel row is missing")
     report["kernels"] = rows
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

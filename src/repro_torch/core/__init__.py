@@ -6,12 +6,14 @@ from repro_torch.core.engine import SpatialEngine
 from repro_torch.core.executor import Executor
 from repro_torch.core.keys import KeySpec
 from repro_torch.core.partitioner import Partitioner, fit
-from repro_torch.core.plan import (EngineConfig, Knn, PointQuery,
-                                   QuerySpec, RangeCount)
+from repro_torch.core.plan import (CircleQuery, EngineConfig, Knn,
+                                   PointQuery, QuerySpec, RangeCount,
+                                   RangeQuery, SpatialJoin)
 
 __all__ = [
-    "EngineConfig", "Executor", "KeySpec", "Knn", "LearnedSpatialIndex",
-    "Partitioner", "PointQuery", "QuerySpec", "RangeCount", "SpatialEngine",
+    "CircleQuery", "EngineConfig", "Executor", "KeySpec", "Knn",
+    "LearnedSpatialIndex", "Partitioner", "PointQuery", "QuerySpec",
+    "RangeCount", "RangeQuery", "SpatialEngine", "SpatialJoin",
     "assign_partitions", "build_index", "fit", "fit_partitions",
     "probe_for",
 ]

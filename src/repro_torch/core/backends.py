@@ -14,8 +14,12 @@ their grid.
 
   torch   the plain PyTorch stages (the kernels' plain versions), on any
           device; bitwise the JAX package's ``xla`` backend.
-  cuda    routes lower_bound, range_scan, point_scan and knn_scan to the
-          hand-written CUDA kernels in ``repro_torch/kernels``.
+  cuda    routes lower_bound, range_scan, circle_scan, point_scan,
+          knn_scan and join_scan to the hand-written CUDA kernels in
+          ``repro_torch/kernels``.
+
+The windowed programs' gathers (``core/queries.py``) are plain PyTorch
+under both backends, as the reference keeps them on the XLA gather path.
 
 ``resolve_backend("auto", device)`` picks cuda on a CUDA device and torch
 on the CPU. ``torch`` on a CUDA device is allowed: it is how a kernel is
@@ -27,7 +31,9 @@ import torch
 
 from repro_torch._num import stable_topk
 from repro_torch.core.plan import BACKENDS
+from repro_torch.kernels import circle_filter as _cf
 from repro_torch.kernels import knn_topk as _knn
+from repro_torch.kernels import point_in_polygon as _pip
 from repro_torch.kernels import point_probe as _pp
 from repro_torch.kernels import range_filter as _rf
 from repro_torch.kernels import spline_search as _ss
@@ -45,6 +51,13 @@ def _map_vid(vid, neg, idx):
     safe = idx.clamp(0, n_pad - 1).to(torch.int64).reshape(c, -1)
     out = torch.gather(vid, 1, safe).reshape(idx.shape)
     return torch.where((idx >= 0) & (neg > _knn.NEG), out, -1)
+
+
+def _active(active, s):
+    """The kernels' (C, Q) active flags: all pairs when None."""
+    if active is None:
+        return torch.ones(s.shape, dtype=torch.bool, device=s.device)
+    return active.contiguous()
 
 
 class TorchBackend:
@@ -78,6 +91,18 @@ class TorchBackend:
         """(C, Q) exact in-rect counts within learned [s, e)."""
         return _rf.range_count_plain(rects, s, e, active, ch["count"],
                                      ch["x"], ch["y"])
+
+    def circle_scan(self, ch, rects, s, e, circ, active=None):
+        """(C, Q) exact in-circle counts (MBR filter + distance refine)
+        within learned [s, e)."""
+        return _cf.circle_count_plain(rects, s, e, circ, active,
+                                      ch["count"], ch["x"], ch["y"])
+
+    def join_scan(self, ch, polys, n_edges, mbrs, s, e, active=None):
+        """(C, PG) per-polygon contained-point counts within learned
+        [s, e) (MBR filter + ray casting)."""
+        return _pip.join_count_plain(polys, n_edges, mbrs, s, e, active,
+                                     ch["count"], ch["x"], ch["y"])
 
     def point_windows(self, parts, pid, start, probe: int):
         """Each query's (probe,) key/x/y window from ITS partition."""
@@ -119,10 +144,17 @@ class CudaBackend(TorchBackend):
                                  probe=probe, radix_bits=radix_bits)
 
     def range_scan(self, ch, rects, s, e, active=None):
-        if active is None:
-            active = torch.ones(s.shape, dtype=torch.bool, device=s.device)
-        return _rf.range_count(rects, s, e, active.contiguous(),
-                               ch["count"], ch["x"], ch["y"])
+        return _rf.range_count(rects, s, e, _active(active, s), ch["count"],
+                               ch["x"], ch["y"])
+
+    def circle_scan(self, ch, rects, s, e, circ, active=None):
+        return _cf.circle_count(rects, s, e, circ, _active(active, s),
+                                ch["count"], ch["x"], ch["y"])
+
+    def join_scan(self, ch, polys, n_edges, mbrs, s, e, active=None):
+        return _pip.join_count(polys, n_edges, mbrs.contiguous(), s, e,
+                               _active(active, s), ch["count"], ch["x"],
+                               ch["y"])
 
     def point_scan(self, parts, pid, start, qkf, qx, qy, *, probe: int):
         hits = _pp.point_probe(pid.to(torch.int32), start.to(torch.int32),

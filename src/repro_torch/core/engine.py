@@ -4,10 +4,14 @@
     eng = SpatialEngine(build_index(x, y, fit("kdtree", x, y, 64)))
     found = eng.point_query(qx, qy)
     counts = eng.range_count(rects)
-    d2, vid = eng.knn(qx, qy, 10, mode="exact")
+    cnt, vids, ok = eng.range_query(rects)
+    inside = eng.circle_count(cx, cy, r)
+    d2, vid = eng.knn(qx, qy, 10)                 # pruned; or mode="exact"
+    per_poly = eng.join_count(polys, n_edges)     # or mode="full"
 
-Both build_index and SpatialEngine run on the card by default; pass
-``device="cpu"`` to run on the CPU.
+The adaptive methods run the strict escalation loop (``strict=True``),
+as the reference's facade does. Both build_index and SpatialEngine run
+on the card by default; pass ``device="cpu"`` to run on the CPU.
 """
 from __future__ import annotations
 
@@ -15,8 +19,9 @@ from typing import Optional
 
 from repro_torch.core.build import LearnedSpatialIndex
 from repro_torch.core.executor import Executor
-from repro_torch.core.plan import (PENDING, EngineConfig, Knn, PointQuery,
-                                   RangeCount)
+from repro_torch.core.plan import (CircleQuery, EngineConfig, Knn,
+                                   PointQuery, RangeCount, RangeQuery,
+                                   SpatialJoin)
 
 
 class SpatialEngine:
@@ -51,10 +56,27 @@ class SpatialEngine:
         """Exact in-rect counts (paper §4.2): (Q,) int32."""
         return self.executor.run(RangeCount(), rects)
 
+    def range_query(self, rects, cap: Optional[int] = None):
+        """Windowed materializing range query: (counts, vids (Q, W)
+        padded -1, ok). ``cap`` overrides the starting window once."""
+        return self.executor.run(RangeQuery(cap=cap), rects, strict=True)
+
+    def circle_count(self, cx, cy, r):
+        """Circle range query via MBR + distance refine (paper Remark 2):
+        counts (Q,) int32."""
+        return self.executor.run(CircleQuery(), cx, cy, r, strict=True)
+
+    def circle_query(self, cx, cy, r):
+        """Materializing circle query: (counts, vids padded -1, ok)."""
+        return self.executor.run(CircleQuery(materialize=True),
+                                 cx, cy, r, strict=True)
+
     def knn(self, qx, qy, k: int, mode: str = "pruned"):
-        """k nearest neighbours: (dist2 (Q, k), vid (Q, k)). Only
-        mode="exact" is ported; "pruned" raises NotImplementedError."""
-        if mode != "exact":
-            raise NotImplementedError(
-                f"knn(mode={mode!r}) is not ported yet: it needs {PENDING}")
+        """Exact k nearest neighbours: (dist2 (Q, k), vid (Q, k))."""
         return self.executor.run(Knn(k=k, mode=mode), qx, qy, strict=True)
+
+    def join_count(self, polys, n_edges, mode: str = "windowed"):
+        """Counts (PG,) of points inside each polygon. polys (PG, E, 2)
+        padded vertex lists; n_edges (PG,) int32."""
+        return self.executor.run(SpatialJoin(mode=mode), polys, n_edges,
+                                 strict=True)

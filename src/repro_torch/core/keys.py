@@ -70,9 +70,23 @@ def spread_bits(v: torch.Tensor) -> torch.Tensor:
     return v
 
 
+def compact_bits(v: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`spread_bits` (decoding)."""
+    v = v & 0x55555555
+    v = (v | (v >> 1)) & 0x33333333
+    v = (v | (v >> 2)) & 0x0F0F0F0F
+    v = (v | (v >> 4)) & 0x00FF00FF
+    v = (v | (v >> 8)) & 0x0000FFFF
+    return v
+
+
 def morton_encode(qx: torch.Tensor, qy: torch.Tensor) -> torch.Tensor:
     """Interleave quantized coords: x gets even bits, y odd bits."""
     return spread_bits(qx) | (spread_bits(qy) << 1)
+
+
+def morton_decode(key: torch.Tensor):
+    return compact_bits(key), compact_bits(key >> 1)
 
 
 def make_keys(x: torch.Tensor, y: torch.Tensor, spec: KeySpec):
@@ -99,3 +113,72 @@ def rect_key_range(rect: torch.Tensor, spec: KeySpec):
 def keys_to_f32(keys: torch.Tensor) -> torch.Tensor:
     """Exact float32 image of (<= 24 bit) integer keys."""
     return keys.to(torch.float32)
+
+
+_U32 = 0xFFFFFFFF
+
+
+def _msb_position(v: torch.Tensor) -> torch.Tensor:
+    """Highest set bit position of a uint32 value (0 -> 0), integer-exact.
+    The reference's SWAR popcount multiplies in uint32, which wraps: the
+    product is masked to 32 bits before the shift."""
+    v = v | (v >> 1)
+    v = v | (v >> 2)
+    v = v | (v >> 4)
+    v = v | (v >> 8)
+    v = v | (v >> 16)
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    pc = ((v * 0x01010101) & _U32) >> 24
+    return torch.clamp(pc - 1, min=0)
+
+
+def z_split_intervals(qxl, qyl, qxh, qyh, valid, *, depth: int = 2):
+    """Decompose a quantized rect's morton interval (BIGMIN-style).
+
+    Splitting the rect at the most significant differing morton bit,
+    ``depth`` times, gives up to 2^depth DISJOINT subintervals that still
+    cover every in-rect key. Inputs are (...,) int64 quantized corners
+    (values of the reference's uint32) and validity. Returns (zlo, zhi,
+    piece_valid), each with a new trailing 2^depth axis.
+
+    The reference computes in uint32; ``hbx - 1`` and ``hby - 1`` wrap
+    there when hbx or hby is 0 (only in invalid pieces), so both are
+    masked to 32 bits here and every later step sees the same value.
+    """
+    pieces = [(qxl, qyl, qxh, qyh, valid)]
+    for _ in range(depth):
+        nxt = []
+        for (xl, yl, xh, yh, v) in pieces:
+            diff = morton_encode(xl, yl) ^ morton_encode(xh, yh)
+            msb = _msb_position(diff)
+            even = (msb % 2) == 0          # even bits carry x
+            b = msb // 2
+            hbx = (xh >> b) << b
+            hby = (yh >> b) << b
+            nosplit = diff == 0
+            x1h = torch.where(nosplit, xh,
+                              torch.where(even, (hbx - 1) & _U32, xh))
+            y1h = torch.where(nosplit, yh,
+                              torch.where(even, yh, (hby - 1) & _U32))
+            x2l = torch.where(even, hbx, xl)
+            y2l = torch.where(even, yl, hby)
+            nxt.append((xl, yl, x1h, y1h, v))
+            nxt.append((x2l, y2l, xh, yh, v & ~nosplit))
+        pieces = nxt
+    zlo = torch.stack([morton_encode(p[0], p[1]) for p in pieces], -1)
+    zhi = torch.stack([morton_encode(p[2], p[3]) for p in pieces], -1)
+    pv = torch.stack([p[4] for p in pieces], -1)
+    return zlo, zhi, pv
+
+
+def data_bounds(x, y, pad_frac: float = 1e-6):
+    """Host helper: tight data bounds, padded so max coords quantize inside."""
+    x = np.asarray(x)
+    y = np.asarray(y)
+    xlo, xhi = float(x.min()), float(x.max())
+    ylo, yhi = float(y.min()), float(y.max())
+    dx = max(xhi - xlo, 1e-12) * pad_frac
+    dy = max(yhi - ylo, 1e-12) * pad_frac
+    return (xlo, ylo, xhi + dx, yhi + dy)

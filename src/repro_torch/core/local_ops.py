@@ -4,11 +4,19 @@ Each class is a program ``fn(parts, bounds, *query_args)`` with
 attribute ``n_query_args``. ``parts`` is the dict of (P, ...) partition
 tensors, ``bounds`` the (P, 4) partition boxes (the global index).
 
-Every program is staged lookup -> scan -> merge: lookup and scan come
-from the backend (core/backends.py: plain PyTorch or the CUDA kernels),
-the merge (a sum of counts, an OR of flags, a top-k merge) stays here.
-Partition-sweep programs walk the partitions in chunks of
+Every exact program is staged lookup -> scan -> merge: lookup and scan
+come from the backend (core/backends.py: plain PyTorch or the CUDA
+kernels), the merge (a sum of counts, an OR of flags, a top-k merge)
+stays here. Partition-sweep programs walk the partitions in chunks of
 ``cfg.part_chunk``; the backend takes a whole chunk per call.
+
+The windowed programs (``_RangeWindowLocal``, ``_CircleWindowLocal``,
+``_KnnPrunedLocal``, ``_JoinLocal``) are query-centric: each query picks
+its <= cand candidate partitions from the global boxes and gathers only
+<= cap positions per learned subinterval (``queries.*_window_at``, plain
+PyTorch under both backends). Every output row is a function of its
+query row alone, so a call whose (Q, C, S, cap) planes would pass
+``ROW_PLANE_ELEMS`` runs in query-row chunks with the same result.
 """
 from __future__ import annotations
 
@@ -17,12 +25,17 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch._num import fma_f32, stable_topk
 from repro_torch.core import keys as K
 from repro_torch.core import queries as Q
 from repro_torch.core.build import LearnedSpatialIndex
 from repro_torch.core.plan import EngineConfig
+from repro_torch.kernels import knn_topk as _knn
 
 EMPTY_BOX = np.asarray([3e38, 3e38, -3e38, -3e38], np.float32)
+NEG = _knn.NEG              # empty kNN slot, as the reference's
+ROW_PLANE_ELEMS = 1 << 26   # windowed-plane elements per call before the
+                            # call splits into query-row chunks (memory)
 
 
 def pad_partitions(index: LearnedSpatialIndex, multiple: int
@@ -81,6 +94,96 @@ def _chunks(parts: dict, chunk: int):
         yield lo, {k: v[lo:lo + c] for k, v in parts.items()}
 
 
+def _edge_mask(polys, n_edges):
+    e = polys.shape[1]
+    return (torch.arange(e, device=polys.device)[None, :, None] <
+            n_edges[:, None, None])
+
+
+def _top_candidates(flags, c: int):
+    """First ``c`` true columns per row of (Q, P) flags.
+
+    A stable descending sort of a column-priority score, as the
+    reference's ``lax.top_k`` (ties to the lowest index): true columns
+    ascending, then false columns ascending. Returns (pids (Q, c) int64,
+    valid (Q, c), within (Q,) — True when the row had <= c candidates,
+    i.e. the result is complete)."""
+    p = flags.shape[1]
+    c = min(c, p)
+    col = torch.arange(p, dtype=torch.int32, device=flags.device)
+    score = torch.where(flags, p - col, 0)
+    _, order = stable_topk(score, c)
+    valid = torch.gather(flags, 1, order)
+    within = flags.sum(1, dtype=torch.int32) <= c
+    return order, valid, within
+
+
+def _compact_ids(vids, keep: int):
+    """Order-preserving stream compaction of (Q, W) -1-padded ids to the
+    first ``keep`` slots: the running count of valid ids gives each
+    output slot its source position (searchsorted on the monotone
+    cumsum), so the kept window is one gather. Compacting a compacted
+    carry placed BEFORE a raw chunk keeps exactly the first ``keep``
+    valid ids in plane order."""
+    qn, w = vids.shape
+    keep = min(keep, w)
+    cum = torch.cumsum((vids >= 0).to(torch.int32), 1, dtype=torch.int32)
+    tgt = torch.arange(1, keep + 1, dtype=torch.int32, device=vids.device)
+    idx = torch.searchsorted(cum, tgt.expand(qn, keep).contiguous())
+    kept = torch.gather(vids, 1, torch.clamp(idx, max=w - 1))
+    return torch.where(tgt[None, :] <= cum[:, -1:], kept, -1)
+
+
+def _keep_window(vids, cnt, cap: int, keep=None):
+    """Compact materialized ids to the front, bounded keep width
+    (``keep`` overrides the default bound: the chunked circle compaction
+    passes the monolithic plane's bound so its output is bitwise the
+    unchunked one). Returns (vids (Q, keep), cap_ok (Q,) — True when no
+    id was dropped)."""
+    w = vids.shape[1]
+    if keep is None:
+        keep = min(w, max(cap * 8, 256))
+    kept = _compact_ids(vids, keep)
+    cap_ok = (kept >= 0).sum(1, dtype=torch.int32) == cnt
+    return kept, cap_ok
+
+
+def _chunk_cands(cc: int, *arrays):
+    """Split candidate-axis arrays (Q, C, ...) into (nch, Q, cc, ...),
+    padding the candidate axis with inactive slots (EMPTY_BOX boxes,
+    False masks, pid 0) that can never match."""
+    c = arrays[0].shape[1]
+    nch = -(-c // cc)
+    pad = nch * cc - c
+
+    def prep(a):
+        if pad:
+            if a.dtype == torch.float32 and a.dim() == 3:   # boxes
+                blk = torch.as_tensor(EMPTY_BOX, device=a.device).expand(
+                    a.shape[0], pad, 4)
+            else:
+                blk = torch.zeros((a.shape[0], pad) + tuple(a.shape[2:]),
+                                  dtype=a.dtype, device=a.device)
+            a = torch.cat([a, blk], 1)
+        a = a.reshape((a.shape[0], nch, cc) + tuple(a.shape[2:]))
+        return a.movedim(1, 0)
+
+    return tuple(prep(a) for a in arrays)
+
+
+def _row_chunks(fn, plane_per_row: int, *q):
+    """``fn(*q)`` on query-row chunks whose windowed planes stay within
+    ROW_PLANE_ELEMS, outputs concatenated along the row axis. Every
+    output row is a function of its query row alone, so the result is
+    the unchunked call's."""
+    qn = q[0].shape[0]
+    rows = max(1, ROW_PLANE_ELEMS // max(1, plane_per_row))
+    if rows >= qn:
+        return fn(*q)
+    outs = [fn(*(a[i:i + rows] for a in q)) for i in range(0, qn, rows)]
+    return tuple(torch.cat(col) for col in zip(*outs))
+
+
 class _LocalFn:
     def __init__(self, index: LearnedSpatialIndex, cfg: EngineConfig,
                  backend):
@@ -88,7 +191,17 @@ class _LocalFn:
         self.cfg = cfg
         self.backend = backend
         self.n_pad = index.n_pad
+        self.spec = index.key_spec
         self.overflow = index.overflow
+        self.p_total = index.num_partitions
+        # per (query, candidate, subinterval): the lookup's knot row and
+        # probe windows for both ends, beside the cap-wide gather
+        self.lookup_elems = 2 * (index.knot_keys.shape[1] + index.probe)
+
+    def _plane(self, cand: int, cap: int, z_depth: int = 2) -> int:
+        """Windowed-plane elements per query row."""
+        return min(cand, self.p_total) * (1 << z_depth) * (
+            cap + self.lookup_elems)
 
 
 class _PointLocal(_LocalFn):
@@ -147,6 +260,124 @@ class _RangeCountLocal(_LocalFn):
         return acc
 
 
+class _CircleCountLocal(_LocalFn):
+    """Exact full-refine circle count (the adaptive circle's fallback):
+    every chunk's learned [s, e) bounds of the circles' MBR keys, then
+    the backend's circle scan."""
+
+    n_query_args = 4
+
+    def __call__(self, parts, bounds, rects, klo, khi, circ):
+        bk = self.backend
+        overlap = Q.rect_overlaps_box(rects, bounds)          # (Q, P)
+        acc = torch.zeros(rects.shape[0], dtype=torch.int32,
+                          device=rects.device)
+        for lo, ch in _chunks(parts, self.cfg.part_chunk):
+            c = ch["count"].shape[0]
+            act = overlap[:, lo:lo + c].t().contiguous()      # (C, Q)
+            s, e = bk.bounds(ch, klo, khi, **self.kw)         # lookup
+            cnt = bk.circle_scan(ch, rects, s, e, circ, active=act)
+            acc += cnt.sum(0, dtype=torch.int32)              # merge
+        return acc
+
+
+class _RangeWindowLocal(_LocalFn):
+    """Query-centric windowed range query (the paper's two-phase shape):
+    the <= cand candidate partitions per query from the global boxes,
+    then only each candidate's learned key subintervals (cap slots
+    each). Returns (counts, vids (Q, keep) -1-padded, ok)."""
+
+    n_query_args = 3
+
+    def __init__(self, index, cfg, backend, cap, cand):
+        super().__init__(index, cfg, backend)
+        self.cap = min(cap, index.n_pad)
+        self.cand = cand
+
+    def __call__(self, parts, bounds, rects, klo, khi):
+        del klo, khi   # recomputed per candidate with clipping
+        return _row_chunks(lambda r: self._rows(parts, bounds, r),
+                           self._plane(self.cand, self.cap), rects)
+
+    def _rows(self, parts, bounds, rects):
+        qn = rects.shape[0]
+        overlap = Q.rect_overlaps_box(rects, bounds)
+        pids, valid, within = _top_candidates(overlap, self.cand)
+        cnts, vids, ok, _, _ = Q.range_window_at(
+            parts, bounds[pids], pids, valid, rects, self.spec,
+            cap=self.cap, **self.kw)
+        cnt = cnts.sum(1, dtype=torch.int32)
+        okq = (ok | ~valid).all(1)
+        vids, cap_ok = _keep_window(vids.reshape(qn, -1), cnt, self.cap)
+        return cnt, vids, okq & within & cap_ok
+
+
+class _CircleWindowLocal(_LocalFn):
+    """Windowed circle query: the distance refine (paper Remark 2) runs
+    inside the per-subinterval window gather (Q.circle_window_at). Exact
+    when ok; the executor escalates, or falls back to _CircleCountLocal.
+    Returns (counts, ok), or (counts, vids, ok) when materializing."""
+
+    n_query_args = 4
+
+    def __init__(self, index, cfg, backend, cap, cand,
+                 materialize: bool):
+        super().__init__(index, cfg, backend)
+        self.cap = min(cap, index.n_pad)
+        self.cand = cand
+        self.materialize = materialize
+
+    def __call__(self, parts, bounds, rects, klo, khi, circ):
+        del klo, khi   # recomputed per candidate with clipping
+        return _row_chunks(lambda r, cr: self._rows(parts, bounds, r, cr),
+                           self._plane(self.cand, self.cap), rects, circ)
+
+    def _rows(self, parts, bounds, rects, circ):
+        qn = rects.shape[0]
+        overlap = Q.rect_overlaps_box(rects, bounds)
+        pids, valid, within = _top_candidates(overlap, self.cand)
+        boxes = bounds[pids]
+        c = pids.shape[1]
+        cc = max(1, self.cfg.scan_chunk_elems // max(1, qn * 4 * self.cap))
+        if self.materialize and cc < c:
+            return self._chunked(parts, rects, circ, boxes, pids, valid,
+                                 within, cc)
+        cnts, vids, ok = Q.circle_window_at(
+            parts, boxes, pids, valid, rects, circ, self.spec,
+            cap=self.cap, materialize=self.materialize, **self.kw)
+        cnt = cnts.sum(1, dtype=torch.int32)
+        okq = (ok | ~valid).all(1)
+        if not self.materialize:
+            return cnt, okq & within
+        vids, cap_ok = _keep_window(vids.reshape(qn, -1), cnt, self.cap)
+        return cnt, vids, okq & within & cap_ok
+
+    def _chunked(self, parts, rects, circ, boxes, pids, valid, within,
+                 cc: int):
+        """Streaming compaction over candidate chunks of ``cc``: a
+        front-compacted (Q, keep) id carry, so the materialized plane
+        never exceeds O(keep + chunk) per query. Bitwise the monolithic
+        path: compaction keeps plane order, the carry precedes each
+        chunk, and the final width bound is the monolithic plane's."""
+        qn = rects.shape[0]
+        w_loc = boxes.shape[1] * 4 * self.cap    # monolithic plane width
+        keep_loc = min(w_loc, max(self.cap * 8, 256))
+        kept = torch.full((qn, keep_loc), -1, dtype=torch.int32,
+                          device=rects.device)
+        cnt = torch.zeros(qn, dtype=torch.int32, device=rects.device)
+        okq = torch.ones(qn, dtype=torch.bool, device=rects.device)
+        for bx, lc, mn in zip(*_chunk_cands(cc, boxes, pids, valid)):
+            cnts, vids, ok = Q.circle_window_at(
+                parts, bx, lc, mn, rects, circ, self.spec, cap=self.cap,
+                materialize=True, **self.kw)
+            kept = _compact_ids(torch.cat([kept, vids.reshape(qn, -1)], 1),
+                                keep_loc)
+            cnt = cnt + cnts.sum(1, dtype=torch.int32)
+            okq = okq & (ok | ~mn).all(1)
+        kept, cap_ok = _keep_window(kept, cnt, self.cap, keep=keep_loc)
+        return cnt, kept, okq & within & cap_ok
+
+
 class _KnnExactLocal(_LocalFn):
     """Exact kNN over every partition: per-chunk candidates from the
     backend, streamed into a running top-k (ties to the lowest index,
@@ -171,3 +402,166 @@ class _KnnExactLocal(_LocalFn):
             cv = cv.transpose(0, 1).reshape(qn, -1)
             neg, vid = bk.topk_merge(neg, vid, cn, cv, k)     # merge
         return neg, vid
+
+
+class _KnnPrunedLocal(_LocalFn):
+    """Paper §4.3, query-centric: density-estimated radius, windowed
+    range gather over the <= cand nearest candidate partitions, radius
+    doubling until >= k verified in-circle candidates. Exact when ok;
+    the executor falls back to the exact scan per unresolved query.
+
+    The reference's ``lax.while_loop`` is a Python loop that reads
+    ``all(done)`` once per round (a host read per round, as strict mode
+    allows). Returns (neg_d2 (Q, k), vid (Q, k), ok (Q,))."""
+
+    n_query_args = 3
+
+    def __init__(self, index, cfg, backend, k, spec, cand, cap):
+        super().__init__(index, cfg, backend)
+        self.k = k
+        self.spec2 = spec
+        self.cand = cand
+        self.cap = min(cap, index.n_pad)
+
+    def __call__(self, parts, bounds, qx, qy, r0):
+        return _row_chunks(
+            lambda a, b, r: self._rows(parts, bounds, a, b, r),
+            self._plane(self.cand, self.cap), qx, qy, r0)
+
+    def _round(self, parts, boxes, local, active, rects, r, qx, qy):
+        """One candidate plane: in-circle (neg_d2, vid) planes (Q, W),
+        in-circle counts and per-candidate ok."""
+        qn = qx.shape[0]
+        _, vids, ok, wx, wy = Q.range_window_at(
+            parts, boxes, local, active, rects, self.spec2, cap=self.cap,
+            **self.kw)
+        dx = wx - qx[:, None, None]
+        dy = wy - qy[:, None, None]
+        d2 = fma_f32(dx, dx, dy * dy)              # XLA:CPU's contraction
+        inc = (vids >= 0) & (d2 <= (r * r)[:, None, None])
+        negd = torch.where(inc, -d2, NEG).reshape(qn, -1)
+        wv = torch.where(inc, vids, -1).reshape(qn, -1)
+        return (negd, wv, inc.sum((1, 2), dtype=torch.int32),
+                (ok | ~active).all(1))
+
+    def _rows(self, parts, bounds, qx, qy, r0):
+        qn, k, cap = qx.shape[0], self.k, self.cap
+        bk = self.backend
+        dev = qx.device
+        boxd2 = Q.box_min_dist2(qx, qy, bounds)             # (Q, P)
+        # the cand nearest partitions by box distance, ties to the
+        # lowest index (lax.top_k's order)
+        negd2, order = stable_topk(-boxd2, min(self.cand, boxd2.shape[1]))
+        cand = order.shape[1]
+        cand_d2 = -negd2
+        boxes = bounds[order]
+        # per-chunk candidate plane (Q, cc * 4*cap); when the whole
+        # (Q, cand * 4*cap) plane fits, one top-k over it instead
+        cc = max(1, self.cfg.scan_chunk_elems // max(1, qn * 4 * cap))
+
+        def empty():
+            return (torch.full((qn, k), NEG, dtype=torch.float32,
+                               device=dev),
+                    torch.full((qn, k), -1, dtype=torch.int32, device=dev))
+
+        def round_chunked(r, rects, active):
+            """Fold candidate chunks into a running (Q, k) best set:
+            bitwise the monolithic top-k (the carry precedes each chunk,
+            and empty carry slots equal masked plane slots)."""
+            bn, bv = empty()
+            cnt = torch.zeros(qn, dtype=torch.int32, device=dev)
+            okl = torch.ones(qn, dtype=torch.bool, device=dev)
+            for bx, lc, ac in zip(*_chunk_cands(cc, boxes, order, active)):
+                negd, wv, c_in, ok = self._round(parts, bx, lc, ac, rects,
+                                                 r, qx, qy)
+                bn, bv = bk.topk_merge(bn, bv, negd, wv, k)
+                cnt = cnt + c_in
+                okl = okl & ok
+            return bn, bv, cnt, okl
+
+        def round_monolithic(r, rects, active):
+            negd, wv, cnt, okl = self._round(parts, boxes, order, active,
+                                             rects, r, qx, qy)
+            bn, ix = stable_topk(negd, k)
+            return bn, torch.gather(wv, 1, ix), cnt, okl
+
+        def gather_round(r):
+            rects = torch.stack([qx - r, qy - r, qx + r, qy + r], -1)
+            rr = (r * r)[:, None]
+            active = cand_d2 <= rr
+            # coverage: every partition within r must be a candidate
+            covered = (boxd2 <= rr).sum(1, dtype=torch.int32) <= cand
+            rnd = round_chunked if cc < cand else round_monolithic
+            bn, bv, cnt, okl = rnd(r, rects, active)
+            return bn, bv, okl & covered, cnt
+
+        rounds, r = 0, r0
+        done = torch.zeros(qn, dtype=torch.bool, device=dev)
+        okc = torch.zeros(qn, dtype=torch.bool, device=dev)
+        bn, bv = empty()
+        while rounds < self.cfg.knn_max_rounds and not bool(done.all()):
+            bn2, bv2, ok2, cnt2 = gather_round(r)
+            newly = (cnt2 >= k) & ok2 & ~done
+            bn = torch.where(newly[:, None], bn2, bn)
+            bv = torch.where(newly[:, None], bv2, bv)
+            okc = okc | newly
+            done = done | newly | ~ok2        # overflow -> fallback
+            r = torch.where(done, r, r * 2.0)
+            rounds += 1
+        return bn, bv, okc & done
+
+
+class _JoinLocal(_LocalFn):
+    """Query-centric windowed broadcast join: per polygon, gather only
+    the learned MBR subintervals of its <= cand candidate partitions and
+    ray-cast those points. Returns (counts (PG,), ok (PG,))."""
+
+    n_query_args = 3
+
+    def __init__(self, index, cfg, backend, cap, cand):
+        super().__init__(index, cfg, backend)
+        self.cap = min(cap, index.n_pad)
+        self.cand = cand
+
+    def __call__(self, parts, bounds, polys, n_edges, mbr_k):
+        return _row_chunks(
+            lambda pl, ne, mk: self._rows(parts, bounds, pl, ne, mk),
+            self._plane(self.cand, self.cap, z_depth=3), polys, n_edges,
+            mbr_k)
+
+    def _rows(self, parts, bounds, polys, n_edges, mbr_k):
+        pg = polys.shape[0]
+        mbrs = mbr_k[:, :4]
+        overlap = Q.rect_overlaps_box(mbrs, bounds)
+        pids, valid, within = _top_candidates(overlap, self.cand)
+        _, vids, ok, wx, wy = Q.range_window_at(
+            parts, bounds[pids], pids, valid, mbrs, self.spec,
+            cap=self.cap, z_depth=3, **self.kw)
+        inside = Q.point_in_polygon(wx.reshape(pg, -1), wy.reshape(pg, -1),
+                                    polys, n_edges)
+        cnt = ((vids.reshape(pg, -1) >= 0) & inside).sum(1,
+                                                          dtype=torch.int32)
+        return cnt, (ok | ~valid).all(1) & within
+
+
+class _JoinFullLocal(_LocalFn):
+    """Exact full-refine join (the windowed join's fallback): every
+    chunk's learned [s, e) bounds of the polygons' MBR keys, then the
+    backend's join scan."""
+
+    n_query_args = 3
+
+    def __call__(self, parts, bounds, polys, n_edges, mbr_k):
+        bk = self.backend
+        mbrs, klo, khi = mbr_k[:, :4], mbr_k[:, 4], mbr_k[:, 5]
+        overlap = Q.rect_overlaps_box(mbrs, bounds)            # (PG, P)
+        acc = torch.zeros(polys.shape[0], dtype=torch.int32,
+                          device=polys.device)
+        for lo, ch in _chunks(parts, self.cfg.part_chunk):
+            c = ch["count"].shape[0]
+            act = overlap[:, lo:lo + c].t().contiguous()       # (C, PG)
+            s, e = bk.bounds(ch, klo.contiguous(), khi.contiguous(),
+                             **self.kw)                        # lookup
+            cnt = bk.join_scan(ch, polys, n_edges, mbrs, s, e, active=act)
+            acc += cnt.sum(0, dtype=torch.int32)               # merge
+        return acc

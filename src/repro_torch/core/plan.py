@@ -4,10 +4,12 @@ A QuerySpec describes WHAT to compute (query type plus the static
 parameters of its program); query arrays are passed to
 ``Executor.run(spec, *args)``.
 
-This slice runs the exact specs (PointQuery, RangeCount, exact Knn).
-The adaptive specs exist so callers can name them, but the executor
-raises NotImplementedError for them until their windowed programs and
-escalation policy are ported.
+Exact specs (PointQuery, RangeCount, exact Knn) run one program. The
+adaptive specs (RangeQuery, CircleQuery, pruned Knn, windowed
+SpatialJoin) run the strict escalation loop over a (cap, cand) window
+tier; ``sticky_key()`` names the tier state an executor keeps per spec
+family. Serving mode (``strict=False`` once a sticky tier exists) is
+not ported yet.
 """
 from __future__ import annotations
 
@@ -16,17 +18,31 @@ from typing import Optional, Tuple
 
 BACKENDS = ("auto", "torch", "cuda")
 
-# what the adaptive specs wait for (ROADMAP.md, "Modules to port")
-PENDING = ("the windowed programs and the strict adaptive loop "
-           "(ROADMAP.md module items 10-11)")
+# what strict=False on a sticky tier waits for (ROADMAP.md, "Modules
+# to port")
+PENDING = ("serving mode: the fused windowed + on-device fallback "
+           "program (ROADMAP.md module item 12)")
 
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
-    """Executor knobs: how many partitions one backend call spans, and
-    the kernel backend (auto | torch | cuda)."""
+    """Executor knobs: how many partitions one backend call spans, the
+    kernel backend (auto | torch | cuda), and the initial window tiers
+    of the adaptive specs (the reference's defaults)."""
     part_chunk: int = 8          # partitions per backend call
     backend: str = "auto"
+    range_cap: int = 64          # windowed-range candidate cap/partition
+    knn_cap: int = 64            # windowed kNN gather cap per partition
+    knn_max_rounds: int = 24     # radius doublings (covers any dataset)
+    join_cap: int = 128          # windowed join candidate cap/partition
+    range_cand: int = 8          # candidate partitions per range query
+    knn_cand: int = 8            # candidate partitions per kNN query
+    join_cand: int = 8           # candidate partitions per polygon
+    circle_cap: int = 64         # windowed circle candidate cap/partition
+    circle_cand: int = 8         # candidate partitions per circle query
+    scan_chunk_elems: int = 1 << 26  # candidate-plane elements before the
+                                     # chunked kNN top-k and circle
+                                     # compaction merges engage
 
     def __post_init__(self):
         if self.backend not in BACKENDS:
@@ -41,6 +57,10 @@ class QuerySpec:
 
     kind: str = "?"
     n_args: int = 0              # number of positional data arguments
+
+    def sticky_key(self) -> Tuple:
+        """Identity of the shared adaptive (cap, cand) state."""
+        return (self.kind,)
 
 
 def _as_int(v, name: str, *, optional: bool = False) -> Optional[int]:
@@ -77,8 +97,8 @@ class RangeCount(QuerySpec):
 
 @dataclasses.dataclass(frozen=True)
 class Knn(QuerySpec):
-    """k nearest neighbours. args: (qx (Q,), qy (Q,)) ->
-    (d2 (Q, k), vid (Q, k)). Only mode="exact" runs in this slice."""
+    """Exact k nearest neighbours. args: (qx (Q,), qy (Q,)) ->
+    (d2 (Q, k), vid (Q, k))."""
     kind = "knn"
     n_args = 2
     k: int = 10
@@ -90,10 +110,17 @@ class Knn(QuerySpec):
                            _as_choice(self.mode, "mode",
                                       ("pruned", "exact")))
 
+    def sticky_key(self):
+        return (self.kind, self.k)
+
 
 @dataclasses.dataclass(frozen=True)
 class RangeQuery(QuerySpec):
-    """Materializing windowed range query (not yet ported)."""
+    """Materializing windowed range query.
+
+    args: (rects (Q, 4)) -> (counts (Q,), vids (Q, W) padded -1, ok (Q,)).
+    ``cap`` overrides the initial per-partition window; the adaptive
+    state stays shared by every RangeQuery (sticky_key "range")."""
     kind = "range"
     n_args = 1
     cap: Optional[int] = None
@@ -105,15 +132,36 @@ class RangeQuery(QuerySpec):
 
 @dataclasses.dataclass(frozen=True)
 class CircleQuery(QuerySpec):
-    """Circle query via MBR window + distance refine (not yet ported)."""
+    """Circle query via MBR window + distance refine (paper Remark 2).
+
+    args: (cx (Q,), cy (Q,), r (Q,)).
+    materialize=False -> counts (Q,) int32
+    materialize=True  -> (counts (Q,), vids (Q, W) padded -1, ok (Q,))
+    """
     kind = "circle"
     n_args = 3
     materialize: bool = False
 
+    def __post_init__(self):
+        object.__setattr__(self, "materialize", bool(self.materialize))
+
+    def sticky_key(self):
+        # the counting and materializing variants gather different
+        # window widths: separate adaptive state
+        return (self.kind, self.materialize)
+
 
 @dataclasses.dataclass(frozen=True)
 class SpatialJoin(QuerySpec):
-    """Polygon-contains-points join counts (not yet ported)."""
+    """Polygon-contains-points broadcast join counts.
+
+    args: (polys (PG, E, 2), n_edges (PG,)) -> counts (PG,) int32.
+    """
     kind = "join"
     n_args = 2
     mode: str = "windowed"
+
+    def __post_init__(self):
+        object.__setattr__(self, "mode",
+                           _as_choice(self.mode, "mode",
+                                      ("windowed", "full")))

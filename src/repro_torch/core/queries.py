@@ -2,17 +2,30 @@
 
 The learned search against a chunk of partitions is the ``spline_search``
 kernel's plain version (``kernels/spline_search.py``); this module holds
-the per-query lookup of the point path and the global filter's geometry.
+the per-query lookups (the point path's, and the windowed gathers'
+against each query's candidate partitions), the windowed gathers, and
+the global filter's geometry. The ray-casting test is the
+``point_in_polygon`` kernel's plain version.
+
+The windowed gathers have no kernel, as in the reference, where they
+stay on the XLA gather path under both backends: their work is the
+learned interval, not the partition.
 
 Bitwise notes: the interpolation is the kernel module's FMA-matched
-``interpolate``; ``torch.round`` rounds half to even like ``jnp.round``;
-float-to-int casts happen only on clamped, in-range values.
+``interpolate``; ``torch.round`` rounds half to even like ``jnp.round``,
+and ``bounds_on_rows`` truncates where the reference truncates; the
+circle distance is ``fma(dx, dx, dy*dy)`` (XLA:CPU's contraction,
+measured in tests/test_torch_hazards.py); float-to-int casts happen
+only on clamped, in-range values.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch._num import fma_f32
+from repro_torch.core import keys as K
+from repro_torch.kernels.point_in_polygon import (  # noqa: F401
+    point_in_polygon_plain as point_in_polygon)
 from repro_torch.kernels.spline_search import interpolate
 
 
@@ -40,6 +53,153 @@ def lower_bound_at(parts, pid, qkf, *, probe: int):
                                                         device=pid.device)]
     pos = start + (win < qkf[:, None]).sum(1)
     return torch.minimum(pos, parts["count"][pid].to(torch.int64))
+
+
+def bounds_on_rows(parts, pid, qk, *, probe: int):
+    """lower_bound for several keys per candidate partition, sharing one
+    knot row per (query, candidate).
+
+    pid (Q, C) int64; qk (Q, C, T) f32. Returns (Q, C, T) int32. The
+    window start truncates the interpolated position (the reference's
+    ``astype(int32)``), where ``lower_bound_at`` rounds it."""
+    n_pad = parts["keys_f"].shape[1]
+    m = parts["knot_keys"].shape[1]
+    krow = parts["knot_keys"][pid]                      # (Q, C, m)
+    prow = parts["knot_pos"][pid]
+    succ = (krow[..., None, :] < qk[..., None]).sum(-1)  # (Q, C, T)
+    seg = torch.clamp(succ - 1, 0, m - 2)
+    phat = interpolate(qk, torch.gather(krow, 2, seg),
+                       torch.gather(krow, 2, seg + 1),
+                       torch.gather(prow, 2, seg),
+                       torch.gather(prow, 2, seg + 1))
+    start = torch.clamp(phat.to(torch.int64) - probe // 2, 0,
+                        n_pad - probe)
+    cols = start[..., None] + torch.arange(probe, device=pid.device)
+    win = parts["keys_f"][pid[..., None, None], cols]   # (Q, C, T, probe)
+    pos = start + (win < qk[..., None]).sum(-1)
+    cnt = parts["count"][pid].to(torch.int64)[..., None]
+    return torch.minimum(pos, cnt).to(torch.int32)
+
+
+def _window_intervals(parts, boxes, pid, valid, rects, spec, *, cap: int,
+                      probe: int, z_depth: int):
+    """The windowed gathers' shared phase: clip each query rect to its
+    candidate boxes, z-decompose the clipped rect, and find the learned
+    [s, e) of every disjoint subinterval.
+
+    boxes (Q, C, 4) candidate boxes; pid, valid (Q, C); rects (Q, 4).
+    Returns (rect_e (Q, C, 4), s, e, st (Q, C, S) int32, ok (Q, C),
+    act_s (Q, C, S))."""
+    qn, c = pid.shape
+    n_pad = parts["keys_f"].shape[1]
+    rect_e = rects[:, None, :].expand(qn, c, 4)
+    xl = torch.maximum(rect_e[..., 0], boxes[..., 0])
+    yl = torch.maximum(rect_e[..., 1], boxes[..., 1])
+    xh = torch.minimum(rect_e[..., 2], boxes[..., 2])
+    yh = torch.minimum(rect_e[..., 3], boxes[..., 3])
+    nonempty = (xl <= xh) & (yl <= yh) & valid
+    bx, bits = spec.bounds, spec.bits_per_dim
+    zero = torch.zeros((), dtype=torch.float32, device=rects.device)
+
+    def q(v, lo, hi):
+        return K.quantize(torch.where(nonempty, v, zero), lo, hi, bits)
+
+    zlo, zhi, pv = K.z_split_intervals(
+        q(xl, bx[0], bx[2]), q(yl, bx[1], bx[3]), q(xh, bx[0], bx[2]),
+        q(yh, bx[1], bx[3]), nonempty, depth=z_depth)
+    sn = zlo.shape[-1]
+    # each candidate's knot row is gathered once for all 2S bounds
+    qk2 = torch.cat([K.keys_to_f32(zlo), K.keys_to_f32(zhi) + 1.0], -1)
+    pos2 = bounds_on_rows(parts, pid, qk2, probe=probe)
+    s, e = pos2[..., :sn], pos2[..., sn:]
+    e = torch.where(pv, e, s)
+    ok = (((e - s) <= cap) | ~pv).all(-1) | ~nonempty
+    st = torch.clamp(s, 0, max(n_pad - cap, 0))
+    act_s = pv & nonempty[..., None]
+    return rect_e, s, e, st, ok, act_s
+
+
+def _gather_mask(parts, pid, rect_e, s, e, st, act_s, cap: int):
+    """Window gather of every (query, candidate, subinterval): the
+    (Q, C, S, cap) planes wx, wy, the window's partition (Q, C, S, 1)
+    and the in-[s, e), below-count, in-rect, active mask."""
+    p4 = pid[..., None, None]
+    posn = st[..., None] + torch.arange(cap, dtype=torch.int32,
+                                        device=pid.device)
+    cols = posn.to(torch.int64)
+    wx, wy = parts["x"][p4, cols], parts["y"][p4, cols]
+    r = rect_e[:, :, None, :, None]                   # (Q, C, 1, 4, 1)
+    mask = ((posn >= s[..., None]) & (posn < e[..., None]) &
+            (posn < parts["count"][p4]) &
+            (wx >= r[..., 0, :]) & (wx <= r[..., 2, :]) &
+            (wy >= r[..., 1, :]) & (wy <= r[..., 3, :]) & act_s[..., None])
+    return wx, wy, p4, cols, mask
+
+
+def range_window_at(parts, boxes, pid, valid, rects, spec, *, cap: int,
+                    radix_bits: int, probe: int, z_depth: int = 2):
+    """Windowed range query against each query's candidate partitions.
+
+    pid, valid (Q, C); boxes (Q, C, 4); rects (Q, 4). Returns (counts
+    (Q, C) int32, vids (Q, C, S*cap) int32 padded -1, ok (Q, C), wx, wy
+    (Q, C, S*cap) f32)."""
+    del radix_bits
+    qn, c = pid.shape
+    rect_e, s, e, st, ok, act_s = _window_intervals(
+        parts, boxes, pid, valid, rects, spec, cap=cap, probe=probe,
+        z_depth=z_depth)
+    wx, wy, p4, cols, mask = _gather_mask(parts, pid, rect_e, s, e, st,
+                                          act_s, cap)
+    vids = torch.where(mask, parts["vid"][p4, cols], -1)
+    # the subintervals are disjoint: per-candidate counts add
+    return (mask.sum((-2, -1), dtype=torch.int32),
+            vids.reshape(qn, c, -1), ok,
+            wx.reshape(qn, c, -1), wy.reshape(qn, c, -1))
+
+
+def circle_window_at(parts, boxes, pid, valid, rects, circ, spec, *,
+                     cap: int, radix_bits: int, probe: int,
+                     z_depth: int = 2, materialize: bool = True):
+    """Circle variant of the windowed gather (paper Remark 2): the
+    distance refine runs inside the gather. ``rects`` are the circles'
+    MBRs, ``circ`` (Q, 3) [cx, cy, r]. Returns (counts (Q, C), vids
+    (Q, C, S*cap) | None, ok (Q, C)); vids is None unless
+    ``materialize``."""
+    del radix_bits
+    qn, c = pid.shape
+    rect_e, s, e, st, ok, act_s = _window_intervals(
+        parts, boxes, pid, valid, rects, spec, cap=cap, probe=probe,
+        z_depth=z_depth)
+    wx, wy, p4, cols, mask = _gather_mask(parts, pid, rect_e, s, e, st,
+                                          act_s, cap)
+    cc = circ[:, None, None, :, None]                 # (Q, 1, 1, 3, 1)
+    dx = wx - cc[..., 0, :]
+    dy = wy - cc[..., 1, :]
+    r = cc[..., 2, :]
+    mask = mask & (fma_f32(dx, dx, dy * dy) <= r * r)
+    cnts = mask.sum((-2, -1), dtype=torch.int32)
+    if not materialize:
+        return cnts, None, ok
+    vids = torch.where(mask, parts["vid"][p4, cols], -1)
+    return cnts, vids.reshape(qn, c, -1), ok
+
+
+def clip_rect_to_box(rects, box):
+    """Intersect (Q, 4) rects with one partition box (4,); an empty
+    intersection is an inverted rect."""
+    return torch.stack([torch.maximum(rects[:, 0], box[0]),
+                        torch.maximum(rects[:, 1], box[1]),
+                        torch.minimum(rects[:, 2], box[2]),
+                        torch.minimum(rects[:, 3], box[3])], dim=1)
+
+
+def clipped_key_range(rects, box, spec):
+    """Per-partition (klo_f, khi_f, nonempty) of the clipped rects."""
+    cl = clip_rect_to_box(rects, box)
+    nonempty = (cl[:, 0] <= cl[:, 2]) & (cl[:, 1] <= cl[:, 3])
+    safe = torch.where(nonempty[:, None], cl, torch.zeros_like(cl))
+    klo, khi = K.rect_key_range(safe, spec)
+    return K.keys_to_f32(klo), K.keys_to_f32(khi), nonempty
 
 
 # ---------------------------------------------------------------------------

@@ -75,3 +75,22 @@ def random_rects(n: int, sel: float, bounds, seed: int = 0, centers=None):
     rects = np.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2],
                      axis=1).astype(np.float32)
     return rects
+
+
+def random_polygons(n: int, bounds, seed: int = 0, max_edges: int = 12,
+                    radius: float = 0.03):
+    """Star-convex random polygons (possibly concave) + edge counts."""
+    rng = np.random.default_rng(seed)
+    xl, yl, xh, yh = bounds
+    polys = np.zeros((n, max_edges, 2), np.float32)
+    n_edges = np.zeros((n,), np.int32)
+    for i in range(n):
+        e = int(rng.integers(3, max_edges + 1))
+        cx = rng.uniform(xl + radius, xh - radius)
+        cy = rng.uniform(yl + radius, yh - radius)
+        ang = np.sort(rng.uniform(0, 2 * np.pi, e))
+        rad = rng.uniform(0.3 * radius, radius, e)
+        polys[i, :e, 0] = cx + rad * np.cos(ang)
+        polys[i, :e, 1] = cy + rad * np.sin(ang)
+        n_edges[i] = e
+    return polys, n_edges

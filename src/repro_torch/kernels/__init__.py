@@ -8,8 +8,8 @@ The CUDA sources live in ``csrc/`` and are built on first use
 """
 from __future__ import annotations
 
-from repro_torch.kernels import knn_topk, point_probe, range_filter
-from repro_torch.kernels import spline_search
+from repro_torch.kernels import (circle_filter, knn_topk, point_in_polygon,
+                                 point_probe, range_filter, spline_search)
 
 # kernel name -> module holding its wrapper and launch count
 KERNELS = {
@@ -17,6 +17,8 @@ KERNELS = {
     "range_count": range_filter,
     "point_probe": point_probe,
     "knn_topk": knn_topk,
+    "circle_count": circle_filter,
+    "point_in_polygon": point_in_polygon,
 }
 
 

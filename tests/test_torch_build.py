@@ -17,6 +17,9 @@ from repro_torch.core.radix import build_radix as t_radix
 from repro_torch.core.spline import build_spline as t_spline
 from repro_torch.data import spatial as tds
 
+# the suite runs in parallel worker processes: one torch thread each
+torch.set_num_threads(1)
+
 LEAVES = TB.LEAVES
 
 

@@ -1,8 +1,14 @@
-"""Port parity of the slice end to end: SpatialEngine point_query,
-range_count and knn(mode="exact") on the CPU, bitwise against the golden
-fixture and against the JAX SpatialEngine (xla backend), both on the
-port's own build and on the JAX index carried over with
-``convert.index_from_arrays``."""
+"""Port parity end to end: every SpatialEngine read query (point_query,
+range_count, range_query, circle_count, circle_query, knn pruned and
+exact, join_count windowed and full) on the CPU, bitwise against the
+golden fixture and against the JAX SpatialEngine (xla backend), both on
+the port's own build and on the JAX index carried over with
+``convert.index_from_arrays``; and the executor's strict adaptive
+policy (escalation, sticky tiers, the cap override, serving mode's
+refusal).
+
+Every comparison is bitwise: counts, ids, squared distances and ok
+flags."""
 import json
 import os
 import sys
@@ -16,7 +22,11 @@ from repro_torch.core import (EngineConfig, Executor, Knn, PointQuery,
                               RangeCount, SpatialEngine, build_index, fit)
 from repro_torch.core import build as TB
 from repro_torch.core.plan import CircleQuery, RangeQuery, SpatialJoin
+from repro_torch.core.plan import EngineConfig as TConfig
 from repro_torch.data import spatial as ds
+
+# the suite runs in parallel worker processes: one torch thread each
+torch.set_num_threads(1)
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "golden"))
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden",
@@ -35,6 +45,33 @@ def golden_inputs():
                          rng.random(16).astype(np.float32) * 2 - 0.5])
     rects = ds.random_rects(16, 1e-4, part.bounds, seed=13, centers=(x, y))
     return x, y, part, qx, qy, rects
+
+
+def golden_extra(x, y, part):
+    """gen_golden.py's circles and polygons."""
+    ix = np.random.default_rng(11).integers(0, len(x), 32)
+    cx, cy = x[ix[16:28]], y[ix[16:28]]
+    cr = np.full(12, 0.04, np.float32)
+    polys, ne = ds.random_polygons(8, part.bounds, seed=17)
+    return cx, cy, cr, polys, ne
+
+
+def replay_golden(eng, qx, qy, rects, cx, cy, cr, polys, ne) -> dict:
+    """Every golden key, in gen_golden.py's order on one engine (the
+    strict loop starts from the sticky tiers of earlier calls)."""
+    out = {"point": eng.point_query(qx, qy).tolist(),
+           "range_count": eng.range_count(rects).tolist()}
+    cnt, vids, ok = eng.range_query(rects)
+    out.update(range_query_cnt=cnt.tolist(), range_query_vids=vids.tolist(),
+               range_query_ok=ok.tolist())
+    out["circle_count"] = eng.circle_count(cx, cy, cr).tolist()
+    d2, vid = eng.knn(qx, qy, 5, mode="pruned")
+    out.update(knn_d2=d2.tolist(), knn_vid=vid.tolist())
+    d2, vid = eng.knn(qx[:8], qy[:8], 3, mode="exact")
+    assert d2.dtype == torch.float32 and vid.dtype == torch.int32
+    out.update(knn_exact_d2=d2.tolist(), knn_exact_vid=vid.tolist())
+    out["join_count"] = eng.join_count(polys, ne).tolist()
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -57,12 +94,14 @@ def test_golden_replay(golden_index, golden, chunk):
     assert eng.index.num_partitions % chunk == 0      # padded to chunks
     assert torch.equal(eng.run(PointQuery(), qx, qy),
                        eng.point_query(qx, qy))
-    assert eng.point_query(qx, qy).tolist() == golden["point"]
-    assert eng.range_count(rects).tolist() == golden["range_count"]
-    d2, vid = eng.knn(qx[:8], qy[:8], 3, mode="exact")
-    assert d2.dtype == torch.float32 and vid.dtype == torch.int32
-    assert d2.tolist() == golden["knn_exact_d2"]
-    assert vid.tolist() == golden["knn_exact_vid"]
+    x, y, part = golden_inputs()[:3]
+    extra = golden_extra(x, y, part)
+    got = replay_golden(eng, qx, qy, rects, *extra)
+    assert set(got) == set(golden)                   # all 11 keys
+    for key in golden:
+        assert got[key] == golden[key], key
+    full = eng.join_count(*extra[3:], mode="full")
+    assert full.tolist() == golden["join_count"]
 
 
 # -- against the JAX engine on taxi 30k points / 16 partitions ----------
@@ -88,11 +127,38 @@ def taxi():
     for k in (1, 10):
         d2, vid = jeng.knn(qx[:64], qy[:64], k, mode="exact")
         want[f"knn{k}"] = (np.asarray(d2), np.asarray(vid))
+    cx, cy, cr, polys, ne = _taxi_extra(x, y)
+    for name, out in adaptive_calls(jeng, rects, cx, cy, cr, qx, qy, polys,
+                                    ne).items():
+        want[name] = tuple(map(np.asarray, out))
     leaves = {n: np.asarray(getattr(jidx, n)) for n in TB.LEAVES}
     static = dict(eps=jidx.eps, radix_bits=jidx.radix_bits,
                   probe=jidx.probe, overflow_pid=jidx.overflow_pid,
                   key_spec=jidx.key_spec)
     return x, y, qx, qy, rects, want, leaves, static
+
+
+def _taxi_extra(x, y):
+    rng = np.random.default_rng(22)
+    ix = rng.integers(0, len(x), 64)
+    cx, cy = x[ix].copy(), y[ix].copy()
+    cr = rng.uniform(0.001, 0.03, 64).astype(np.float32)
+    polys, ne = ds.random_polygons(16, (0.05, 0.05, 0.95, 0.95), seed=23,
+                                   radius=0.05)
+    return cx, cy, cr, polys, ne
+
+
+def adaptive_calls(eng, rects, cx, cy, cr, qx, qy, polys, ne) -> dict:
+    """The adaptive facade calls and full join, as tuples of arrays."""
+    def tup(v):
+        return v if isinstance(v, tuple) else (v,)
+
+    return {"range_query": tup(eng.range_query(rects)),
+            "circle_count": tup(eng.circle_count(cx, cy, cr)),
+            "circle_query": tup(eng.circle_query(cx, cy, cr)),
+            "knn_pruned": tup(eng.knn(qx[:96], qy[:96], 7)),
+            "join": tup(eng.join_count(polys, ne)),
+            "join_full": tup(eng.join_count(polys, ne, mode="full"))}
 
 
 def _port_index(taxi, source):
@@ -116,6 +182,15 @@ def test_matches_jax_engine_taxi(taxi, source):
         d2, vid = eng.knn(qx[:64], qy[:64], k, mode="exact")
         assert np.array_equal(d2.numpy(), want[f"knn{k}"][0])
         assert np.array_equal(vid.numpy(), want[f"knn{k}"][1])
+    x, y = taxi[0], taxi[1]
+    got = adaptive_calls(eng, rects, *_taxi_extra(x, y)[:3], qx, qy,
+                         *_taxi_extra(x, y)[3:])
+    for name, out in got.items():
+        assert len(out) == len(want[name]), name
+        for g, w in zip(out, want[name]):
+            assert np.array_equal(g.numpy(), w), name
+    assert np.array_equal(got["join"][0].numpy(), got["join_full"][0].numpy())
+    assert got["range_query"][2].all() and got["circle_query"][2].any()
 
 
 def test_against_brute_force_oracle(taxi):
@@ -151,19 +226,99 @@ def test_executor_run_batch_and_dispatches(golden_index):
 @pytest.mark.parametrize("spec,args", [
     (Knn(k=3), 2), (RangeQuery(), 1), (CircleQuery(), 3),
     (SpatialJoin(), 2)], ids=["knn_pruned", "range", "circle", "join"])
-def test_unported_specs_raise(golden_index, spec, args):
-    idx, qx, _, _ = golden_index
+def test_strict_false_on_a_sticky_tier_raises(golden_index, spec, args):
+    """strict=False with no sticky tier runs the strict loop, as the
+    reference does; once a tier is sticky it is serving mode, which is
+    not ported, and raises."""
+    idx, qx, qy, rects = golden_index
+    cx, cy, cr, polys, ne = golden_extra(*golden_inputs()[:3])
+    data = {RangeQuery: (rects,), CircleQuery: (cx, cy, cr),
+            Knn: (qx, qy), SpatialJoin: (polys, ne)}[type(spec)]
+    assert len(data) == args
     ex = Executor(idx, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ex.run(spec, *([qx] * args))
+    first = ex.run(spec, *data)                     # no sticky tier yet
+    strict = Executor(idx, device="cpu").run(spec, *data, strict=True)
+    for a, b in zip(first if isinstance(first, tuple) else (first,),
+                    strict if isinstance(strict, tuple) else (strict,)):
+        assert torch.equal(a, b)
+    assert spec.sticky_key() in ex._sticky
+    with pytest.raises(NotImplementedError, match="module item 12"):
+        ex.run(spec, *data)
+    ex.run(spec, *data, strict=True)                # strict still runs
 
 
-def test_engine_rejects_pruned_knn_and_bad_config(golden_index):
+def test_strict_loop_escalates_then_sticks(golden_index, golden):
+    idx, _, _, _ = golden_index
+    cx, cy, cr, _, _ = golden_extra(*golden_inputs()[:3])
+    ex = Executor(idx, device="cpu")
+    n0 = ex.dispatches
+    assert ex.run(CircleQuery(), cx, cy, cr,
+                  strict=True).tolist() == golden["circle_count"]
+    tiers = ex.dispatches - n0
+    sticky = ex._sticky[("circle", False)]
+    assert tiers == 3 and sticky == (1024, 16)      # (64,8) (256,16) ...
+    n0 = ex.dispatches
+    again = ex.run(CircleQuery(), cx, cy, cr, strict=True)
+    assert ex.dispatches - n0 == 1                  # starts at the sticky
+    assert again.tolist() == golden["circle_count"]
+    # the materializing circle keeps its own tier state
+    assert ("circle", True) not in ex._sticky
+
+
+def test_range_cap_override_leaves_sticky_state(golden_index, golden):
+    idx, _, _, rects = golden_index
+    ex = Executor(idx, device="cpu")
+    cnt, _, _ = ex.run(RangeQuery(cap=16), rects, strict=True)
+    assert cnt.tolist() == golden["range_query_cnt"]
+    # (16, 8) overflows, then (64, 16): the override's own ladder
+    assert ex._sticky == {} and ex._last_tier[("range",)] == (64, 16)
+    ex.run(RangeQuery(), rects, strict=True)
+    assert ex._sticky == {("range",): (64, 8)}
+    cnt, vids, ok = ex.run(RangeQuery(cap=16), rects, strict=True)
+    assert ex._sticky == {("range",): (64, 8)}      # unchanged
+    assert cnt.tolist() == golden["range_query_cnt"]
+    assert ex._last_tier[("range",)] == (64, 16)
+
+
+def test_knn_r0_bitwise():
+    """The pruned kNN's initial radius, bitwise the reference's (a host
+    float64 estimate beside eager float32 device math)."""
+    from repro.core import Executor as JExecutor
+    from repro.core import build_index as j_build, fit as j_fit
+    import jax.numpy as jnp
+
+    x, y = ds.make("taxi", 8000, seed=4)
+    rng = np.random.default_rng(3)
+    qx = np.concatenate([x[:200], rng.uniform(-0.5, 1.5, 56)]).astype(
+        np.float32)
+    qy = np.concatenate([y[:200], rng.uniform(-0.5, 1.5, 56)]).astype(
+        np.float32)
+    jex = JExecutor(j_build(x, y, j_fit("kdtree", x, y, 10, seed=0)))
+    ex = Executor(build_index(x, y, fit("kdtree", x, y, 10, seed=0),
+                              device="cpu"), device="cpu")
+    for k in (1, 10, 64):
+        want = np.asarray(jex._knn_r0(jnp.asarray(qx), jnp.asarray(qy), k))
+        got = ex._knn_r0(torch.from_numpy(qx), torch.from_numpy(qy), k)
+        assert np.array_equal(got.numpy().view(np.int32),
+                              want.view(np.int32)), k
+
+
+def test_engine_config_and_spec_validation(golden_index):
     idx, qx, qy, _ = golden_index
-    eng = SpatialEngine(idx, device="cpu")
-    with pytest.raises(NotImplementedError):
-        eng.knn(qx, qy, 3)
     with pytest.raises(ValueError):
         EngineConfig(backend="pallas")
     with pytest.raises(ValueError):          # kernels need a CUDA device
         SpatialEngine(idx, EngineConfig(backend="cuda"), device="cpu")
+    with pytest.raises(ValueError):
+        SpatialJoin(mode="sideways")
+    with pytest.raises(ValueError):
+        Knn(k=3, mode="approx")
+    assert CircleQuery(materialize=1) == CircleQuery(materialize=True)
+    assert Knn(k=3).sticky_key() == Knn(k=3, mode="exact").sticky_key()
+    assert RangeQuery(cap=8).sticky_key() == RangeQuery().sticky_key()
+    cfg = TConfig()
+    assert (cfg.range_cap, cfg.knn_cap, cfg.join_cap, cfg.circle_cap,
+            cfg.knn_max_rounds, cfg.scan_chunk_elems) == (64, 64, 128, 64,
+                                                          24, 1 << 26)
+    with pytest.raises(TypeError):
+        Executor(idx, device="cpu").run(Knn(k=3), qx)

@@ -18,7 +18,9 @@ from repro_torch.core import EngineConfig, SpatialEngine, build_index, fit
 from repro_torch.core import keys as K
 from repro_torch.core import local_ops as L
 from repro_torch.data import spatial as ds
+from repro_torch.kernels import circle_filter as t_cf
 from repro_torch.kernels import knn_topk as t_knn
+from repro_torch.kernels import point_in_polygon as t_pip
 from repro_torch.kernels import point_probe as t_pp
 from repro_torch.kernels import range_filter as t_rf
 from repro_torch.kernels import spline_search as t_ss
@@ -149,9 +151,79 @@ def test_gpu_knn_topk_matches_plain(index, cuda, k):
     assert (gi[-1] == -1).all()                 # the empty padding row
 
 
+def _bounds_and_flags(rng, c, nq, n_pad):
+    """Random learned bounds with the edge cases: the whole row, empty
+    intervals (e <= s), e past n_pad, and inactive pairs."""
+    s = rng.integers(0, n_pad, (c, nq)).astype(np.int32)
+    e = (s + rng.integers(-50, n_pad, (c, nq))).astype(np.int32)
+    s[:, 0], e[:, 0] = 0, n_pad                 # the whole row
+    s[:, 1], e[:, 1] = 100, 100                 # empty
+    e = np.minimum(e, n_pad + 64)               # e may pass n_pad
+    active = rng.random((c, nq)) < 0.7
+    active[:, :2] = True
+    return s, e, active
+
+
+def test_gpu_circle_count_matches_plain(index, cuda):
+    """Circles on data points with r = 0 and tiny radii, over rows with
+    count = 0 (the padding partitions) and the bounds' edge cases."""
+    x, y, idx = index
+    rng = np.random.default_rng(6)
+    nq, (c, n_pad) = 300, idx.x.shape
+    ix = rng.integers(0, len(x), nq)
+    cx, cy = x[ix].copy(), y[ix].copy()
+    r = rng.uniform(0, 0.05, nq).astype(np.float32)
+    r[:20] = 0.0                                # only the centre point
+    r[20:40] = 1e-7
+    rects = np.stack([cx - r, cy - r, cx + r, cy + r], 1).astype(np.float32)
+    circ = np.stack([cx, cy, r], 1).astype(np.float32)
+    s, e, active = _bounds_and_flags(rng, c, nq, n_pad)
+    args = _on(cuda, rects, s, e, circ, active, idx.count, idx.x, idx.y)
+    n0 = t_cf.launches
+    got = t_cf.circle_count(*args)
+    assert t_cf.launches == n0 + 1
+    assert int(got.sum()) > 0 and int(got[-1].sum()) == 0   # count = 0
+    assert torch.equal(got, t_cf.circle_count_plain(*args))
+
+
+def _polygons(rng):
+    """Random polygons (n_edges < E for most), a concave one with
+    horizontal edges, a degenerate sliver, a single vertex, and a
+    polygon with no edges."""
+    polys, ne = ds.random_polygons(28, (0.1, 0.1, 0.9, 0.9), seed=8,
+                                   radius=0.1)
+    extra = np.zeros((4, polys.shape[1], 2), np.float32)
+    extra[0, :6] = [[0.4, 0.4], [0.6, 0.4], [0.6, 0.5], [0.5, 0.5],
+                    [0.5, 0.6], [0.4, 0.6]]
+    extra[1, :2] = [[0.3, 0.3], [0.7, 0.7]]
+    extra[2, :1] = [[0.5, 0.55]]
+    return (np.concatenate([polys, extra]),
+            np.concatenate([ne, [6, 2, 1, 0]]).astype(np.int32))
+
+
+def test_gpu_join_count_matches_plain(index, cuda):
+    x, y, idx = index
+    rng = np.random.default_rng(7)
+    polys, ne = _polygons(rng)
+    em = np.arange(polys.shape[1])[None, :, None] < ne[:, None, None]
+    mbrs = np.concatenate([np.where(em, polys, 3e38).min(1),
+                           np.where(em, polys, -3e38).max(1)],
+                          1).astype(np.float32)
+    c, n_pad = idx.x.shape
+    s, e, active = _bounds_and_flags(rng, c, len(ne), n_pad)
+    args = _on(cuda, polys, ne, mbrs, s, e, active, idx.count, idx.x, idx.y)
+    n0 = t_pip.launches
+    got = t_pip.join_count(*args)
+    assert t_pip.launches == n0 + 1
+    assert int(got.sum()) > 0 and int(got[-1].sum()) == 0
+    assert torch.equal(got, t_pip.join_count_plain(*args))
+    assert (got[:, -3:] == 0).all()            # no area, no count
+
+
 def test_gpu_engine_golden_and_backends_agree(cuda):
-    """The golden fixture replayed with backend="cuda", and the cuda
-    backend bitwise the torch backend on the card."""
+    """Every golden key replayed with backend="cuda" in gen_golden.py's
+    order, and the cuda backend bitwise the torch backend on the card
+    for every facade call."""
     with open(GOLDEN) as f:
         golden = json.load(f)
     x, y = ds.make("gaussian", 12000, seed=7)
@@ -163,16 +235,37 @@ def test_gpu_engine_golden_and_backends_agree(cuda):
     qy = np.concatenate([y[ix[:16]],
                          rng.random(16).astype(np.float32) * 2 - 0.5])
     rects = ds.random_rects(16, 1e-4, part.bounds, seed=13, centers=(x, y))
+    cx, cy = x[ix[16:28]], y[ix[16:28]]
+    cr = np.full(12, 0.04, np.float32)
+    polys, ne = ds.random_polygons(8, part.bounds, seed=17)
     idx = build_index(x, y, part, device=cuda)
     eng = SpatialEngine(idx, EngineConfig(backend="cuda"), device=cuda)
     plain = SpatialEngine(idx, EngineConfig(backend="torch"), device=cuda)
-    assert eng.point_query(qx, qy).tolist() == golden["point"]
-    assert eng.range_count(rects).tolist() == golden["range_count"]
-    d2, vid = eng.knn(qx[:8], qy[:8], 3, mode="exact")
-    assert d2.tolist() == golden["knn_exact_d2"]
-    assert vid.tolist() == golden["knn_exact_vid"]
+    for e in (eng, plain):
+        assert e.point_query(qx, qy).tolist() == golden["point"]
+        assert e.range_count(rects).tolist() == golden["range_count"]
+        cnt, vids, ok = e.range_query(rects)
+        assert cnt.tolist() == golden["range_query_cnt"]
+        assert vids.tolist() == golden["range_query_vids"]
+        assert ok.tolist() == golden["range_query_ok"]
+        assert e.circle_count(cx, cy, cr).tolist() == golden["circle_count"]
+        d2, vid = e.knn(qx, qy, 5)
+        assert d2.tolist() == golden["knn_d2"]
+        assert vid.tolist() == golden["knn_vid"]
+        d2, vid = e.knn(qx[:8], qy[:8], 3, mode="exact")
+        assert d2.tolist() == golden["knn_exact_d2"]
+        assert vid.tolist() == golden["knn_exact_vid"]
+        assert e.join_count(polys, ne).tolist() == golden["join_count"]
+        assert e.join_count(polys, ne, "full").tolist() == golden[
+            "join_count"]
     assert torch.equal(eng.point_query(qx, qy), plain.point_query(qx, qy))
     assert torch.equal(eng.range_count(rects), plain.range_count(rects))
     for a, b in zip(eng.knn(qx, qy, 10, mode="exact"),
                     plain.knn(qx, qy, 10, mode="exact")):
+        assert torch.equal(a, b)
+    ex, pex = eng.executor, plain.executor
+    args = ex._circle_args((cx, cy, cr))
+    assert torch.equal(ex._circle_exact(args), pex._circle_exact(args))
+    for a, b in zip(eng.circle_query(cx, cy, cr),
+                    plain.circle_query(cx, cy, cr)):
         assert torch.equal(a, b)

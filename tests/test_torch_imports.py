@@ -31,12 +31,25 @@ def test_no_jax_or_repro_import_statement(path):
     assert not _imported_roots(path) & {"jax", "jaxlib", "repro"}
 
 
+def test_scan_covers_this_slice():
+    """The import scan above sees the modules of the circle and join
+    path."""
+    scanned = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    assert {"kernels/circle_filter.py", "kernels/point_in_polygon.py",
+            "core/executor.py", "core/local_ops.py", "core/queries.py",
+            "core/keys.py", "core/plan.py", "data/spatial.py"} <= scanned
+
+
 def test_importing_the_port_loads_neither_jax_nor_repro():
     code = (
         "import sys\n"
         "import repro_torch, repro_torch.core, repro_torch.kernels\n"
         "import repro_torch.convert, repro_torch.data.spatial\n"
         "import repro_torch.core.backends, repro_torch.kernels._build\n"
+        "import repro_torch.kernels.circle_filter\n"
+        "import repro_torch.kernels.point_in_polygon\n"
+        "import repro_torch.core.executor, repro_torch.core.local_ops\n"
+        "import repro_torch.core.queries, repro_torch.core.keys\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n")

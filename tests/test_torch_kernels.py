@@ -1,11 +1,13 @@
-"""Port parity of the four kernels of this slice.
+"""Port parity of the kernels' plain versions.
 
 Each kernel's plain PyTorch version (what the wrapper runs on CPU
 tensors, and what the kernel is held against on the card) is checked
 bitwise against the JAX package's oracle (``kernels/ref.py``), and
-range_count, point_probe and knn_topk also against the Pallas kernel in
-interpret mode. ``spline_search``'s Pallas kernel cannot run on this jax
-(``pl.load`` is gone), so it is checked against ``ref.spline_search``.
+range_count, circle_count, point_probe and knn_topk also against the
+Pallas kernel in interpret mode. ``spline_search``'s Pallas kernel
+cannot run on this jax (``pl.load`` is gone), so it is checked against
+``ref.spline_search``; ``point_in_polygon``'s is in
+``tests/test_torch_join.py``, against ``ref.point_in_polygon``.
 
 The CUDA kernels themselves are held against these plain versions on the
 card by ``tests/test_torch_gpu.py``.
@@ -22,16 +24,21 @@ from repro.core import local_ops as JL
 from repro.data import spatial as jds
 from repro.kernels import ops, ref
 from repro_torch import kernels as TKERN
+from repro_torch.kernels import circle_filter as t_cf
 from repro_torch.kernels import knn_topk as t_knn
 from repro_torch.kernels import point_probe as t_pp
 from repro_torch.kernels import range_filter as t_rf
 from repro_torch.kernels import spline_search as t_ss
+
+# the suite runs in parallel worker processes: one torch thread each
+torch.set_num_threads(1)
 
 # the oracles as the engine runs them: compiled, where XLA:CPU contracts
 # dx*dx + dy*dy and p0 + t*(p1 - p0) into FMAs (eager jax does not)
 ref_spline_search = jax.jit(ref.spline_search,
                             static_argnames=("probe", "radix_bits"))
 ref_knn_topk = jax.jit(ref.knn_topk, static_argnames=("k",))
+ref_circle_count = jax.jit(ref.circle_count)
 
 
 @pytest.fixture(scope="module")
@@ -108,6 +115,32 @@ def test_range_count_plain_vs_ref_and_pallas(jidx, nq):
         args = (jnp.asarray(rects), se, idx.count[p], idx.x[p], idx.y[p])
         want = np.asarray(ref.range_count(*args))
         pallas = np.asarray(ops.range_count(*args, interpret=True))
+        assert np.array_equal(want, pallas)
+        assert np.array_equal(got[p], np.where(active[p], want, 0)), p
+
+
+@pytest.mark.parametrize("nq", [3, 129])
+def test_circle_count_plain_vs_ref_and_pallas(jidx, nq):
+    """Circles on data points (r = 0 included), their MBRs, random
+    learned bounds and active flags."""
+    x, y, idx = jidx
+    _, s, e, active = _range_inputs(idx, nq, nq + 7)
+    rng = np.random.default_rng(nq)
+    ix = rng.integers(0, len(x), nq)
+    cx, cy = x[ix].copy(), y[ix].copy()
+    r = rng.uniform(0, 0.08, nq).astype(np.float32)
+    r[0] = 0.0
+    rects = np.stack([cx - r, cy - r, cx + r, cy + r], 1).astype(np.float32)
+    circ = np.stack([cx, cy, r], 1).astype(np.float32)
+    got = t_cf.circle_count(_t(rects), _t(s), _t(e), _t(circ), _t(active),
+                            _t(idx.count), _t(idx.x), _t(idx.y)).numpy()
+    assert got.dtype == np.int32 and got.sum() > 0
+    for p in range(idx.num_partitions):
+        se = jnp.asarray(np.stack([s[p], e[p]], 1), jnp.float32)
+        args = (jnp.asarray(rects), se, jnp.asarray(circ), idx.count[p],
+                idx.x[p], idx.y[p])
+        want = np.asarray(ref_circle_count(*args))
+        pallas = np.asarray(ops.circle_count(*args, interpret=True))
         assert np.array_equal(want, pallas)
         assert np.array_equal(got[p], np.where(active[p], want, 0)), p
 

@@ -10,6 +10,9 @@ from repro.core import keys as JK
 from repro_torch import _num
 from repro_torch.core import keys as TK
 
+# the suite runs in parallel worker processes: one torch thread each
+torch.set_num_threads(1)
+
 BOUNDS = [(0.0, 0.0, 1.0, 1.0), (0.0123, -0.5, 0.98761, 1.25),
           (0.1, 0.2, 0.1 + 1e-7, 0.9)]
 
