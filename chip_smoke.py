@@ -35,7 +35,9 @@ result line):
               whose ok is true); per call the tier the strict loop settled
               on, peak device memory, batch latency, and the device's
               busy time, idle share and top activities from a profiler
-              trace;
+              trace; then circle_count at its sticky tier under the
+              default row-chunk budget (EngineConfig.scan_chunk_elems)
+              and under twice it: rows per call, peak memory, latency;
   6. kernels  each of the six kernels against its plain version at the
               shapes the main path gives it (bitwise), with its device
               time per main-path call (a torch.profiler trace), the plain
@@ -397,7 +399,10 @@ def main() -> int:
                                if after[n] > before[n]}
         require(all(n in path_launches[name] for n in needs),
                 f"{name} launched {path_launches[name]}, needs {needs}")
-        tiers[name] = ex._last_tier.get(base)
+        # each family's first call on this engine: with no sticky tier
+        # after it, the ladder maxed out and the exact fallback answered
+        tiers[name] = None if base is None else ex._sticky.get(
+            base, "exact fallback")
         log(f"[main] {name}: first call {first_ms[name]:.1f} ms, tier "
             f"{tiers[name]}, launches {path_launches[name]}, "
             f"max_memory_allocated {peak[name]}")
@@ -465,6 +470,43 @@ def main() -> int:
         log(f"[where] {name}: " + "; ".join(f"{n} {t:.4f}" for n, t in top))
     report["batch_ms"] = lat
     report["batch_ms_torch_backend"] = lat_plain
+
+    # the row-chunk budget (EngineConfig.scan_chunk_elems): circle_count
+    # at its sticky tier under the default budget and under twice it, on
+    # a second engine whose ladder climbs from the initial tier. The
+    # counts must not change; peak memory and latency do.
+    def row_budget(e, budget):
+        fn = main_path["circle_count_256"][0]
+        tier = e.executor._sticky[("circle", False)]
+        prog = L._CircleWindowLocal(e.executor.index, e.executor.cfg,
+                                    e.executor.backend, *tier, False)
+        plane = min(tier[1], prog.p_total) * 4 * (prog.cap +
+                                                  prog.lookup_elems)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        require(torch.equal(fn(e), ccount), f"circle_count at {budget}")
+        torch.cuda.synchronize()
+        mem = torch.cuda.max_memory_allocated()
+        ms = host_ms(lambda: fn(e), 1, warm=False)
+        busy = sum(device_profile(lambda: fn(e), 1).values())
+        return {"scan_chunk_elems": budget, "tier": tier,
+                "rows_per_chunk": max(1, budget // plane),
+                "max_memory_allocated": mem, "wall_ms": ms,
+                "device_busy_ms": busy, "idle_share": 1.0 - busy / ms}
+
+    wide = SpatialEngine(index, EngineConfig(
+        scan_chunk_elems=2 * ex.cfg.scan_chunk_elems), device=DEVICE)
+    main_path["circle_count_256"][0](wide)         # the ladder
+    report["row_budget"] = [row_budget(eng, ex.cfg.scan_chunk_elems),
+                            row_budget(wide, 2 * ex.cfg.scan_chunk_elems)]
+    del wide
+    for rb in report["row_budget"]:
+        log(f"[budget] circle_count_256 at scan_chunk_elems "
+            f"{rb['scan_chunk_elems']}: tier {rb['tier']}, "
+            f"{rb['rows_per_chunk']} rows per call, max_memory_allocated "
+            f"{rb['max_memory_allocated']}, {rb['wall_ms']:.3f} ms (device "
+            f"busy {rb['device_busy_ms']:.3f} ms, idle share "
+            f"{rb['idle_share']:.3f})")
 
     # 6. each kernel against its plain version on the inputs the main
     # path gives it: every launch of one call (one per partition chunk,

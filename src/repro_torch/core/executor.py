@@ -80,7 +80,6 @@ class Executor:
         self.density = max(self.n_total / self.area, 1e-30)
         self.dispatches = 0   # local-program calls
         self._sticky = {}     # sticky_key -> last successful (cap, cand)
-        self._last_tier = {}  # sticky_key -> tier the last call ended at
 
     def _f32(self, a) -> torch.Tensor:
         if isinstance(a, torch.Tensor):
@@ -138,14 +137,12 @@ class Executor:
             hit = bool(op.get_ok(res).all())     # the host read per tier
             maxed = op.maxed(cap, cand)
             if hit or (maxed and op.sticky_on_maxed):
-                self._last_tier[op.base] = (cap, cand)
                 if start is None:
                     self._set_sticky(op.base, (cap, cand))
                 return op.finalize(res)
             if maxed:
                 break
             cap, cand = op.escalate(cap, cand)
-        self._last_tier[op.base] = (cap, cand)
         return op.fallback(pargs, res)
 
     def _set_sticky(self, base, variant):
@@ -276,7 +273,7 @@ class Executor:
         return _AdaptiveOp(
             base=base, initial=(cfg.knn_cap, cand),
             window=lambda cap, _cand: L._KnnPrunedLocal(
-                idx, cfg, bk, k, self.spec, cand, cap),
+                idx, cfg, bk, k, cand, cap),
             get_ok=lambda res: res[2],
             finalize=lambda res: (-res[0], res[1]),
             escalate=lambda cap, cd: (min(cap * 4, idx.n_pad), cd),

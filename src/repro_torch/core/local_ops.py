@@ -16,7 +16,7 @@ its <= cand candidate partitions from the global boxes and gathers only
 <= cap positions per learned subinterval (``queries.*_window_at``, plain
 PyTorch under both backends). Every output row is a function of its
 query row alone, so a call whose (Q, C, S, cap) planes would pass
-``ROW_PLANE_ELEMS`` runs in query-row chunks with the same result.
+``cfg.scan_chunk_elems`` runs in query-row chunks with the same result.
 """
 from __future__ import annotations
 
@@ -34,8 +34,6 @@ from repro_torch.kernels import knn_topk as _knn
 
 EMPTY_BOX = np.asarray([3e38, 3e38, -3e38, -3e38], np.float32)
 NEG = _knn.NEG              # empty kNN slot, as the reference's
-ROW_PLANE_ELEMS = 1 << 26   # windowed-plane elements per call before the
-                            # call splits into query-row chunks (memory)
 
 
 def pad_partitions(index: LearnedSpatialIndex, multiple: int
@@ -171,19 +169,6 @@ def _chunk_cands(cc: int, *arrays):
     return tuple(prep(a) for a in arrays)
 
 
-def _row_chunks(fn, plane_per_row: int, *q):
-    """``fn(*q)`` on query-row chunks whose windowed planes stay within
-    ROW_PLANE_ELEMS, outputs concatenated along the row axis. Every
-    output row is a function of its query row alone, so the result is
-    the unchunked call's."""
-    qn = q[0].shape[0]
-    rows = max(1, ROW_PLANE_ELEMS // max(1, plane_per_row))
-    if rows >= qn:
-        return fn(*q)
-    outs = [fn(*(a[i:i + rows] for a in q)) for i in range(0, qn, rows)]
-    return tuple(torch.cat(col) for col in zip(*outs))
-
-
 class _LocalFn:
     def __init__(self, index: LearnedSpatialIndex, cfg: EngineConfig,
                  backend):
@@ -198,10 +183,21 @@ class _LocalFn:
         # probe windows for both ends, beside the cap-wide gather
         self.lookup_elems = 2 * (index.knot_keys.shape[1] + index.probe)
 
-    def _plane(self, cand: int, cap: int, z_depth: int = 2) -> int:
-        """Windowed-plane elements per query row."""
-        return min(cand, self.p_total) * (1 << z_depth) * (
+    def _row_chunks(self, fn, cand: int, cap: int, *q, z_depth: int = 2):
+        """``fn(*q)`` on query-row chunks whose windowed planes stay within
+        ``cfg.scan_chunk_elems`` elements, outputs concatenated along the
+        row axis. Every output row is a function of its query row alone,
+        so the result is the unchunked call's. A row chunk's candidate
+        planes then fit the same budget, so the chunked circle and kNN
+        paths engage only where one row's plane passes it."""
+        plane = min(cand, self.p_total) * (1 << z_depth) * (
             cap + self.lookup_elems)
+        qn = q[0].shape[0]
+        rows = max(1, self.cfg.scan_chunk_elems // plane)
+        if rows >= qn:
+            return fn(*q)
+        outs = [fn(*(a[i:i + rows] for a in q)) for i in range(0, qn, rows)]
+        return tuple(torch.cat(col) for col in zip(*outs))
 
 
 class _PointLocal(_LocalFn):
@@ -296,8 +292,8 @@ class _RangeWindowLocal(_LocalFn):
 
     def __call__(self, parts, bounds, rects, klo, khi):
         del klo, khi   # recomputed per candidate with clipping
-        return _row_chunks(lambda r: self._rows(parts, bounds, r),
-                           self._plane(self.cand, self.cap), rects)
+        return self._row_chunks(lambda r: self._rows(parts, bounds, r),
+                                self.cand, self.cap, rects)
 
     def _rows(self, parts, bounds, rects):
         qn = rects.shape[0]
@@ -329,8 +325,9 @@ class _CircleWindowLocal(_LocalFn):
 
     def __call__(self, parts, bounds, rects, klo, khi, circ):
         del klo, khi   # recomputed per candidate with clipping
-        return _row_chunks(lambda r, cr: self._rows(parts, bounds, r, cr),
-                           self._plane(self.cand, self.cap), rects, circ)
+        return self._row_chunks(
+            lambda r, cr: self._rows(parts, bounds, r, cr),
+            self.cand, self.cap, rects, circ)
 
     def _rows(self, parts, bounds, rects, circ):
         qn = rects.shape[0]
@@ -416,24 +413,23 @@ class _KnnPrunedLocal(_LocalFn):
 
     n_query_args = 3
 
-    def __init__(self, index, cfg, backend, k, spec, cand, cap):
+    def __init__(self, index, cfg, backend, k, cand, cap):
         super().__init__(index, cfg, backend)
         self.k = k
-        self.spec2 = spec
         self.cand = cand
         self.cap = min(cap, index.n_pad)
 
     def __call__(self, parts, bounds, qx, qy, r0):
-        return _row_chunks(
+        return self._row_chunks(
             lambda a, b, r: self._rows(parts, bounds, a, b, r),
-            self._plane(self.cand, self.cap), qx, qy, r0)
+            self.cand, self.cap, qx, qy, r0)
 
     def _round(self, parts, boxes, local, active, rects, r, qx, qy):
         """One candidate plane: in-circle (neg_d2, vid) planes (Q, W),
         in-circle counts and per-candidate ok."""
         qn = qx.shape[0]
         _, vids, ok, wx, wy = Q.range_window_at(
-            parts, boxes, local, active, rects, self.spec2, cap=self.cap,
+            parts, boxes, local, active, rects, self.spec, cap=self.cap,
             **self.kw)
         dx = wx - qx[:, None, None]
         dy = wy - qy[:, None, None]
@@ -445,7 +441,7 @@ class _KnnPrunedLocal(_LocalFn):
                 (ok | ~active).all(1))
 
     def _rows(self, parts, bounds, qx, qy, r0):
-        qn, k, cap = qx.shape[0], self.k, self.cap
+        qn, k = qx.shape[0], self.k
         bk = self.backend
         dev = qx.device
         boxd2 = Q.box_min_dist2(qx, qy, bounds)             # (Q, P)
@@ -457,7 +453,7 @@ class _KnnPrunedLocal(_LocalFn):
         boxes = bounds[order]
         # per-chunk candidate plane (Q, cc * 4*cap); when the whole
         # (Q, cand * 4*cap) plane fits, one top-k over it instead
-        cc = max(1, self.cfg.scan_chunk_elems // max(1, qn * 4 * cap))
+        cc = max(1, self.cfg.scan_chunk_elems // max(1, qn * 4 * self.cap))
 
         def empty():
             return (torch.full((qn, k), NEG, dtype=torch.float32,
@@ -524,10 +520,9 @@ class _JoinLocal(_LocalFn):
         self.cand = cand
 
     def __call__(self, parts, bounds, polys, n_edges, mbr_k):
-        return _row_chunks(
+        return self._row_chunks(
             lambda pl, ne, mk: self._rows(parts, bounds, pl, ne, mk),
-            self._plane(self.cand, self.cap, z_depth=3), polys, n_edges,
-            mbr_k)
+            self.cand, self.cap, polys, n_edges, mbr_k, z_depth=3)
 
     def _rows(self, parts, bounds, polys, n_edges, mbr_k):
         pg = polys.shape[0]

@@ -20,7 +20,8 @@
 // in explicitly rounded intrinsics, so nvcc cannot contract otherwise.
 // An edge whose y-span misses py is skipped: it cannot cross.
 //
-// The vertices (E <= 6144, 48 KB) sit in shared memory; threads stride
+// The vertices (E <= 6140: 48 KB of shared memory per block less the
+// 32 bytes of warp_acc) sit in shared memory; threads stride
 // over the interval, so neighbouring threads read neighbouring
 // coordinates; the integer count is reduced per warp by shuffles, then
 // across the block's warps, which is order-independent and so bitwise.
@@ -96,7 +97,7 @@ __global__ void join_count_kernel(
 
 // Launch on `stream`. Shapes: polys (pg, e_max, 2); n_edges (pg,);
 // mbrs (pg, 4); s/e/active (n_parts, pg); count (n_parts,);
-// x/y (n_parts, n_pad); out (n_parts, pg). e_max <= 6144.
+// x/y (n_parts, n_pad); out (n_parts, pg). e_max <= 6140.
 REPRO_EXPORT int join_count_launch(
     const float* polys, const int* n_edges, const float* mbrs, const int* s,
     const int* e, const unsigned char* active, const int* count,

@@ -271,13 +271,14 @@ def test_range_cap_override_leaves_sticky_state(golden_index, golden):
     cnt, _, _ = ex.run(RangeQuery(cap=16), rects, strict=True)
     assert cnt.tolist() == golden["range_query_cnt"]
     # (16, 8) overflows, then (64, 16): the override's own ladder
-    assert ex._sticky == {} and ex._last_tier[("range",)] == (64, 16)
+    assert ex._sticky == {} and ex.dispatches == 2
     ex.run(RangeQuery(), rects, strict=True)
     assert ex._sticky == {("range",): (64, 8)}
+    n0 = ex.dispatches
     cnt, vids, ok = ex.run(RangeQuery(cap=16), rects, strict=True)
     assert ex._sticky == {("range",): (64, 8)}      # unchanged
     assert cnt.tolist() == golden["range_query_cnt"]
-    assert ex._last_tier[("range",)] == (64, 16)
+    assert ex.dispatches - n0 == 2                  # (16, 8), (64, 16)
 
 
 def test_knn_r0_bitwise():

@@ -220,6 +220,29 @@ def test_gpu_join_count_matches_plain(index, cuda):
     assert (got[:, -3:] == 0).all()            # no area, no count
 
 
+def test_gpu_join_count_at_max_edges(index, cuda):
+    """Polygons of MAX_EDGES vertices fill the block's shared memory and
+    still launch; one vertex more is refused before the launch."""
+    x, y, idx = index
+    e_max = t_pip.MAX_EDGES
+    ang = np.linspace(0, 2 * np.pi, e_max, endpoint=False)
+    ring = np.stack([0.5 + 0.3 * np.cos(ang), 0.5 + 0.2 * np.sin(ang)], -1)
+    polys = np.stack([ring, ring * 0.5 + 0.2]).astype(np.float32)
+    ne = np.asarray([e_max, e_max // 3], np.int32)
+    mbrs = np.concatenate([polys.min(1), polys.max(1)], 1)
+    c, n_pad = idx.x.shape
+    s = np.zeros((c, 2), np.int32)
+    e = np.full((c, 2), n_pad, np.int32)
+    active = np.ones((c, 2), bool)
+    args = _on(cuda, polys, ne, mbrs, s, e, active, idx.count, idx.x, idx.y)
+    got = t_pip.join_count(*args)
+    assert int(got.sum()) > 0
+    assert torch.equal(got, t_pip.join_count_plain(*args))
+    wide = torch.cat([args[0], args[0][:, :1]], 1)
+    with pytest.raises(ValueError, match="vertices per polygon"):
+        t_pip.join_count(wide, *args[1:])
+
+
 def test_gpu_engine_golden_and_backends_agree(cuda):
     """Every golden key replayed with backend="cuda" in gen_golden.py's
     order, and the cuda backend bitwise the torch backend on the card

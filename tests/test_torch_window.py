@@ -340,14 +340,16 @@ def test_range_window_program_bitwise(taxi, source, cap, cand):
 
 @pytest.mark.parametrize("source", SOURCES)
 @pytest.mark.parametrize("materialize,chunk_elems", [
-    (False, 1 << 26), (True, 1 << 26), (True, 20000)],
+    (False, 1 << 26), (True, 1 << 26), (True, 1000)],
     ids=["count", "materialize", "materialize_chunked"])
 def test_circle_window_program_bitwise(taxi, source, materialize,
                                        chunk_elems):
     x, y, jidx = taxi[0], taxi[1], taxi[2]
     cx, cy, r = _circles(x, y, 40, 11)
-    if chunk_elems < 1 << 26:       # the chunked compaction engages
-        assert chunk_elems // (40 * 4 * 64) < 8
+    if chunk_elems < 1 << 26:
+        # one row's candidate plane passes the budget, so the port runs
+        # one-row chunks and both packages take the chunked compaction
+        assert chunk_elems // (4 * 64) < 8
     got = _both(
         taxi, source, chunk_elems,
         lambda ex: TL._CircleWindowLocal(ex.index, ex.cfg, ex.backend, 64,
@@ -375,7 +377,7 @@ def test_circle_count_program_bitwise(taxi, source, chunk):
 
 @pytest.mark.parametrize("source", SOURCES)
 @pytest.mark.parametrize("cap,chunk_elems", [
-    (64, 1 << 26), (256, 1 << 26), (256, 40000)],
+    (64, 1 << 26), (256, 1 << 26), (256, 4000)],
     ids=["monolithic64", "monolithic256", "chunked256"])
 def test_knn_pruned_program_bitwise(taxi, source, cap, chunk_elems):
     x, y = taxi[0], taxi[1]
@@ -384,12 +386,14 @@ def test_knn_pruned_program_bitwise(taxi, source, cap, chunk_elems):
     qx = np.concatenate([x[ix], rng.random(16).astype(np.float32)])
     qy = np.concatenate([y[ix], rng.random(16).astype(np.float32)])
     r0 = rng.uniform(1e-4, 5e-3, 64).astype(np.float32)
-    if chunk_elems < 1 << 26:       # the chunked rounds engage
-        assert chunk_elems // (64 * 4 * cap) < 8
+    if chunk_elems < 1 << 26:
+        # one row's candidate plane passes the budget, so the port runs
+        # one-row chunks and both packages take the chunked rounds
+        assert chunk_elems // (4 * cap) < 8
     got = _both(
         taxi, source, chunk_elems,
         lambda ex: TL._KnnPrunedLocal(ex.index, ex.cfg, ex.backend, 10,
-                                      ex.spec, 8, cap),
+                                      8, cap),
         lambda j, c: JL._KnnPrunedLocal(j, c, XlaBackend(), 10, j.key_spec,
                                         8, cap),
         lambda ex: (_t(qx), _t(qy), _t(r0)),
@@ -398,22 +402,33 @@ def test_knn_pruned_program_bitwise(taxi, source, cap, chunk_elems):
 
 
 @pytest.mark.parametrize("materialize", [False, True])
-def test_row_chunks_equal_one_call(taxi, monkeypatch, materialize):
-    """A call split into query-row chunks (a small ROW_PLANE_ELEMS) gives
-    the unsplit call's outputs."""
+def test_row_chunks_equal_one_call(taxi, materialize):
+    """A call split into query-row chunks (a scan_chunk_elems below the
+    call's windowed planes) gives the unsplit call's outputs. The budget
+    qn * 4 * cap * cand keeps the candidate planes whole, so only the
+    row split differs."""
     x, y = taxi[0], taxi[1]
     cx, cy, r = _circles(x, y, 40, 13)
     ex = _port_executor(taxi, "port_build")
     args = ex._circle_args((cx, cy, r))
-    progs = [TL._CircleWindowLocal(ex.index, ex.cfg, ex.backend, 256, 8,
-                                   materialize),
-             TL._KnnPrunedLocal(ex.index, ex.cfg, ex.backend, 5, ex.spec,
-                                8, 64),
-             TL._RangeWindowLocal(ex.index, ex.cfg, ex.backend, 64, 8)]
+    qn, cand = len(cx), 8
+    progs = [lambda e: TL._CircleWindowLocal(e.index, e.cfg, e.backend,
+                                             256, cand, materialize),
+             lambda e: TL._KnnPrunedLocal(e.index, e.cfg, e.backend, 5,
+                                          cand, 64),
+             lambda e: TL._RangeWindowLocal(e.index, e.cfg, e.backend, 64,
+                                            cand)]
     qargs = [args, (args[3][:, 0].contiguous(), args[3][:, 1].contiguous(),
                     args[3][:, 2] + 1e-3), args[:3]]
-    whole = [ex._call(p, *a) for p, a in zip(progs, qargs)]
-    monkeypatch.setattr(TL, "ROW_PLANE_ELEMS", 1)  # one row per chunk
-    for p, a, w in zip(progs, qargs, whole):
-        split = ex._call(p, *a)
-        assert all(torch.equal(s, v) for s, v in zip(split, w))
+    for make, a in zip(progs, qargs):
+        whole = ex._call(make(ex), *a)
+        cap = make(ex).cap
+        budget = qn * 4 * cap * cand
+        ex_b = Executor(ex.index, EngineConfig(scan_chunk_elems=budget),
+                        device="cpu")
+        prog = make(ex_b)
+        rows = budget // (min(cand, ex.index.num_partitions) * 4 *
+                          (cap + prog.lookup_elems))
+        assert 1 <= rows < qn                       # the row split engages
+        split = ex_b._call(prog, *a)
+        assert all(torch.equal(s, v) for s, v in zip(split, whole))
