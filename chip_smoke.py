@@ -38,12 +38,43 @@ result line):
               trace; then circle_count at its sticky tier under the
               default row-chunk budget (EngineConfig.scan_chunk_elems)
               and under twice it: rows per call, peak memory, latency;
-  6. kernels  each of the six kernels against its plain version at the
-              shapes the main path gives it (bitwise), with its device
-              time per main-path call (a torch.profiler trace), the plain
-              version's, one library call's where PyTorch has one, and
-              the bound from this run's inputs (bytes over 3.35 TB/s or
-              float32 operations over 67 TFLOP/s, whichever is larger).
+  6. serve    serving mode on the same index: a SpatialServeSession with
+              the default config serving src/repro/launch/serve.py's
+              mixed round at q = 16 (point, range count, range query at
+              selectivity 1e-5, circle r = 0.02, 10-NN, a join of 4
+              polygons); warmup on round 0, then 8 steady rounds with
+              maintain() after each. Each steady round runs with its
+              inputs on the card under
+              torch.cuda.set_sync_debug_mode("error"), must leave
+              host_syncs where it was, launch the fallback kernels, and
+              equal bitwise the same rounds on a backend="torch" session;
+              counts are held against the exact programs and kNN
+              distances against exact kNN. Per round: wall ms, launches,
+              what maintain() moved, peak memory; once, a profiler trace
+              of a steady round (device busy, idle share, top activities,
+              the fallback programs' share), each request's latency, and
+              pruned kNN's fixed-round cost against its early exit; and a
+              64-query range query on the sticky tier must raise
+              NotImplementedError (the bucketed dispatch, ROADMAP item
+              14);
+  7. kernels  each of the seven kernels against its plain version at the
+              shapes the main path gives it (bitwise; morton on the
+              quantized coordinates of the 2^23 build, at its own entry
+              point, and also against core/keys.morton_encode), with its
+              device time per main-path call, the plain version's and one
+              library call's where PyTorch has one (CUDA events with the
+              stream held busy by a spin kernel while the host enqueues,
+              so no launch gap is timed; morton also with a cold L2), the
+              mean time of the call's activities in a torch.profiler
+              trace and how many the trace held, and the bound from this
+              run's inputs (bytes over 3.35 TB/s, or operations over 67
+              TFLOP/s for float32 and 16.7 TOP/s for int32, whichever is
+              larger). ``launches`` counts every path this script drives
+              (main, serve, morton).
+
+Device busy time and idle share come from torch.profiler traces; each
+trace is checked against the wrappers' launch counts (``traced``): a
+long trace can lose activities, and its retention is printed with it.
 
 It prints the kernels line, the card line and, last, the result line.
 Details also go to chiprun_out/chip_smoke.json.
@@ -66,8 +97,13 @@ sys.path.insert(0, str(ROOT / "src"))
 # float32 operations/s outside the tensor cores
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
+# int32 operations/s on the CUDA cores: 132 SMs x 64 INT32 lanes x
+# 1.98 GHz boost (Hopper white paper)
+PEAK_I32 = 16.7e12
 N_POINTS = 1 << 23
 N_PARTS = 128
+SERVE_Q = 16             # src/repro/launch/serve.py's narrow traffic
+SERVE_ROUNDS = 8
 DEVICE = "cuda"          # where the port runs, and the kernel backend
 BACKEND = "cuda"
 REPLACES = {
@@ -77,6 +113,7 @@ REPLACES = {
     "knn_topk": "src/repro/kernels/knn_topk.py:83",
     "circle_count": "src/repro/kernels/circle_filter.py:63",
     "point_in_polygon": "src/repro/kernels/point_in_polygon.py:52",
+    "morton": "src/repro/kernels/morton.py:40",
 }
 SOURCES = {
     "spline_search": "src/repro_torch/kernels/csrc/spline_search.cu",
@@ -85,7 +122,13 @@ SOURCES = {
     "knn_topk": "src/repro_torch/kernels/csrc/knn_topk.cu",
     "circle_count": "src/repro_torch/kernels/csrc/circle_filter.cu",
     "point_in_polygon": "src/repro_torch/kernels/csrc/point_in_polygon.cu",
+    "morton": "src/repro_torch/kernels/csrc/morton.cu",
 }
+# the kernels the query paths launch (the main path, and each steady
+# serving round: the fallbacks' and the point query's); morton has only
+# its own entry point
+PATH_KERNELS = ("spline_search", "range_count", "point_probe", "knn_topk",
+                 "circle_count", "point_in_polygon")
 
 
 def log(*a):
@@ -124,10 +167,12 @@ def _short(name: str) -> str:
     return name[:80]
 
 
-def device_profile(fn, reps: int) -> dict:
+def device_profile(fn, reps: int, counts=None) -> dict:
     """{device activity name: device ms per call} over ``reps`` calls
     (after one warm call), from a torch.profiler (CUPTI) trace; empty
-    when the trace holds no device activity."""
+    when the trace holds no device activity. ``counts``, a dict, gets
+    {name: activities per call}, to show that the trace holds every
+    launch."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -143,20 +188,78 @@ def device_profile(fn, reps: int) -> dict:
         if e.device_type == DeviceType.CUDA:
             key = _short(e.name)
             out[key] = out.get(key, 0.0) + e.time_range.elapsed_us() / 1e3
+            if counts is not None:
+                counts[key] = counts.get(key, 0) + 1 / reps
     return {k: v / reps for k, v in out.items()}
 
 
+# this port's kernels as the trace names them
+OUR_KERNELS = ("spline_search_kernel", "range_count_kernel",
+               "point_probe_kernel", "knn_topk_kernel", "circle_count_kernel",
+               "join_count_kernel", "morton_kernel")
+
+
+def traced(fn, reps: int) -> tuple:
+    """(device_profile(fn, reps), retention): the share of this port's
+    kernel launches during the traced calls (counted by the wrappers)
+    that the trace holds, or None when the calls launch none of them.
+    A retention below 1 means the trace lost activities, and its busy
+    time is short by about as much."""
+    from repro_torch import kernels as KERN
+    counts: dict = {}
+    KERN.reset_launch_counts()
+    prof = device_profile(fn, reps, counts)
+    launched = sum(KERN.launch_counts().values()) * reps / (reps + 1)
+    held = sum(v * reps for k, v in counts.items()
+               if any(o in k for o in OUR_KERNELS))
+    return prof, (held / launched if launched else None)
+
+
+def stream_ms(fn, reps: int, cold: bool = False) -> float:
+    """Mean device time of one call from CUDA events: before each call a
+    spin kernel (``torch.cuda._sleep``, about twice the host's enqueue
+    time of a call) keeps the stream busy while the host enqueues the
+    call between two events, so the events time its device work with no
+    launch gaps. ``cold``: a 1 GiB fill first evicts the 50 MB L2."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    cycles = int(host_s * 2e9 * 2) + 200_000
+    flush = (torch.empty(1 << 28, dtype=torch.float32, device="cuda")
+             if cold else None)
+    total = 0.0
+    for _ in range(reps):
+        if cold:
+            flush.fill_(1.0)
+        torch.cuda._sleep(cycles)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        total += a.elapsed_time(b)
+    return total / reps
+
+
 def timed(fn, reps: int, match=None) -> dict:
-    """Device time per call (the activities whose name contains
-    ``match``, or all of them) from the profiler, and the CUDA-event
-    stream time per call. Where the trace shows no device activity the
-    event time stands in, and ``source`` says so."""
-    prof = device_profile(fn, reps)
-    wall = cuda_ms(fn, reps)
+    """Device time per call from CUDA events with the stream held busy
+    (``stream_ms``); the host's enqueue rate (``cuda_ms``); and from a
+    profiler trace, the activities whose name contains ``match`` (or all
+    of them): their mean time per traced activity and how many the trace
+    holds per call (a trace can lose activities)."""
+    counts: dict = {}
+    prof = device_profile(fn, reps, counts)
     dev = sum(v for k, v in prof.items() if match is None or match in k)
-    if dev > 0:
-        return {"ms": dev, "wall_ms": wall, "source": "profiler"}
-    return {"ms": wall, "wall_ms": wall, "source": "cuda events"}
+    n = sum(v for k, v in counts.items() if match is None or match in k)
+    return {"ms": stream_ms(fn, min(reps, 20)), "wall_ms": cuda_ms(fn, reps),
+            "source": "cuda events, stream held busy",
+            "trace_ms_per_activity": dev / n if n else None,
+            "trace_events_per_call": n}
 
 
 def host_ms(fn, reps: int, warm: bool = True) -> float:
@@ -260,6 +363,189 @@ def range_oracle_ids(x, y, order, xs, rect):
     return np.sort(cand[(y[cand] >= rect[1]) & (y[cand] <= rect[3])])
 
 
+def serve_phase(index, part, x, y, dev) -> tuple:
+    """Phase 6: serving mode on ``index`` (see the module docstring).
+    Returns (report, {kernel: launches over the steady rounds})."""
+    import torch
+    from repro_torch import kernels as KERN
+    from repro_torch.core import EngineConfig
+    from repro_torch.core import local_ops as L
+    from repro_torch.core.plan import (CircleQuery, Knn, PointQuery,
+                                       RangeCount, RangeQuery, SpatialJoin)
+    from repro_torch.data import spatial as ds
+    from repro_torch.serve import SpatialServeSession
+
+    q = SERVE_Q
+
+    def serve_round(seed):
+        """serve.py's make_round, its inputs on the card."""
+        rng = np.random.default_rng(seed)
+        ix = rng.integers(0, len(x), q)
+        rects = ds.random_rects(q, 1e-5, part.bounds, seed=seed,
+                                centers=(x, y))
+        polys, ne = ds.random_polygons(max(q // 8, 4), part.bounds,
+                                       seed=seed)
+        px, py, pr, rc, pl, pn = (
+            torch.as_tensor(np.ascontiguousarray(a), device=dev)
+            for a in (x[ix], y[ix], np.full(q, 0.02, np.float32), rects,
+                      polys, ne))
+        return [(PointQuery(), px, py), (RangeCount(), rc),
+                (RangeQuery(), rc), (CircleQuery(), px, py, pr),
+                (Knn(k=10), px, py), (SpatialJoin(), pl, pn)]
+
+    sess = SpatialServeSession(index, device=DEVICE)
+    plain = SpatialServeSession(index, EngineConfig(backend="torch"),
+                                device=DEVICE)
+    sx, px_ = sess.executor, plain.executor
+    rounds = [serve_round(seed) for seed in range(SERVE_ROUNDS + 1)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sess.warmup(rounds[0])
+    torch.cuda.synchronize()
+    report = {"q": q, "warmup_s": time.perf_counter() - t0}
+    plain.warmup(rounds[0])
+    report["tiers_after_warmup"] = {str(k): v for k, v in sx._sticky.items()}
+    require(set(sx._sticky) == {("range",), ("circle", False), ("knn", 10),
+                                ("join",)}, f"serve: sticky {sx._sticky}")
+    require(sx._sticky == px_._sticky, "serve: torch backend tiers")
+    log(f"[serve] warmup {report['warmup_s']:.1f} s, tiers "
+        f"{report['tiers_after_warmup']}")
+
+    def check(reqs, out):
+        """Counts against the exact programs, kNN against exact kNN."""
+        require(bool(out[0].all()), "serve: every data point is found")
+        require(torch.equal(out[2][0], out[1]),
+                "serve: range query counts == range count")
+        require(torch.equal(out[3], sx._circle_exact(
+            sx._circle_args(reqs[3][1:]))),
+            "serve: circle counts == the exact circle program")
+        d2e, _ = sx.run(Knn(k=10, mode="exact"), *reqs[4][1:])
+        require(torch.equal(out[4][0], d2e), "serve: kNN d2 == exact kNN")
+        require(torch.equal(out[5], sx.run(SpatialJoin(mode="full"),
+                                           *reqs[5][1:])),
+                "serve: join == the full join")
+
+    launches = {n: 0 for n in KERN.KERNELS}
+    report["rounds"] = []
+    for i in range(1, SERVE_ROUNDS + 1):
+        reqs = rounds[i]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        syncs = sx.host_syncs
+        KERN.reset_launch_counts()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = sess.submit_batch(reqs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        got = KERN.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        require(sx.host_syncs == syncs, f"serve round {i}: host_syncs moved")
+        require(all(got[n] > 0 for n in PATH_KERNELS),
+                f"serve round {i}: launches {got}")
+        for n, c in got.items():
+            launches[n] += c
+        for j, (a, b) in enumerate(zip(out, plain.submit_batch(reqs))):
+            require(same(a, b), f"serve round {i}, request {j}: cuda vs "
+                    "torch backend")
+        check(reqs, out)
+        moved = sess.maintain()
+        require(moved == plain.maintain() and sx._sticky == px_._sticky,
+                f"serve round {i}: maintain() differs between backends")
+        row = {"round": i, "wall_ms": ms, "host_syncs_added": 0,
+               "launches": {n: c for n, c in got.items() if c},
+               "maintain": {str(k): v for k, v in moved.items()},
+               "max_memory_allocated": peak}
+        report["rounds"].append(row)
+        log(f"[serve] round {i}: {ms:.1f} ms, host_syncs +0, launches "
+            f"{row['launches']}, maintain {row['maintain']}, "
+            f"max_memory_allocated {peak}")
+
+    # one steady round traced; the fused programs' fallbacks are captured
+    # and traced alone on the same inputs for their share of device time
+    reqs = rounds[1]
+    captured = []
+    fused_call = L._CondFusedLocal.__call__
+
+    def capture(self, parts, bounds, *qa):
+        captured.append((self.fallback, parts, bounds,
+                         tuple(qa[j] for j in self.fb_args)))
+        return fused_call(self, parts, bounds, *qa)
+
+    L._CondFusedLocal.__call__ = capture
+    try:
+        prof, kept = traced(lambda: sess.submit_batch(reqs), 1)
+    finally:
+        L._CondFusedLocal.__call__ = fused_call
+    fbs = captured[-4:]             # range, circle, kNN, join
+
+    def fallbacks():
+        return [fb(pa, bo, *a) for fb, pa, bo, a in fbs]
+
+    fb_prof, fb_kept = traced(fallbacks, 1)
+    wall = host_ms(lambda: sess.submit_batch(reqs), 3)
+    busy, fb_busy = sum(prof.values()), sum(fb_prof.values())
+    report.update(
+        steady_round_ms=wall, device_busy_ms=busy,
+        idle_share=1.0 - busy / wall, trace_retention=kept,
+        fallback_busy_ms=fb_busy, fallback_trace_retention=fb_kept,
+        fallback_share=fb_busy / busy,
+        top_device_ms=sorted(prof.items(), key=lambda kv: -kv[1])[:6])
+    log(f"[serve] steady round {wall:.3f} ms, device busy {busy:.3f} ms "
+        f"(trace retention {kept:.3f}), idle share "
+        f"{report['idle_share']:.3f}, fallback programs {fb_busy:.3f} ms "
+        f"(retention {fb_kept:.3f}; {report['fallback_share']:.3f} of "
+        "device time)")
+    log("[serve] where: " + "; ".join(
+        f"{n} {t:.4f}" for n, t in report["top_device_ms"]))
+    names = ["point", "range_count", "range_query", "circle_count",
+             "knn10", "join"]
+    report["request_ms"] = {
+        n: host_ms(lambda r=r: sess.submit(*r), 3)
+        for n, r in zip(names, reqs)}
+    log("[serve] per request ms: " + ", ".join(
+        f"{n} {t:.3f}" for n, t in report["request_ms"].items()))
+
+    # pruned kNN at its sticky tier: the serving form's fixed rounds
+    # against the strict form's early exit, on the round's queries
+    cap = sx._sticky[("knn", 10)][0]
+    kq = reqs[4][1:]
+    r0 = sx._knn_r0(*kq, 10)
+    knn = {}
+    for fixed in (False, True):
+        prog = L._KnnPrunedLocal(sx.index, sx.cfg, sx.backend, 10,
+                                 sx.cfg.knn_cand, cap, fixed_rounds=fixed)
+        knn["fixed" if fixed else "early_exit"] = {
+            "wall_ms": host_ms(lambda: prog(sx.parts, sx.bounds, *kq, r0),
+                               3),
+            "device_busy_ms": sum(device_profile(
+                lambda: prog(sx.parts, sx.bounds, *kq, r0), 1).values())}
+    report["knn_rounds"] = dict(knn, tier=cap, max_rounds=sx.cfg.knn_max_rounds)
+    log(f"[serve] pruned 10-NN at cap {cap}: {sx.cfg.knn_max_rounds} fixed "
+        f"rounds {knn['fixed']['wall_ms']:.3f} ms (device "
+        f"{knn['fixed']['device_busy_ms']:.3f}), early exit "
+        f"{knn['early_exit']['wall_ms']:.3f} ms (device "
+        f"{knn['early_exit']['device_busy_ms']:.3f})")
+
+    # a wide batch on the sticky tier is the bucketed dispatch's
+    wide = torch.as_tensor(ds.random_rects(64, 1e-5, part.bounds, seed=99,
+                                           centers=(x, y)), device=dev)
+    try:
+        sess.submit(RangeQuery(), wide)
+        raised = ""
+    except NotImplementedError as e:
+        raised = str(e)
+    require("module item 14" in raised,
+            "serve: a 64-query range query on the sticky tier must raise")
+    log(f"[serve] 64-query range query on the sticky tier raised: {raised}")
+    report["stats"] = {k: (str(v) if k == "sticky" else v)
+                       for k, v in sess.stats().items()}
+    return report, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -277,12 +563,17 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import circle_filter as CF
     from repro_torch.kernels import knn_topk as KNN
+    from repro_torch.kernels import morton as MO
     from repro_torch.kernels import point_in_polygon as PIP
     from repro_torch.kernels import point_probe as PP
     from repro_torch.kernels import range_filter as RF
     from repro_torch.kernels import spline_search as SS
 
     dev = torch.device(DEVICE)
+    t_start = time.perf_counter()
+
+    def phase(name):
+        log(f"[phase] {name} at {time.perf_counter() - t_start:.1f} s")
     report = {}
 
     # 1. device
@@ -297,14 +588,15 @@ def main() -> int:
     libs = _build.build_all()
     report["build_s"] = time.perf_counter() - t0
     require(set(libs) == {"spline_search", "range_filter", "point_probe",
-                          "knn_topk", "circle_filter", "point_in_polygon"},
-            f"kernel sources: {sorted(libs)}")
+                          "knn_topk", "circle_filter", "point_in_polygon",
+                          "morton"}, f"kernel sources: {sorted(libs)}")
     log(f"[build] {len(libs)} kernels in {report['build_s']:.1f} s")
     for name in libs:
         for line in _build.build_log(name).splitlines():
             if "Used" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
 
+    phase("golden")
     # 3. golden replay with the CUDA kernels
     with open(ROOT / "tests" / "golden" / "spatial_golden.json") as f:
         golden = json.load(f)
@@ -317,6 +609,7 @@ def main() -> int:
         require(got[key] == golden[key], f"golden {key}")
     log(f"[golden] all {len(golden)} keys bitwise: {', '.join(golden)}")
 
+    phase("index")
     # 4. full-size build on the card
     t0 = time.perf_counter()
     x, y = ds.make("taxi", N_POINTS, seed=0)
@@ -340,6 +633,7 @@ def main() -> int:
         f"m_eff={report['m_eff']} max_memory_allocated="
         f"{report['max_memory_allocated']}")
 
+    phase("main")
     # 5. the main path, once, with the launch counts around it
     rng = np.random.default_rng(1)
     ix = rng.integers(0, N_POINTS, 512)
@@ -408,7 +702,8 @@ def main() -> int:
             f"max_memory_allocated {peak[name]}")
     launches = KERN.launch_counts()
     log(f"[main] launches {launches}")
-    require(all(n > 0 for n in launches.values()),
+    # every kernel but morton, whose only entry point is its own (phase 7)
+    require(all(launches[n] > 0 for n in PATH_KERNELS),
             f"a kernel of the main path never launched: {launches}")
     report.update(first_call_ms=first_ms, max_memory_allocated_per_call=peak,
                   path_launches=path_launches, tiers=tiers)
@@ -458,15 +753,17 @@ def main() -> int:
         slow = first_ms[name] > 1000
         lat[name] = host_ms(lambda: fn(eng), 1 if slow else 5)
         lat_plain[name] = host_ms(lambda: fn(plain), 1 if slow else 3)
-        prof = device_profile(lambda: fn(eng), 1 if slow else 3)
+        prof, kept = traced(lambda: fn(eng), 1 if slow else 3)
         busy = sum(prof.values())
         top = sorted(prof.items(), key=lambda kv: -kv[1])[:5]
         report["where"][name] = {"device_busy_ms": busy,
                                  "idle_share": 1.0 - busy / lat[name],
+                                 "trace_retention": kept,
                                  "top_device_ms": top}
         log(f"[latency] {name}: cuda {lat[name]:.3f} ms (device busy "
-            f"{busy:.3f} ms, idle share {1.0 - busy / lat[name]:.3f}), "
-            f"torch backend {lat_plain[name]:.3f} ms")
+            f"{busy:.3f} ms, idle share {1.0 - busy / lat[name]:.3f}, "
+            f"trace retention {kept}), torch backend "
+            f"{lat_plain[name]:.3f} ms")
         log(f"[where] {name}: " + "; ".join(f"{n} {t:.4f}" for n, t in top))
     report["batch_ms"] = lat
     report["batch_ms_torch_backend"] = lat_plain
@@ -508,7 +805,14 @@ def main() -> int:
             f"busy {rb['device_busy_ms']:.3f} ms, idle share "
             f"{rb['idle_share']:.3f})")
 
-    # 6. each kernel against its plain version on the inputs the main
+    phase("serve")
+    # 6. serving mode on the same index
+    report["serve"], serve_launches = serve_phase(index, part, x, y, dev)
+    require(all(serve_launches[n] > 0 for n in PATH_KERNELS),
+            f"serve launches {serve_launches}")
+
+    phase("kernels")
+    # 7. each kernel against its plain version on the inputs the main
     # path gives it: every launch of one call (one per partition chunk,
     # or one per candidate set) is held bitwise against the plain
     # version, and the times, bytes and operations are those of the
@@ -529,14 +833,18 @@ def main() -> int:
     def sweep(fn, arglist, **kws):
         return lambda: [fn(*a, **kws) for a in arglist]
 
-    def entry(name, err, t, pt, nbytes, nops, lt, call):
-        """One kernel row; ``call`` is the main-path call whose launches
-        were timed (``launches`` counts the whole main path's)."""
+    by_path = {"main": launches, "serve": serve_launches}
+
+    def entry(name, err, t, pt, nbytes, nops, lt, call, peak_ops=PEAK_F32):
+        """One kernel row; ``call`` is the path's call whose launches
+        were timed (``launches`` counts every path's)."""
         t_bytes = nbytes / PEAK_BYTES * 1e3
-        t_ops = nops / PEAK_F32 * 1e3
+        t_ops = nops / peak_ops * 1e3
         per_call = path_launches[call][name]
+        paths = {p: c[name] for p, c in by_path.items() if c.get(name)}
         row = {"name": name, "route": "cuda", "source": SOURCES[name],
-               "replaces": REPLACES[name], "launches": launches[name],
+               "replaces": REPLACES[name], "launches": sum(paths.values()),
+               "launches_by_path": paths,
                "max_abs_err": err, "ms": t["ms"], "plain_ms": pt["ms"],
                "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -544,6 +852,9 @@ def main() -> int:
                "timed_call": call, "timed_call_launches": per_call,
                "ms_per_launch": t["ms"] / per_call,
                "ms_source": t["source"], "wall_ms": t["wall_ms"],
+               "trace_ms_per_activity": t["trace_ms_per_activity"],
+               "trace_events_per_call": t["trace_events_per_call"],
+               "ms_cold_l2": t.get("cold_ms"),
                "plain_wall_ms": pt["wall_ms"], "bytes": nbytes, "ops": nops}
         rows.append(row)
         log(f"[kernel] {json.dumps(row)}")
@@ -708,6 +1019,37 @@ def main() -> int:
     entry("point_in_polygon", err, t, pt, nbytes, 8 * in_mbr_edges, None,
           "join_full_32")
 
+    # morton, at its own entry point (the index build's key step is
+    # core/keys.morton_encode, as in the reference): the quantized
+    # coordinates of the 2^23 build. Bytes: two int64 in, one out per
+    # point; about 26 int32 operations per point.
+    bx, bits = ex.spec.bounds, ex.spec.bits_per_dim
+    mqx = K.quantize(torch.as_tensor(x, device=dev), bx[0], bx[2], bits)
+    mqy = K.quantize(torch.as_tensor(y, device=dev), bx[1], bx[3], bits)
+    n_m = mqx.shape[0]
+    call = f"morton_{n_m}"
+    torch.cuda.synchronize()
+    KERN.reset_launch_counts()
+    mkeys = MO.morton_encode(mqx, mqy)
+    torch.cuda.synchronize()
+    by_path["morton"] = KERN.launch_counts()
+    path_launches[call] = {n: c for n, c in by_path["morton"].items() if c}
+    require(path_launches[call] == {"morton": 1},
+            f"morton path launched {path_launches[call]}")
+    err = int((mkeys - MO.morton_encode_plain(mqx, mqy)).abs().max())
+    require(torch.equal(mkeys, K.morton_encode(mqx, mqy)),
+            "morton kernel vs core/keys.morton_encode")
+    t = timed(lambda: MO.morton_encode(mqx, mqy), 50, "morton_kernel")
+    # the arrays (201 MB) are four times the L2: the cold-cache time
+    # beside the trace's back-to-back one
+    t["cold_ms"] = stream_ms(lambda: MO.morton_encode(mqx, mqy), 20,
+                             cold=True)
+    pt = timed(lambda: MO.morton_encode_plain(mqx, mqy), 10)
+    entry("morton", err, t, pt, 24 * n_m, 26 * n_m, None, call,
+          peak_ops=PEAK_I32)
+    log(f"[morton] {n_m} points bitwise against its plain version and "
+        "core/keys.morton_encode")
+
     for row in rows:
         require(row["max_abs_err"] == 0, f"{row['name']} differs from plain")
     require(len(rows) == len(KERN.KERNELS), "a kernel row is missing")
@@ -716,6 +1058,7 @@ def main() -> int:
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
+    phase("done")
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

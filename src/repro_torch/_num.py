@@ -21,7 +21,11 @@ def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     hardware FMA). Inputs broadcast; the result is float32."""
     a64 = a.to(torch.float64)
     b64 = b.to(torch.float64)
-    c64 = torch.as_tensor(c).to(device=a64.device, dtype=torch.float64)
+    if isinstance(c, torch.Tensor):
+        c64 = c.to(device=a64.device, dtype=torch.float64)
+    else:    # a scalar is filled on the device: no host-to-device copy
+        c64 = torch.full((), float(c), dtype=torch.float64,
+                         device=a64.device)
     p = a64 * b64                        # exact: 24 x 24 bits <= 53 bits
     s = p + c64
     # TwoSum: s + err == p + c exactly (when s is finite)

@@ -10,7 +10,8 @@
     per_poly = eng.join_count(polys, n_edges)     # or mode="full"
 
 The adaptive methods run the strict escalation loop (``strict=True``),
-as the reference's facade does. Both build_index and SpatialEngine run
+as the reference's facade does; ``run`` and ``run_batch`` default to
+serving mode (``strict=False``). Both build_index and SpatialEngine run
 on the card by default; pass ``device="cpu"`` to run on the CPU.
 """
 from __future__ import annotations
@@ -47,6 +48,11 @@ class SpatialEngine:
     def run(self, spec, *args, strict: bool = False):
         """Dispatch a QuerySpec (see core/plan.py) through the executor."""
         return self.executor.run(spec, *args, strict=strict)
+
+    def run_batch(self, requests, strict: bool = False):
+        """A mixed batch of (spec, *args) requests, in order (serving
+        mode unless ``strict``)."""
+        return self.executor.run_batch(requests, strict=strict)
 
     def point_query(self, qx, qy):
         """Exact membership (paper §4.1): found (Q,) bool."""

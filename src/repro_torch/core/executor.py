@@ -6,24 +6,30 @@ _PointLocal, RangeCount -> _RangeCountLocal, Knn(mode="exact") ->
 _KnnExactLocal, SpatialJoin(mode="full") -> _JoinFullLocal.
 
 Adaptive specs (RangeQuery, CircleQuery, pruned Knn, windowed
-SpatialJoin) run the reference's strict policy (paper §4, DESIGN.md §7)
-once, in ``_adaptive``: start from the spec family's sticky (cap, cand)
-tier (or the initial one), run the windowed program, read its ok flags
-on the host, escalate until every query is ok or the tier is maxed,
-then fall back to the exact program where the family has one. The tier
-that succeeded becomes the family's sticky tier, keyed by
-``spec.sticky_key()``, so a later call starts there.
+SpatialJoin) share one policy (paper §4, DESIGN.md §7), in
+``_adaptive``:
 
-``strict=False`` is the reference's serving mode: once a sticky tier
-exists it runs a fused windowed + on-device fallback program whose ids
-and ok flags differ from the strict loop's. That mode is not ported
-(ROADMAP.md module item 12): with a sticky tier, ``strict=False``
-raises NotImplementedError; with none yet, it runs the strict loop, as
-the reference does. There is no compile cache: PyTorch runs eagerly.
+* strict (``strict=True``, or no sticky tier yet): start from the spec
+  family's sticky (cap, cand) tier (or the initial one), run the
+  windowed program, read its ok flags on the host (``_all_ok``, counted
+  in ``host_syncs``), escalate until every query is ok or the tier is
+  maxed, then fall back to the exact program where the family has one.
+  The tier that succeeded becomes the family's sticky tier, keyed by
+  ``spec.sticky_key()``.
+* serving (``strict=False`` on a sticky tier): one fused program
+  (``local_ops._CondFusedLocal``) runs the windowed attempt at the
+  sticky tier and the exact fallback on the device, with no host read;
+  its ok flags are stashed, unread, for ``maintain()``, which re-tunes
+  the tiers off the hot path (escalation, demotion, back-off).
+
+A wide serving batch that the reference sends to its tier-bucketed
+dispatch raises NotImplementedError (ROADMAP.md module item 14). There
+is no compile cache: PyTorch runs eagerly.
 """
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Callable, Optional, Tuple
 
 import numpy as np
@@ -41,7 +47,7 @@ from repro_torch.core.plan import (PENDING, CircleQuery, EngineConfig, Knn,
 
 @dataclasses.dataclass
 class _AdaptiveOp:
-    """Binds one query family to the strict policy loop."""
+    """Binds one query family to the adaptive policy."""
     base: Tuple                       # sticky key
     initial: Tuple[int, int]          # starting (cap, cand)
     window: Callable                  # (cap, cand) -> local program
@@ -51,12 +57,17 @@ class _AdaptiveOp:
     maxed: Callable                   # (cap, cand) -> bool
     sticky_on_maxed: bool             # the reference's per-family rule
     fallback: Optional[Callable]      # (pargs, raw) -> exact result
+    fused: Callable                   # (cap, cand) -> fused program
+    demote: Callable                  # (cap, cand) -> lower tier
+    post: Callable = lambda r: r      # fused result -> public result
 
 
 def _f32_const(v, like: torch.Tensor) -> torch.Tensor:
     """A float32 scalar tensor of ``v`` on ``like``'s device (how the
-    reference's weakly typed Python scalars enter float32 math)."""
-    return torch.tensor(np.float32(v), device=like.device)
+    reference's weakly typed Python scalars enter float32 math), filled
+    on the device: no host-to-device copy on the query path."""
+    return torch.full((), float(np.float32(v)), dtype=torch.float32,
+                      device=like.device)
 
 
 class Executor:
@@ -78,63 +89,157 @@ class Executor:
         self.area = max((b[2] - b[0]) * (b[3] - b[1]), 1e-30)
         self.n_total = int(index.count.sum())
         self.density = max(self.n_total / self.area, 1e-30)
-        self.dispatches = 0   # local-program calls
         self._sticky = {}     # sticky_key -> last successful (cap, cand)
+        self._initial = {}    # sticky_key -> initial (cap, cand), as the
+                              # reference keeps it
+        self._pending = {}    # sticky_key -> (tier, ok device tensor)
+        self._escalators = {}  # sticky_key -> the op's escalate rule
+        self._demoters = {}   # sticky_key -> the op's demote rule
+        self._ok_streak = {}  # sticky_key -> consecutive clean checks
+        self._demoted_from = {}   # sticky_key -> tier last demoted FROM
+        self._demote_backoff = {}  # sticky_key -> streak multiplier
+        self.host_syncs = 0   # counted host reads of ok (_all_ok)
+        self.dispatches = 0   # local-program calls
+        # serializes run and maintain, so several threads can share one
+        # executor (sticky state, stashed ok flags)
+        self._lock = threading.RLock()
 
     def _f32(self, a) -> torch.Tensor:
         if isinstance(a, torch.Tensor):
             return a.to(device=self.device, dtype=torch.float32).contiguous()
         return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
 
+    def _i32(self, a) -> torch.Tensor:
+        if isinstance(a, torch.Tensor):
+            return a.to(device=self.device, dtype=torch.int32).contiguous()
+        return torch.as_tensor(np.asarray(a, np.int32), device=self.device)
+
     def _call(self, fn, *args):
         self.dispatches += 1
         return fn(self.parts, self.bounds, *args)
+
+    def _all_ok(self, ok) -> bool:
+        """The only counted host read of ``ok`` on the query path."""
+        self.host_syncs += 1
+        return bool(ok.all())
 
     # -- public entry points ---------------------------------------------
 
     def run(self, spec: QuerySpec, *args, strict: bool = False):
         """Execute one QuerySpec. ``strict=True`` runs the adaptive specs'
-        host-checked escalation loop; see the module docstring for
-        ``strict=False``."""
+        host-checked escalation loop; ``strict=False`` runs serving mode
+        once the family has a sticky tier (module docstring).
+        Thread-safe."""
         if not isinstance(spec, QuerySpec):
             raise TypeError(f"expected a QuerySpec, got {spec!r}")
         if len(args) != spec.n_args:
             raise TypeError(f"{type(spec).__name__} takes {spec.n_args} "
                             f"data arguments, got {len(args)}")
-        if isinstance(spec, PointQuery):
-            return self._run_point(args)
-        if isinstance(spec, RangeCount):
-            return self._run_range_count(args)
-        if isinstance(spec, RangeQuery):
-            return self._run_range(spec, args, strict)
-        if isinstance(spec, CircleQuery):
-            return self._run_circle(spec, args, strict)
-        if isinstance(spec, Knn):
-            return self._run_knn(spec, args, strict)
-        if isinstance(spec, SpatialJoin):
-            return self._run_join(spec, args, strict)
+        with self._lock:
+            if isinstance(spec, PointQuery):
+                return self._run_point(args)
+            if isinstance(spec, RangeCount):
+                return self._run_range_count(args)
+            if isinstance(spec, RangeQuery):
+                return self._run_range(spec, args, strict)
+            if isinstance(spec, CircleQuery):
+                return self._run_circle(spec, args, strict)
+            if isinstance(spec, Knn):
+                return self._run_knn(spec, args, strict)
+            if isinstance(spec, SpatialJoin):
+                return self._run_join(spec, args, strict)
         raise TypeError(f"unknown QuerySpec: {spec!r}")
 
     def run_batch(self, requests, strict: bool = False) -> list:
-        """Execute (spec, *args) tuples; results in request order."""
+        """Execute (spec, *args) tuples; results in request order. A
+        steady batch (every adaptive family on a sticky tier) makes no
+        host sync."""
         return [self.run(req[0], *req[1:], strict=strict)
                 for req in requests]
 
-    # -- the strict adaptive policy ---------------------------------------
+    def maintain(self) -> dict:
+        """Deferred re-tuning, off the serving hot path: read the ok
+        flags that serving calls stashed; escalate a sticky tier that
+        overflowed, and demote one that stayed clean for
+        ``EngineConfig.demote_after`` consecutive checks. A demotion
+        that the next overflow undoes (the escalation lands on the tier
+        it left) doubles that family's required clean streak. Counts
+        stay exact either way: an overflowed serving call already took
+        the exact fallback on the device. Returns {sticky_key: new
+        (cap, cand)} for the tiers that moved. Thread-safe."""
+        with self._lock:
+            return self._maintain_locked()
+
+    def _maintain_locked(self) -> dict:
+        moved = {}
+        for base, (tier, ok) in list(self._pending.items()):
+            del self._pending[base]
+            if self._sticky.get(base) != tier:
+                continue   # stale: the sticky tier moved since the stash
+            if self._all_ok(ok):
+                streak = self._ok_streak.get(base, 0) + 1
+                self._ok_streak[base] = streak
+                # the demoted tier survived a clean check: a real
+                # demotion, so a later escalation through it is no bounce
+                self._demoted_from.pop(base, None)
+                need = (self.cfg.demote_after *
+                        self._demote_backoff.get(base, 1))
+                if streak < need:
+                    continue
+                new = self._demoters[base](*tier)
+                if new != tier:
+                    self._demoted_from[base] = tier
+                    self._set_sticky(base, new)
+                    moved[base] = new
+                continue
+            self._ok_streak[base] = 0
+            new = self._escalators[base](*tier)
+            if new != tier:
+                if self._demoted_from.pop(base, None) == new:
+                    # immediate bounce: back off, never veto for good
+                    self._demote_backoff[base] = \
+                        self._demote_backoff.get(base, 1) * 2
+                self._set_sticky(base, new)
+                moved[base] = new
+        return moved
+
+    def stats(self) -> dict:
+        """Counters: host_syncs, dispatches, backend, sticky tiers."""
+        return {"host_syncs": self.host_syncs,
+                "dispatches": self.dispatches,
+                "backend": self.backend.name,
+                "sticky": dict(self._sticky)}
+
+    # -- the adaptive policy ----------------------------------------------
 
     def _adaptive(self, op: _AdaptiveOp, pargs, strict: bool,
                   start: Optional[Tuple[int, int]] = None):
-        """Sticky tier + geometric escalation + exact fallback. ``start``
-        is a one-off user tier: it never updates the sticky state."""
+        """Sticky tier + geometric escalation + exact fallback, or the
+        fused serving program. ``start`` is a one-off user tier: it runs
+        the strict loop and never updates the sticky state."""
+        self._initial.setdefault(op.base, op.initial)
+        self._escalators[op.base] = op.escalate
+        self._demoters[op.base] = op.demote
         sticky = self._sticky.get(op.base)
         if sticky is not None and not strict and start is None:
-            raise NotImplementedError(
-                f"strict=False on the sticky tier {sticky} of {op.base} is "
-                f"not ported yet: it needs {PENDING}; pass strict=True")
+            qn = pargs[0].shape[0]
+            if self.cfg.tier_buckets and qn >= self.cfg.tier_bucket_min:
+                # every adaptive family of the reference has a probe, so
+                # such a batch takes its bucketed dispatch there
+                raise NotImplementedError(
+                    f"a serving batch of {qn} >= tier_bucket_min "
+                    f"({self.cfg.tier_bucket_min}) on the sticky tier "
+                    f"{sticky} of {op.base} needs {PENDING}; pass "
+                    "strict=True, or EngineConfig(tier_buckets=False)")
+            # steady state: the fused program, no host read; ok is
+            # stashed, unread, for maintain()
+            out, ok = self._call(op.fused(*sticky), *pargs)
+            self._pending[op.base] = (sticky, ok)
+            return op.post(out)
         cap, cand = start or sticky or op.initial
         while True:
             res = self._call(op.window(cap, cand), *pargs)
-            hit = bool(op.get_ok(res).all())     # the host read per tier
+            hit = self._all_ok(op.get_ok(res))
             maxed = op.maxed(cap, cand)
             if hit or (maxed and op.sticky_on_maxed):
                 if start is None:
@@ -146,7 +251,11 @@ class Executor:
         return op.fallback(pargs, res)
 
     def _set_sticky(self, base, variant):
+        old = self._sticky.get(base)
         self._sticky[base] = variant
+        if old != variant:
+            # a new tier starts its demotion clock from zero
+            self._ok_streak[base] = 0
 
     def _maxed_both(self, cap, cand):
         return (cap >= self.index.n_pad and
@@ -155,6 +264,22 @@ class Executor:
     def _escalate_both(self, cap, cand):
         return (min(cap * 4, self.index.n_pad),
                 min(cand * 2, self.index.num_partitions))
+
+    def _ladder_demote(self, initial, escalate):
+        """Demote to the PREDECESSOR on the op's escalation ladder
+        (initial, escalate(initial), ...), not to an arithmetic inverse,
+        which lands off the ladder where escalation clamped."""
+        def demote(cap, cand):
+            prev = cur = initial
+            for _ in range(64):          # ladders are O(log) long
+                if cur == (cap, cand):
+                    return prev
+                nxt = escalate(*cur)
+                if nxt == cur:
+                    break                # maxed without finding it
+                prev, cur = cur, nxt
+            return (cap, cand)           # off-ladder: stay put
+        return demote
 
     # -- per-kind preparation and dispatch ------------------------------
 
@@ -176,13 +301,28 @@ class Executor:
 
     def _op_range(self, base):
         idx, cfg, bk = self.index, self.cfg, self.backend
+
+        def fused(cap, cand):
+            # counts stay exact via the exact range count; ok still
+            # flags each query's materialization completeness
+            return L._CondFusedLocal(
+                idx, cfg, bk,
+                primary=L._RangeWindowLocal(idx, cfg, bk, cap, cand),
+                fallback=L._RangeCountLocal(idx, cfg, bk),
+                fb_args=(0, 1, 2),
+                get_ok=lambda pri: pri[2],
+                merge_ok=lambda pri: pri,
+                merge_fb=lambda pri, fb: (fb, pri[1], pri[2]))
+
         return _AdaptiveOp(
             base=base, initial=(cfg.range_cap, cfg.range_cand),
             window=lambda cap, cand: L._RangeWindowLocal(idx, cfg, bk,
                                                          cap, cand),
             get_ok=lambda res: res[2], finalize=lambda res: res,
             escalate=self._escalate_both, maxed=self._maxed_both,
-            sticky_on_maxed=True, fallback=None)
+            sticky_on_maxed=True, fallback=None, fused=fused,
+            demote=self._ladder_demote((cfg.range_cap, cfg.range_cand),
+                                       self._escalate_both))
 
     def _run_range(self, spec: RangeQuery, args, strict):
         rects = self._f32(args[0]).reshape(-1, 4)
@@ -212,6 +352,27 @@ class Executor:
     def _op_circle(self, base, materialize: bool):
         idx, cfg, bk = self.index, self.cfg, self.backend
 
+        def window(cap, cand):
+            return L._CircleWindowLocal(idx, cfg, bk, cap, cand,
+                                        materialize)
+
+        def fused(cap, cand):
+            if materialize:
+                return L._CondFusedLocal(
+                    idx, cfg, bk, primary=window(cap, cand),
+                    fallback=L._CircleCountLocal(idx, cfg, bk),
+                    fb_args=(0, 1, 2, 3),
+                    get_ok=lambda pri: pri[2],
+                    merge_ok=lambda pri: pri,
+                    merge_fb=lambda pri, fb: (fb, pri[1], pri[2]))
+            return L._CondFusedLocal(
+                idx, cfg, bk, primary=window(cap, cand),
+                fallback=L._CircleCountLocal(idx, cfg, bk),
+                fb_args=(0, 1, 2, 3),
+                get_ok=lambda pri: pri[1],
+                merge_ok=lambda pri: pri[0],
+                merge_fb=lambda pri, fb: fb)
+
         def fallback(pargs, res):
             cnt = self._circle_exact(pargs)
             if materialize:    # exact counts; window ids flagged by ok
@@ -220,13 +381,13 @@ class Executor:
 
         return _AdaptiveOp(
             base=base, initial=(cfg.circle_cap, cfg.circle_cand),
-            window=lambda cap, cand: L._CircleWindowLocal(
-                idx, cfg, bk, cap, cand, materialize),
-            get_ok=lambda res: res[-1],
+            window=window, get_ok=lambda res: res[-1],
             finalize=(lambda res: res) if materialize
             else (lambda res: res[0]),
             escalate=self._escalate_both, maxed=self._maxed_both,
-            sticky_on_maxed=False, fallback=fallback)
+            sticky_on_maxed=False, fallback=fallback, fused=fused,
+            demote=self._ladder_demote((cfg.circle_cap, cfg.circle_cand),
+                                       self._escalate_both))
 
     def _run_circle(self, spec: CircleQuery, args, strict):
         op = self._op_circle(spec.sticky_key(), spec.materialize)
@@ -262,6 +423,31 @@ class Executor:
         idx, cfg, bk = self.index, self.cfg, self.backend
         cand = cfg.knn_cand
 
+        def fused(cap, _cand):
+            def pruned(c):      # the serving form: fixed rounds
+                return L._KnnPrunedLocal(idx, cfg, bk, k, cand, c,
+                                         fixed_rounds=True)
+
+            def merge_fb(pri, fb):
+                okc = pri[2][:, None]
+                return (torch.where(okc, pri[0], fb[0]),
+                        torch.where(okc, pri[1], fb[1]))
+
+            # fallback ladder: overflowed rows retry at the next cap
+            # before the exact scan
+            exact = L._KnnExactLocal(idx, cfg, bk, k)
+            esc = min(cap * 4, idx.n_pad)
+            if esc > cap:
+                fb = L._KnnLadderLocal(idx, cfg, bk, primary=pruned(esc),
+                                       exact=exact)
+                fb_args = (0, 1, 2)
+            else:
+                fb, fb_args = exact, (0, 1)
+            return L._CondFusedLocal(
+                idx, cfg, bk, primary=pruned(cap), fallback=fb,
+                fb_args=fb_args, get_ok=lambda pri: pri[2],
+                merge_ok=lambda pri: (pri[0], pri[1]), merge_fb=merge_fb)
+
         def fallback(pargs, res):
             # unresolved queries: the exact scan
             neg, vid, ok = res
@@ -278,7 +464,9 @@ class Executor:
             finalize=lambda res: (-res[0], res[1]),
             escalate=lambda cap, cd: (min(cap * 4, idx.n_pad), cd),
             maxed=lambda cap, cd: cap >= idx.n_pad,
-            sticky_on_maxed=False, fallback=fallback)
+            sticky_on_maxed=False, fallback=fallback, fused=fused,
+            post=lambda r: (-r[0], r[1]),
+            demote=lambda cap, cd: (max(cap // 4, cfg.knn_cap), cd))
 
     def _run_knn(self, spec: Knn, args, strict):
         qx, qy = self._f32(args[0]), self._f32(args[1])
@@ -295,21 +483,33 @@ class Executor:
 
     def _op_join(self, base):
         idx, cfg, bk = self.index, self.cfg, self.backend
+
+        def fused(cap, cand):
+            return L._CondFusedLocal(
+                idx, cfg, bk,
+                primary=L._JoinLocal(idx, cfg, bk, cap, cand),
+                fallback=L._JoinFullLocal(idx, cfg, bk),
+                fb_args=(0, 1, 2),
+                get_ok=lambda pri: pri[1],
+                merge_ok=lambda pri: pri[0],
+                merge_fb=lambda pri, fb: fb)
+
         return _AdaptiveOp(
             base=base, initial=(cfg.join_cap, cfg.join_cand),
             window=lambda cap, cand: L._JoinLocal(idx, cfg, bk, cap, cand),
             get_ok=lambda res: res[1], finalize=lambda res: res[0],
             escalate=self._escalate_both, maxed=self._maxed_both,
             sticky_on_maxed=False,
-            fallback=lambda pargs, res: self._join_full(pargs))
+            fallback=lambda pargs, res: self._join_full(pargs), fused=fused,
+            demote=self._ladder_demote((cfg.join_cap, cfg.join_cand),
+                                       self._escalate_both))
 
     def _join_args(self, args):
         """(polys, n_edges, mbr_k) of (polys, n_edges): mbr_k (PG, 6) holds
         each polygon's MBR over its first n_edges vertices and the MBR's
         key range."""
         polys = self._f32(args[0])
-        n_edges = torch.as_tensor(args[1]).to(device=self.device,
-                                              dtype=torch.int32)
+        n_edges = self._i32(args[1])
         em = L._edge_mask(polys, n_edges)
         big = _f32_const(3e38, polys)
         mbrs = torch.cat([torch.where(em, polys, big).amin(1),

@@ -53,11 +53,14 @@ def quantize(coord: torch.Tensor, lo: float, hi: float, bits: int):
     """Map float32 coords in [lo, hi] to int64 in [0, 2^bits - 1].
 
     The reference computes in float32 throughout: ``lo`` and the scale
-    are float32 scalars, and the scale is a float32 division."""
+    are float32 scalars, and the scale is a float32 division. Both are
+    filled on the device (no host-to-device copy on the query path)."""
     scale = np.float32(1 << bits) / np.float32(max(hi - lo, 1e-30))
-    lo32 = torch.tensor(np.float32(lo), device=coord.device)
-    q = torch.floor((coord - lo32) *
-                    torch.tensor(scale, device=coord.device))
+    dev = coord.device
+    lo32 = torch.full((), float(np.float32(lo)), dtype=torch.float32,
+                      device=dev)
+    q = torch.floor((coord - lo32) * torch.full(
+        (), float(scale), dtype=torch.float32, device=dev))
     return torch.clamp(q, 0, (1 << bits) - 1).to(torch.int64)
 
 

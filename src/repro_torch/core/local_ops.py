@@ -17,6 +17,10 @@ its <= cand candidate partitions from the global boxes and gathers only
 PyTorch under both backends). Every output row is a function of its
 query row alone, so a call whose (Q, C, S, cap) planes would pass
 ``cfg.scan_chunk_elems`` runs in query-row chunks with the same result.
+
+Serving mode's programs (``_CondFusedLocal``, ``_KnnLadderLocal``) run a
+windowed program and its exact fallback with no host read, choosing the
+output on the device (``_select``).
 """
 from __future__ import annotations
 
@@ -157,8 +161,10 @@ def _chunk_cands(cc: int, *arrays):
     def prep(a):
         if pad:
             if a.dtype == torch.float32 and a.dim() == 3:   # boxes
-                blk = torch.as_tensor(EMPTY_BOX, device=a.device).expand(
-                    a.shape[0], pad, 4)
+                # EMPTY_BOX, filled on the device (no host copy)
+                blk = torch.full((a.shape[0], pad, 4), float(EMPTY_BOX[0]),
+                                 dtype=a.dtype, device=a.device)
+                blk[..., 2:] = float(EMPTY_BOX[2])
             else:
                 blk = torch.zeros((a.shape[0], pad) + tuple(a.shape[2:]),
                                   dtype=a.dtype, device=a.device)
@@ -407,17 +413,29 @@ class _KnnPrunedLocal(_LocalFn):
     doubling until >= k verified in-circle candidates. Exact when ok;
     the executor falls back to the exact scan per unresolved query.
 
-    The reference's ``lax.while_loop`` is a Python loop that reads
-    ``all(done)`` once per round (a host read per round, as strict mode
-    allows). Returns (neg_d2 (Q, k), vid (Q, k), ok (Q,))."""
+    The reference's ``lax.while_loop`` stops once every row is done.
+    Here it is a Python loop in one of two forms, chosen by the caller:
+
+    * strict (``fixed_rounds=False``): it reads ``all(done)`` on the
+      host once per round and stops early, as strict mode allows;
+    * serving (``fixed_rounds=True``, inside a fused program): exactly
+      ``cfg.knn_max_rounds`` rounds, no host read. A done row never
+      changes again (``newly`` needs ``~done``, and ``r`` freezes on
+      ``done``), so the rounds after every row is done leave
+      ``(bn, bv, okc, done)`` as they were: the result is bitwise the
+      early-exit loop's.
+
+    Returns (neg_d2 (Q, k), vid (Q, k), ok (Q,))."""
 
     n_query_args = 3
 
-    def __init__(self, index, cfg, backend, k, cand, cap):
+    def __init__(self, index, cfg, backend, k, cand, cap,
+                 fixed_rounds: bool = False):
         super().__init__(index, cfg, backend)
         self.k = k
         self.cand = cand
         self.cap = min(cap, index.n_pad)
+        self.fixed_rounds = fixed_rounds
 
     def __call__(self, parts, bounds, qx, qy, r0):
         return self._row_chunks(
@@ -495,7 +513,12 @@ class _KnnPrunedLocal(_LocalFn):
         done = torch.zeros(qn, dtype=torch.bool, device=dev)
         okc = torch.zeros(qn, dtype=torch.bool, device=dev)
         bn, bv = empty()
-        while rounds < self.cfg.knn_max_rounds and not bool(done.all()):
+        while rounds < self.cfg.knn_max_rounds:
+            # the strict form's early exit: a host read per round, not
+            # counted in Executor.host_syncs because the reference's
+            # loop reads ``done`` on the device
+            if not self.fixed_rounds and bool(done.all()):
+                break
             bn2, bv2, ok2, cnt2 = gather_round(r)
             newly = (cnt2 >= k) & ok2 & ~done
             bn = torch.where(newly[:, None], bn2, bn)
@@ -560,3 +583,76 @@ class _JoinFullLocal(_LocalFn):
             cnt = bk.join_scan(ch, polys, n_edges, mbrs, s, e, active=act)
             acc += cnt.sum(0, dtype=torch.int32)               # merge
         return acc
+
+
+def _select(pred, a, b):
+    """``lax.cond``'s choice of one branch's output, made on the device:
+    ``where(pred, a, b)`` leaf by leaf over equal tuples (or tensors),
+    with ``pred`` a 0-dim bool tensor."""
+    if isinstance(a, tuple):
+        return tuple(torch.where(pred, u, v) for u, v in zip(a, b))
+    return torch.where(pred, a, b)
+
+
+class _KnnLadderLocal(_LocalFn):
+    """On-device kNN escalation stage, the fused kNN program's fallback:
+    the pruned rounds at the NEXT ladder cap, with the rows still
+    unresolved there taken from the exact scan. A row's answer stays a
+    function of the row alone: the escalated result if ok there, else
+    the exact one. The reference's inner ``lax.cond`` is the same
+    batch-wide select on the device as ``_CondFusedLocal``'s, so the
+    exact scan runs on every call."""
+
+    n_query_args = 3
+
+    def __init__(self, index, cfg, backend, primary, exact):
+        super().__init__(index, cfg, backend)
+        self.primary = primary       # pruned rounds at the escalated cap
+        self.exact = exact
+
+    def __call__(self, parts, bounds, qx, qy, r0):
+        neg, vid, ok = self.primary(parts, bounds, qx, qy, r0)
+        nege, vide = self.exact(parts, bounds, qx, qy)
+        okc = ok[:, None]
+        return _select(ok.all(), (neg, vid),
+                       (torch.where(okc, neg, nege),
+                        torch.where(okc, vid, vide)))
+
+
+class _CondFusedLocal(_LocalFn):
+    """Windowed primary + exact fallback in one program with no host
+    read: the steady serving path (zero host syncs).
+
+    The reference runs the fallback under ``lax.cond(all(ok), ...)``, so
+    only the branch taken executes. Eager PyTorch has no conditional
+    that avoids reading the predicate on the host, so this program runs
+    the primary and then the fallback unconditionally, and picks the
+    output on the device with the batch-wide ``all(ok)`` (a 0-dim
+    tensor: ``lax.cond``'s predicate, not a per-row one). A clean call
+    therefore pays for the fallback too; the fallback's kernels launch
+    on every steady call.
+
+    primary(parts, bounds, *q)              -> tuple containing ok
+    fallback(parts, bounds, *q[fb_args])    -> exact result
+    merge_ok(pri) / merge_fb(pri, fb)       -> the same output structure
+
+    Returns (merged result, ok): the per-query ok flags ride along so the
+    executor can stash them for Executor.maintain()'s deferred check."""
+
+    def __init__(self, index, cfg, backend, primary, fallback, fb_args,
+                 get_ok, merge_ok, merge_fb):
+        super().__init__(index, cfg, backend)
+        self.primary = primary
+        self.fallback = fallback
+        self.fb_args = fb_args
+        self.get_ok = get_ok
+        self.merge_ok = merge_ok
+        self.merge_fb = merge_fb
+        self.n_query_args = primary.n_query_args
+
+    def __call__(self, parts, bounds, *q):
+        pri = self.primary(parts, bounds, *q)
+        ok = self.get_ok(pri)
+        fb = self.fallback(parts, bounds, *[q[i] for i in self.fb_args])
+        return _select(ok.all(), self.merge_ok(pri),
+                       self.merge_fb(pri, fb)), ok

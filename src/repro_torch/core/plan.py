@@ -7,9 +7,9 @@ parameters of its program); query arrays are passed to
 Exact specs (PointQuery, RangeCount, exact Knn) run one program. The
 adaptive specs (RangeQuery, CircleQuery, pruned Knn, windowed
 SpatialJoin) run the strict escalation loop over a (cap, cand) window
-tier; ``sticky_key()`` names the tier state an executor keeps per spec
-family. Serving mode (``strict=False`` once a sticky tier exists) is
-not ported yet.
+tier, or, once a tier is sticky and ``strict=False``, the fused serving
+program; ``sticky_key()`` names the tier state an executor keeps per
+spec family. The wide-batch bucketed dispatch is not ported yet.
 """
 from __future__ import annotations
 
@@ -18,17 +18,18 @@ from typing import Optional, Tuple
 
 BACKENDS = ("auto", "torch", "cuda")
 
-# what strict=False on a sticky tier waits for (ROADMAP.md, "Modules
-# to port")
-PENDING = ("serving mode: the fused windowed + on-device fallback "
-           "program (ROADMAP.md module item 12)")
+# what a wide strict=False batch on a sticky tier waits for when
+# tier_buckets is on (ROADMAP.md, "Modules to port")
+PENDING = ("the wide-batch tier-bucketed dispatch (ROADMAP.md module "
+           "item 14)")
 
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
     """Executor knobs: how many partitions one backend call spans, the
-    kernel backend (auto | torch | cuda), and the initial window tiers
-    of the adaptive specs (the reference's defaults)."""
+    kernel backend (auto | torch | cuda), the initial window tiers of
+    the adaptive specs, and the serving knobs (the reference's
+    defaults)."""
     part_chunk: int = 8          # partitions per backend call
     backend: str = "auto"
     range_cap: int = 64          # windowed-range candidate cap/partition
@@ -43,6 +44,12 @@ class EngineConfig:
     scan_chunk_elems: int = 1 << 26  # candidate-plane elements before the
                                      # chunked kNN top-k and circle
                                      # compaction merges engage
+    tier_buckets: bool = True    # a wide non-strict batch on a sticky
+                                 # tier takes the bucketed dispatch
+                                 # (not ported: it raises)
+    tier_bucket_min: int = 32    # min batch width before bucketing
+    demote_after: int = 3        # consecutive clean maintain() checks
+                                 # before a sticky tier steps back down
 
     def __post_init__(self):
         if self.backend not in BACKENDS:

@@ -8,8 +8,9 @@ The CUDA sources live in ``csrc/`` and are built on first use
 """
 from __future__ import annotations
 
-from repro_torch.kernels import (circle_filter, knn_topk, point_in_polygon,
-                                 point_probe, range_filter, spline_search)
+from repro_torch.kernels import (circle_filter, knn_topk, morton,
+                                 point_in_polygon, point_probe, range_filter,
+                                 spline_search)
 
 # kernel name -> module holding its wrapper and launch count
 KERNELS = {
@@ -19,6 +20,7 @@ KERNELS = {
     "knn_topk": knn_topk,
     "circle_count": circle_filter,
     "point_in_polygon": point_in_polygon,
+    "morton": morton,
 }
 
 

@@ -30,13 +30,13 @@ def knn_topk_plain(qx, qy, count, x, y, *, k: int):
     d2 = fma_f32(dx, dx, dy * dy)         # XLA:CPU's contraction
     del dx, dy
     valid = torch.arange(n_pad, device=x.device)[None, :] < count[:, None]
-    d2 = torch.where(valid[:, None, :], d2, torch.tensor(
-        3.0e38, dtype=torch.float32, device=x.device))
+    d2 = torch.where(valid[:, None, :], d2, torch.full(
+        (), 3.0e38, dtype=torch.float32, device=x.device))
     kk = min(k, n_pad)
     neg, idx = stable_topk(-d2, kk)
     hit = -neg < 3.0e38
-    neg = torch.where(hit, neg, torch.tensor(NEG, dtype=torch.float32,
-                                             device=x.device))
+    neg = torch.where(hit, neg, torch.full((), NEG, dtype=torch.float32,
+                                           device=x.device))
     idx = torch.where(hit, idx, -1).to(torch.int32)
     if kk < k:                            # fewer slots than k: pad
         pad = (0, k - kk)

@@ -48,7 +48,7 @@ def point_in_polygon_plain(px, py, poly, n_edges):
     ``kernels/ref.py:point_in_polygon`` of the reference."""
     e_max = poly.shape[-2]
     ne = n_edges.to(torch.int64)[..., None]                   # (..., 1)
-    tiny = torch.tensor(_TINY, dtype=torch.float32, device=px.device)
+    tiny = torch.full((), _TINY, dtype=torch.float32, device=px.device)
     parity = torch.zeros(torch.broadcast_shapes(px.shape, ne.shape),
                          dtype=torch.bool, device=px.device)
     for i in range(e_max):

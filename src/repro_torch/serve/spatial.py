@@ -1,0 +1,55 @@
+"""Spatial query serving: mixed QuerySpec batches over one Executor.
+
+A long-lived process answering heterogeneous spatial queries (point
+lookups, range analytics, kNN, zone joins) against one resident learned
+index, the paper's decision-analysis scenario. Everything dispatches
+through ``Executor.run``, so:
+
+  - a steady request on a sticky tier runs one fused program with zero
+    host syncs (no retry chain, no host read of the ok flags);
+  - ``warmup`` settles the sticky tiers before traffic arrives;
+  - ``maintain`` re-tunes the tiers between batches, off the hot path.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+from repro_torch.core.build import LearnedSpatialIndex
+from repro_torch.core.executor import Executor
+from repro_torch.core.plan import EngineConfig, QuerySpec
+
+
+class SpatialServeSession:
+    """Serve mixed spatial query batches from a resident learned index,
+    on ``device`` (default: the card; "cpu" to run on the CPU)."""
+
+    def __init__(self, index: LearnedSpatialIndex,
+                 config: Optional[EngineConfig] = None, device="cuda"):
+        self.executor = Executor(index, config=config, device=device)
+
+    def warmup(self, requests: Sequence[Tuple]) -> None:
+        """Run representative requests before traffic arrives: the
+        strict pass settles the sticky (cap, cand) tiers, the second,
+        non-strict pass runs the steady serving programs once."""
+        self.executor.run_batch(requests, strict=True)
+        self.executor.run_batch(requests)
+
+    def submit(self, spec: QuerySpec, *args, strict: bool = False):
+        """One request on the zero-sync steady path (``strict=True``
+        forces the host-checked escalation loop)."""
+        return self.executor.run(spec, *args, strict=strict)
+
+    def submit_batch(self, requests: Sequence[Tuple],
+                     strict: bool = False) -> list:
+        """A mixed batch of (spec, *args) requests, in order."""
+        return self.executor.run_batch(requests, strict=strict)
+
+    def maintain(self) -> dict:
+        """Re-tune between batches: check the ok flags stashed by recent
+        zero-sync runs, escalate overflowed sticky tiers and demote
+        clean ones. Returns what moved. Call off the hot path."""
+        return self.executor.maintain()
+
+    def stats(self) -> dict:
+        """Executor counters: host_syncs, dispatches, backend, sticky."""
+        return self.executor.stats()

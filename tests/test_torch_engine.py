@@ -4,8 +4,8 @@ exact, join_count windowed and full) on the CPU, bitwise against the
 golden fixture and against the JAX SpatialEngine (xla backend), both on
 the port's own build and on the JAX index carried over with
 ``convert.index_from_arrays``; and the executor's strict adaptive
-policy (escalation, sticky tiers, the cap override, serving mode's
-refusal).
+policy (escalation, sticky tiers, the cap override) and serving mode
+on a sticky tier (bitwise the JAX package's; a wide batch raises).
 
 Every comparison is bitwise: counts, ids, squared distances and ok
 flags."""
@@ -223,28 +223,80 @@ def test_executor_run_batch_and_dispatches(golden_index):
     assert torch.equal(again, out[1])
 
 
-@pytest.mark.parametrize("spec,args", [
+FAMILIES = pytest.mark.parametrize("spec,args", [
     (Knn(k=3), 2), (RangeQuery(), 1), (CircleQuery(), 3),
     (SpatialJoin(), 2)], ids=["knn_pruned", "range", "circle", "join"])
-def test_strict_false_on_a_sticky_tier_raises(golden_index, spec, args):
-    """strict=False with no sticky tier runs the strict loop, as the
-    reference does; once a tier is sticky it is serving mode, which is
-    not ported, and raises."""
-    idx, qx, qy, rects = golden_index
+
+
+def _family_data(golden_index, spec, width: int):
+    """The golden inputs of ``spec``'s family, tiled or cut to ``width``
+    queries (polygons for the join)."""
+    _, qx, qy, rects = golden_index
     cx, cy, cr, polys, ne = golden_extra(*golden_inputs()[:3])
     data = {RangeQuery: (rects,), CircleQuery: (cx, cy, cr),
             Knn: (qx, qy), SpatialJoin: (polys, ne)}[type(spec)]
+    return tuple(np.resize(a, (width,) + a.shape[1:]) for a in data)
+
+
+@pytest.fixture(scope="module")
+def jax_golden_index():
+    from gen_golden import build_inputs
+    return build_inputs()[2]
+
+
+@FAMILIES
+def test_strict_false_on_a_sticky_tier_matches_jax(golden_index,
+                                                    jax_golden_index, spec,
+                                                    args):
+    """strict=False with no sticky tier runs the strict loop, as the
+    reference does; once a tier is sticky it is serving mode's fused
+    program, with no host sync. Each call is bitwise the JAX package's,
+    with the same host_syncs and sticky tiers."""
+    from repro import core as J
+
+    idx = golden_index[0]
+    data = _family_data(golden_index, spec, 16)
     assert len(data) == args
+    jspec = getattr(J, type(spec).__name__)(**{
+        f.name: getattr(spec, f.name)
+        for f in spec.__dataclass_fields__.values()})
+    ex, jex = Executor(idx, device="cpu"), J.Executor(jax_golden_index)
+    for strict in (False, False, True, False):
+        syncs = ex.host_syncs
+        got, want = ex.run(spec, *data, strict=strict), jex.run(
+            jspec, *data, strict=strict)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for g, w in zip(got, want, strict=True):
+            assert np.asarray(w).tobytes() == g.numpy().tobytes()
+        assert ex.host_syncs == jex.host_syncs
+        assert ex._sticky == jex._sticky
+        assert spec.sticky_key() in ex._sticky
+        if not strict and syncs:                # a steady serving call
+            assert ex.host_syncs == syncs
+
+
+@FAMILIES
+def test_strict_false_on_a_sticky_tier_raises(golden_index, spec, args):
+    """A serving batch of >= tier_bucket_min (32) queries on a sticky
+    tier takes the reference's tier-bucketed dispatch, which is not
+    ported: it raises, naming ROADMAP item 14. Narrower batches, strict
+    calls and tier_buckets=False are served."""
+    idx = golden_index[0]
+    wide = _family_data(golden_index, spec, 32)
+    assert len(wide) == args
     ex = Executor(idx, device="cpu")
-    first = ex.run(spec, *data)                     # no sticky tier yet
-    strict = Executor(idx, device="cpu").run(spec, *data, strict=True)
-    for a, b in zip(first if isinstance(first, tuple) else (first,),
-                    strict if isinstance(strict, tuple) else (strict,)):
-        assert torch.equal(a, b)
+    ex.run(spec, *wide, strict=True)                # a sticky tier
     assert spec.sticky_key() in ex._sticky
-    with pytest.raises(NotImplementedError, match="module item 12"):
-        ex.run(spec, *data)
-    ex.run(spec, *data, strict=True)                # strict still runs
+    with pytest.raises(NotImplementedError, match="module item 14"):
+        ex.run(spec, *wide)
+    ex.run(spec, *(a[:31] for a in wide))           # narrower: served
+    ex.run(spec, *wide, strict=True)                # strict still runs
+    off = Executor(idx, EngineConfig(tier_buckets=False), device="cpu")
+    off.run(spec, *wide, strict=True)
+    syncs = off.host_syncs
+    off.run(spec, *wide)                            # served, no sync
+    assert off.host_syncs == syncs
 
 
 def test_strict_loop_escalates_then_sticks(golden_index, golden):

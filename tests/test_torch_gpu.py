@@ -14,16 +14,20 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import core as T
+from repro_torch import kernels as KERN
 from repro_torch.core import EngineConfig, SpatialEngine, build_index, fit
 from repro_torch.core import keys as K
 from repro_torch.core import local_ops as L
 from repro_torch.data import spatial as ds
 from repro_torch.kernels import circle_filter as t_cf
 from repro_torch.kernels import knn_topk as t_knn
+from repro_torch.kernels import morton as t_mo
 from repro_torch.kernels import point_in_polygon as t_pip
 from repro_torch.kernels import point_probe as t_pp
 from repro_torch.kernels import range_filter as t_rf
 from repro_torch.kernels import spline_search as t_ss
+from repro_torch.serve import SpatialServeSession
 
 pytestmark = pytest.mark.gpu
 
@@ -292,3 +296,70 @@ def test_gpu_engine_golden_and_backends_agree(cuda):
     for a, b in zip(eng.circle_query(cx, cy, cr),
                     plain.circle_query(cx, cy, cr)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n", [1, 7, 1000, 3001, 1 << 20])
+def test_gpu_morton_matches_plain(cuda, n):
+    """The morton kernel against its plain version on the card and on the
+    CPU, full-range uint32 values and the edge values included, odd and
+    even sizes; a view that is not 16-byte aligned is refused."""
+    rng = np.random.default_rng(n)
+    qx = rng.integers(0, 1 << 32, n, dtype=np.int64)
+    qy = rng.integers(0, 1 << 32, n, dtype=np.int64)
+    edge = np.asarray([0, 0xFFFF, 1 << 16, 0xFFFFFFFF], np.int64)
+    qx[:4], qy[-4:] = edge[:n], edge[::-1][:n]
+    a, b = _on(cuda, qx, qy)
+    n0 = t_mo.launches
+    got = t_mo.morton_encode(a, b)
+    assert t_mo.launches == n0 + 1
+    assert torch.equal(got, t_mo.morton_encode_plain(a, b))
+    assert torch.equal(got.cpu(), t_mo.morton_encode(a.cpu(), b.cpu()))
+    if n > 2:
+        with pytest.raises(ValueError, match="aligned"):
+            t_mo.morton_encode(a[1:], b[1:])
+
+
+def _serve_round(x, y, bounds, q, seed, dev):
+    """src/repro/launch/serve.py's mixed round, inputs on ``dev``."""
+    rng = np.random.default_rng(seed)
+    ix = rng.integers(0, len(x), q)
+    rects = ds.random_rects(q, 1e-5, bounds, seed=seed, centers=(x, y))
+    polys, ne = ds.random_polygons(max(q // 8, 4), bounds, seed=seed)
+    px, py, pr, rc, pl, pn = _on(dev, x[ix], y[ix], np.full(
+        q, 0.02, np.float32), rects, polys, ne)
+    return [(T.PointQuery(), px, py), (T.RangeCount(), rc),
+            (T.RangeQuery(), rc), (T.CircleQuery(), px, py, pr),
+            (T.Knn(k=10), px, py), (T.SpatialJoin(), pl, pn)]
+
+
+def test_gpu_steady_serving_round_makes_no_sync(cuda):
+    """A steady serving round on a small index, inputs on the card, under
+    torch.cuda.set_sync_debug_mode("error"): no synchronising call,
+    host_syncs +0, the fallback kernels launched, and every output
+    bitwise the torch backend's."""
+    x, y = ds.make("taxi", 20000, seed=0)
+    part = fit("kdtree", x, y, 16, seed=0)
+    idx = build_index(x, y, part, device=cuda)
+    sess = SpatialServeSession(idx, device=cuda)
+    plain = SpatialServeSession(idx, EngineConfig(backend="torch"),
+                                device=cuda)
+    for s in (sess, plain):
+        s.warmup(_serve_round(x, y, part.bounds, 16, 0, cuda))
+    rnd = _serve_round(x, y, part.bounds, 16, 1, cuda)
+    torch.cuda.synchronize()
+    syncs = sess.stats()["host_syncs"]
+    KERN.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = sess.submit_batch(rnd)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    launched = KERN.launch_counts()
+    assert sess.stats()["host_syncs"] == syncs
+    for name in ("spline_search", "range_count", "point_probe", "knn_topk",
+                 "circle_count", "point_in_polygon"):
+        assert launched[name] > 0, name
+    for got, want in zip(out, plain.submit_batch(rnd)):
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))

@@ -33,11 +33,13 @@ def test_no_jax_or_repro_import_statement(path):
 
 def test_scan_covers_this_slice():
     """The import scan above sees the modules of the circle and join
-    path."""
+    path, of serving mode and of the morton kernel."""
     scanned = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
     assert {"kernels/circle_filter.py", "kernels/point_in_polygon.py",
-            "core/executor.py", "core/local_ops.py", "core/queries.py",
-            "core/keys.py", "core/plan.py", "data/spatial.py"} <= scanned
+            "kernels/morton.py", "core/executor.py", "core/local_ops.py",
+            "core/queries.py", "core/keys.py", "core/plan.py",
+            "core/engine.py", "data/spatial.py", "serve/__init__.py",
+            "serve/spatial.py"} <= scanned
 
 
 def test_importing_the_port_loads_neither_jax_nor_repro():
@@ -48,6 +50,7 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "import repro_torch.core.backends, repro_torch.kernels._build\n"
         "import repro_torch.kernels.circle_filter\n"
         "import repro_torch.kernels.point_in_polygon\n"
+        "import repro_torch.kernels.morton, repro_torch.serve.spatial\n"
         "import repro_torch.core.executor, repro_torch.core.local_ops\n"
         "import repro_torch.core.queries, repro_torch.core.keys\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
@@ -71,7 +74,9 @@ def test_default_device_raises_without_a_card():
     with pytest.raises(RuntimeError, match="cuda"):
         build_index(x, x, part)
     idx = build_index(x, x, part, device="cpu")
+    from repro_torch.serve import SpatialServeSession
     for make in (lambda: SpatialEngine(idx), lambda: Executor(idx),
+                 lambda: SpatialServeSession(idx),
                  lambda: idx.to("cuda"),
                  lambda: convert.index_from_arrays({})):
         with pytest.raises(RuntimeError, match="cuda"):

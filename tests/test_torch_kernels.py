@@ -3,8 +3,8 @@
 Each kernel's plain PyTorch version (what the wrapper runs on CPU
 tensors, and what the kernel is held against on the card) is checked
 bitwise against the JAX package's oracle (``kernels/ref.py``), and
-range_count, circle_count, point_probe and knn_topk also against the
-Pallas kernel in interpret mode. ``spline_search``'s Pallas kernel
+range_count, circle_count, point_probe, knn_topk and morton also
+against the Pallas kernel in interpret mode. ``spline_search``'s Pallas kernel
 cannot run on this jax (``pl.load`` is gone), so it is checked against
 ``ref.spline_search``; ``point_in_polygon``'s is in
 ``tests/test_torch_join.py``, against ``ref.point_in_polygon``.
@@ -24,8 +24,10 @@ from repro.core import local_ops as JL
 from repro.data import spatial as jds
 from repro.kernels import ops, ref
 from repro_torch import kernels as TKERN
+from repro_torch.core import keys as TK
 from repro_torch.kernels import circle_filter as t_cf
 from repro_torch.kernels import knn_topk as t_knn
+from repro_torch.kernels import morton as t_mo
 from repro_torch.kernels import point_probe as t_pp
 from repro_torch.kernels import range_filter as t_rf
 from repro_torch.kernels import spline_search as t_ss
@@ -215,6 +217,31 @@ def test_knn_topk_tie_order_lowest_position():
                               torch.tensor([6], dtype=torch.int32), x, y,
                               k=6)
     assert idx[0, 0].tolist() == [0, 3, 4, 1, 2, 5]
+
+
+@pytest.mark.parametrize("n", [1, 7, 1000, 3001])
+def test_morton_plain_vs_ref_and_pallas(n):
+    """The morton kernel's plain version (int64 in and out) against the
+    Pallas kernel in interpret mode and ``ref.morton_encode`` (uint32),
+    on sizes that are no multiple of its (8, 128) block, with the edge
+    values 0, 0xFFFF, 2^16 and 0xFFFFFFFF and full-range uint32."""
+    rng = np.random.default_rng(n)
+    qx = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+    qy = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+    edge = np.asarray([0, 0xFFFF, 1 << 16, 0xFFFFFFFF], np.uint32)
+    qx[:4], qy[-4:] = edge[:n], edge[::-1][:n]
+    got = t_mo.morton_encode(_t(qx.astype(np.int64)),
+                             _t(qy.astype(np.int64)))
+    assert got.dtype == torch.int64 and got.shape == (n,)
+    pallas = ops.morton_encode(jnp.asarray(qx), jnp.asarray(qy),
+                               interpret=True)
+    oracle = ref.morton_encode(jnp.asarray(qx), jnp.asarray(qy))
+    for want in (pallas, oracle):
+        assert np.asarray(want).dtype == np.uint32
+        assert np.array_equal(got.numpy(), np.asarray(want).astype(np.int64))
+    # 16-bit coordinates: the index build's key step, core/keys.py
+    lo = (_t(qx.astype(np.int64)) & 0xFFFF, _t(qy.astype(np.int64)) & 0xFFFF)
+    assert torch.equal(t_mo.morton_encode(*lo), TK.morton_encode(*lo))
 
 
 def test_cpu_wrappers_never_count_launches(jidx):
