@@ -591,10 +591,15 @@ def main() -> int:
                           "knn_topk", "circle_filter", "point_in_polygon",
                           "morton"}, f"kernel sources: {sorted(libs)}")
     log(f"[build] {len(libs)} kernels in {report['build_s']:.1f} s")
+    # ptxas -v: each instance's registers, stack and spills
+    report["ptxas"] = {}
     for name in libs:
-        for line in _build.build_log(name).splitlines():
-            if "Used" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+        lines = [ln.strip() for ln in _build.build_log(name).splitlines()
+                 if "Used" in ln or "spill" in ln
+                 or "Function properties" in ln]
+        report["ptxas"][name] = lines
+        for line in lines:
+            log(f"[build] {name}: {line}")
 
     phase("golden")
     # 3. golden replay with the CUDA kernels
@@ -835,9 +840,11 @@ def main() -> int:
 
     by_path = {"main": launches, "serve": serve_launches}
 
-    def entry(name, err, t, pt, nbytes, nops, lt, call, peak_ops=PEAK_F32):
+    def entry(name, err, t, pt, nbytes, nops, lt, call, peak_ops=PEAK_F32,
+              extra=None):
         """One kernel row; ``call`` is the path's call whose launches
-        were timed (``launches`` counts every path's)."""
+        were timed (``launches`` counts every path's); ``extra``, more
+        fields for the row."""
         t_bytes = nbytes / PEAK_BYTES * 1e3
         t_ops = nops / peak_ops * 1e3
         per_call = path_launches[call][name]
@@ -855,7 +862,8 @@ def main() -> int:
                "trace_ms_per_activity": t["trace_ms_per_activity"],
                "trace_events_per_call": t["trace_events_per_call"],
                "ms_cold_l2": t.get("cold_ms"),
-               "plain_wall_ms": pt["wall_ms"], "bytes": nbytes, "ops": nops}
+               "plain_wall_ms": pt["wall_ms"], "bytes": nbytes, "ops": nops,
+               **(extra or {})}
         rows.append(row)
         log(f"[kernel] {json.dumps(row)}")
 
@@ -868,12 +876,33 @@ def main() -> int:
     for a in ss_args:
         err = max(err, int((SS.spline_search(*a, **kw) -
                             SS.spline_search_plain(*a, **kw)).abs().max()))
+    # torch.searchsorted on the padded rows is the same function: a row
+    # pads with 3e38 past its count, so the first index with a key >= q
+    # is at most the count for these keys. Held equal on every chunk.
+    ss_lib = [(ch["keys_f"], q2[None, :].expand(ch["keys_f"].shape[0], -1)
+               .contiguous()) for _, ch in chunks]
+    for a, la in zip(ss_args, ss_lib):
+        require(torch.equal(SS.spline_search(*a, **kw),
+                            torch.searchsorted(*la).to(torch.int32)),
+                "spline_search vs torch.searchsorted")
+    # the launcher's variants, each bitwise, timed in turns (a b c c b a)
+    variants = {0: "group32", 1: "group16", 2: "group32_staged"}
+    v_ms = {n: [] for n in variants.values()}
+    for v in (0, 1, 2, 2, 1, 0):
+        SS.VARIANT = v
+        for a in ss_args:
+            require(torch.equal(SS.spline_search(*a, **kw),
+                                SS.spline_search_plain(*a, **kw)),
+                    f"spline_search variant {v} vs plain")
+        v_ms[variants[v]].append(
+            stream_ms(sweep(SS.spline_search, ss_args, **kw), 20))
+    SS.VARIANT = 0
+    v_ms = {n: sum(t) / len(t) for n, t in v_ms.items()}
+    log(f"[kernel] spline_search variants, ms per call: {v_ms}")
     t = timed(sweep(SS.spline_search, ss_args, **kw), 50,
               "spline_search_kernel")
     pt = timed(sweep(SS.spline_search_plain, ss_args, **kw), 3)
-    lt = timed(sweep(torch.searchsorted, [
-        (ch["keys_f"], q2[None, :].expand(ch["keys_f"].shape[0], -1)
-         .contiguous()) for _, ch in chunks]), 20)
+    lt = timed(sweep(torch.searchsorted, ss_lib), 20)
     st = SS.window_start(q2, parts["knot_keys"], parts["knot_pos"],
                          parts["radix_table"], n_pad, parts["radix_kmin"],
                          parts["radix_scale"], parts["n_knots"], **kw)
@@ -882,7 +911,8 @@ def main() -> int:
     nbytes = 4 * (nq2 * len(chunks) + p_total * (2 * m + r + 4) +
                   covered(st, st + probe, n_pad) + p_total * nq2)
     entry("spline_search", err, t, pt, nbytes,
-          p_total * nq2 * (probe + 16), lt, "range_count_1024")
+          p_total * nq2 * (probe + 16), lt, "range_count_1024",
+          extra={"library_equal": True, "variants_ms": v_ms})
 
     # range_count: every chunk. Bytes: the rects, bounds and flags, x and
     # y over the union of the active [s, min(e, count)) intervals, the
@@ -951,9 +981,27 @@ def main() -> int:
     pt = timed(sweep(KNN.knn_topk_plain, kn_args, k=k), 1)
     nq = kxt.shape[0]
     npts = int(parts["count"].sum())
+    # the serving fallback's shape: SERVE_Q queries on the same chunks,
+    # each launch bitwise too
+    kn_serve = [(kxt[:SERVE_Q].contiguous(), kyt[:SERVE_Q].contiguous(),
+                 *a[2:]) for a in kn_args]
+    for a in kn_serve:
+        an, ai = KNN.knn_topk(*a, k=k)
+        bn, bi = KNN.knn_topk_plain(*a, k=k)
+        require(torch.equal(ai, bi) and torch.equal(an, bn),
+                "knn_topk vs plain at the serving shape")
+    ts = timed(sweep(KNN.knn_topk, kn_serve, k=k), 20, "knn_topk_kernel")
     entry("knn_topk", err, t, pt,
           8 * npts + 8 * nq * len(chunks) + 8 * p_total * nq * k,
-          5 * nq * npts, None, "knn10_exact_256")
+          5 * nq * npts, None, "knn10_exact_256", extra={
+              "plan": KNN.plan(nq, n_pad, c, k, dev),
+              "serve_shape_q": SERVE_Q, "serve_shape_ms": ts["ms"],
+              "serve_shape_ms_per_launch": ts["ms"] / len(kn_serve),
+              "serve_shape_plan": KNN.plan(SERVE_Q, n_pad, c, k, dev),
+              "serve_shape_bound_ms": max(
+                  (8 * npts + 8 * SERVE_Q * len(chunks) +
+                   8 * p_total * SERVE_Q * k) / PEAK_BYTES,
+                  5 * SERVE_Q * npts / PEAK_F32) * 1e3})
 
     # circle_count: the exact circle program's chunks. Bytes: the MBRs and
     # circles, bounds and flags, x and y over the union of the active

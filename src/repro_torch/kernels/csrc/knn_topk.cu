@@ -7,122 +7,411 @@
 // Outputs are -d^2 and the position; slots left empty (count < k) hold
 // -3e38 and -1.
 //
-// One warp per (query, partition). Each lane scans positions lane,
-// lane+32, ... in increasing order and keeps its own k best in a list
-// sorted by (d^2, position): a point enters only when strictly closer
-// than the lane's k-th, so among equal distances the earlier (lower)
-// position stays ahead. The 32 lists are then merged by k rounds of a
-// warp-wide lexicographic arg-min over the lists' heads. The TPU kernel
-// instead merged 512-point tiles by k rounds of "max, then first hit"
-// over the whole tile; the result is the same set in the same order.
+// What bounds it on this card: operations. Five float operations per
+// (query, point) pair against 8 bytes per point that every query of the
+// launch shares, so the work is the pairs and the points must be read
+// from device memory about once, not once per query.
+//
+// Design:
+//   - Tiles in shared memory. A block of 8 warps holds 8 x QW queries
+//     (QW = 1, 2, 4 or 8, from nq) and one slice of a partition's
+//     points. It copies the slice into shared memory a tile of 1,024
+//     points at a time with cp.async, double-buffered (the next tile is
+//     in flight while the block scans the current one). Every query of
+//     the block reads the tile from shared memory: one 8-byte point per
+//     lane serves the warp's QW queries.
+//   - Lists in registers, spread over the lanes. Each warp scans the
+//     slice for its QW queries in order of position, 32 points per step;
+//     a query's k-list is sorted by (d^2, position) and held one entry
+//     per lane (J = ceil(k / 32) registers per lane for d^2 and for the
+//     position), so no array is indexed at run time and nothing lives in
+//     local memory (ptxas -v: 0 bytes of stack and spills).
+//   - Reject first. A point enters only when d^2 < the list's k-th
+//     (a warp-uniform threshold): one compare per pair, and one vote per
+//     step for all QW queries. A step with a candidate inserts the
+//     candidates in lane (position) order, each by a warp-wide
+//     rank (ballot + __popc) and a shift by shuffle; no lane diverges.
+//   - The point axis split across blocks. The launcher cuts each
+//     partition into n_slices slices so that one launch fills the card
+//     (nq x n_parts alone is 128 warps at the serving shape). Each block
+//     writes its k-lists to a scratch buffer; the last block of a (query
+//     block, partition) to finish, counted by an atomic, merges the
+//     slices' lists into the output in the same launch.
+//
+// Why the split is exact: positions are unique, so (d^2, position) is a
+// strict total order and the top-k is one set in one order whatever the
+// slices. Within a slice a warp meets positions in increasing order, so
+// a point with d^2 equal to the k-th stays out (the earlier position is
+// ahead); the merge compares (d^2, position) lexicographically, so a tie
+// at a slice border goes to the lower position.
 //
 // The distance is fmaf(dx, dx, dy*dy), the form XLA:CPU contracts
 // dx*dx + dy*dy to; every step is an explicit intrinsic so nvcc cannot
 // contract it differently.
-//
-// Bound: operations — five float operations per (query, point) pair
-// against 8 bytes per point that all queries share.
+#include <math_constants.h>
+
+#include <algorithm>
 #include <climits>
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace {
 
 constexpr float kNeg = -3.0e38f;
+constexpr int kWarps = 8;     // warps per block
+constexpr int kThreads = kWarps * kWarp;
+constexpr int kTile = 1024;   // points per shared-memory tile
+constexpr unsigned kInfBits = 0x7f800000u;
 
-template <int KMAX>
-__global__ void knn_topk_kernel(
-    const float* __restrict__ qx, const float* __restrict__ qy,
-    const int* __restrict__ count, const float* __restrict__ x,
-    const float* __restrict__ y, int nq, int n_pad, int k,
-    float* __restrict__ out_neg, int* __restrict__ out_idx) {
-  const int w = (blockIdx.x * blockDim.x + threadIdx.x) / kWarp;
-  const int lane = threadIdx.x % kWarp;
-  const int c = blockIdx.y;
-  if (w >= nq) return;  // whole warp leaves together
-  const float ax = qx[w], ay = qy[w];
-  const int cnt = min(count[c], n_pad);
-  const float* px = x + static_cast<size_t>(c) * n_pad;
-  const float* py = y + static_cast<size_t>(c) * n_pad;
+__device__ __forceinline__ bool lex_less(float da, int pa, float db, int pb) {
+  return da < db || (da == db && pa < pb);
+}
 
-  float bd[KMAX];
-  int bp[KMAX];
-  int nb = 0;
-  for (int p = lane; p < cnt; p += kWarp) {
-    const float dx = __fsub_rn(px[p], ax);
-    const float dy = __fsub_rn(py[p], ay);
-    const float d2 = __fmaf_rn(dx, dx, __fmul_rn(dy, dy));
-    if (nb < k || d2 < bd[k - 1]) {
-      int i = nb < k ? nb : k - 1;
-      while (i > 0 && bd[i - 1] > d2) {
-        bd[i] = bd[i - 1];
-        bp[i] = bp[i - 1];
-        --i;
-      }
-      bd[i] = d2;
-      bp[i] = p;
-      if (nb < k) ++nb;
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+// A k-list spread over the warp: entry j * 32 + lane is (d[j], p[j]) of
+// that lane, sorted by (d^2, position); empty entries are (+inf, INT_MAX).
+template <int J>
+struct WarpList {
+  float d[J];
+  int p[J];
+
+  __device__ __forceinline__ void clear() {
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      d[j] = CUDART_INF_F;
+      p[j] = INT_MAX;
     }
   }
 
-  const size_t base = (static_cast<size_t>(c) * nq + w) * k;
-  int h = 0;  // head of this lane's list
-  for (int r = 0; r < k; ++r) {
-    const bool has = h < nb;
-    float md = has ? bd[h] : __int_as_float(0x7f800000);  // +inf
-    int mp = has ? bp[h] : INT_MAX;
-    for (int off = kWarp / 2; off > 0; off >>= 1) {
-      const float od = __shfl_xor_sync(kFullMask, md, off);
-      const int op = __shfl_xor_sync(kFullMask, mp, off);
-      if (od < md || (od == md && op < mp)) {
-        md = od;
-        mp = op;
+  // entry k - 1 (row jk, lane lk), the same on every lane
+  __device__ __forceinline__ void kth(int jk, int lk, float& td,
+                                      int& tp) const {
+    float vd = d[0];
+    int vp = p[0];
+#pragma unroll
+    for (int j = 1; j < J; ++j)
+      if (j == jk) {
+        vd = d[j];
+        vp = p[j];
+      }
+    td = __shfl_sync(kFullMask, vd, lk);
+    tp = __shfl_sync(kFullMask, vp, lk);
+  }
+
+  // insert (dn, pn), the same on every lane; the last entry drops out
+  __device__ __forceinline__ void insert(float dn, int pn, int lane) {
+    int rank = 0;
+#pragma unroll
+    for (int j = 0; j < J; ++j)
+      rank += __popc(__ballot_sync(kFullMask, lex_less(d[j], p[j], dn, pn)));
+    float sd[J];
+    int sp[J];
+#pragma unroll
+    for (int j = 0; j < J; ++j) {  // entry i - 1 for every entry i
+      sd[j] = __shfl_up_sync(kFullMask, d[j], 1);
+      sp[j] = __shfl_up_sync(kFullMask, p[j], 1);
+    }
+#pragma unroll
+    for (int j = J - 1; j > 0; --j) {  // lane 0 takes lane 31 of row j - 1
+      const float wd = __shfl_sync(kFullMask, d[j - 1], kWarp - 1);
+      const int wp = __shfl_sync(kFullMask, p[j - 1], kWarp - 1);
+      if (lane == 0) {
+        sd[j] = wd;
+        sp[j] = wp;
       }
     }
-    // positions are unique across lanes: the owner of the minimum pops
-    if (has && bp[h] == mp) ++h;
-    if (lane == 0) {
-      // as the reference: a distance at or past 3e38 is no hit
-      const bool found = mp != INT_MAX && md < 3.0e38f;
-      out_neg[base + r] = found ? -md : kNeg;
-      out_idx[base + r] = found ? mp : -1;
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const int i = j * kWarp + lane;
+      if (i == rank) {
+        d[j] = dn;
+        p[j] = pn;
+      } else if (i > rank) {
+        d[j] = sd[j];
+        p[j] = sp[j];
+      }
+    }
+  }
+};
+
+template <int J, int QW>
+__global__ void __launch_bounds__(kThreads) knn_topk_kernel(
+    const float* __restrict__ qx, const float* __restrict__ qy,
+    const int* __restrict__ count, const float* __restrict__ x,
+    const float* __restrict__ y, int nq, int n_pad, int k, int n_slices,
+    int slice_len, float* __restrict__ part_d, int* __restrict__ part_p,
+    unsigned* __restrict__ gbest, unsigned* __restrict__ done,
+    float* __restrict__ out_neg, int* __restrict__ out_idx) {
+  __shared__ float s_x[2][kTile];
+  __shared__ float s_y[2][kTile];
+  __shared__ int s_last;
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const int qb = blockIdx.x, slice = blockIdx.y, c = blockIdx.z;
+  const int q0 = (qb * kWarps + warp) * QW;  // this warp's first query
+  const int jk = (k - 1) / kWarp, lk = (k - 1) % kWarp;
+  const int cnt = min(count[c], n_pad);
+  const int p_begin = slice * slice_len;
+  const int p_end = min(p_begin + slice_len, cnt);
+  const float* px = x + static_cast<size_t>(c) * n_pad;
+  const float* py = y + static_cast<size_t>(c) * n_pad;
+
+  // per query: the list's k-th d^2 (own), the least float above the
+  // best k-th any slice has published (gnext: d^2 <= published iff
+  // d^2 < gnext), and the test a point must pass, d^2 < min of the two
+  float ax[QW], ay[QW], own[QW], gnext[QW], thr[QW];
+  WarpList<J> list[QW];
+#pragma unroll
+  for (int i = 0; i < QW; ++i) {
+    const int q = q0 + i;
+    ax[i] = q < nq ? qx[q] : 0.0f;
+    ay[i] = q < nq ? qy[q] : 0.0f;
+    own[i] = gnext[i] = CUDART_INF_F;
+    // a query past nq takes no point
+    thr[i] = q < nq ? CUDART_INF_F : -CUDART_INF_F;
+    list[i].clear();
+  }
+
+  auto load_tile = [&](int t, int buf) {
+    const int base = p_begin + t * kTile;
+    const int n = min(kTile, p_end - base);
+    for (int i = threadIdx.x; i < n; i += kThreads) {
+      cp_async4(&s_x[buf][i], px + base + i);
+      cp_async4(&s_y[buf][i], py + base + i);
+    }
+  };
+
+  // scan: this block's slice, tile by tile
+  const int n_tiles = p_end > p_begin ? (p_end - p_begin + kTile - 1) / kTile
+                                      : 0;
+  if (n_tiles > 0) load_tile(0, 0);
+  cp_async_commit();
+  for (int t = 0; t < n_tiles; ++t) {
+    const int buf = t & 1;
+    if (t + 1 < n_tiles) load_tile(t + 1, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait_one();  // tile t has landed (this thread's copies)
+    __syncthreads();      // ... and every thread's
+    const int tb = p_begin + t * kTile;
+    const int tn = min(kTile, p_end - tb);
+    for (int o = 0; o < tn; o += kWarp) {
+      const bool valid = o + lane < tn;
+      const float vx = s_x[buf][o + lane];
+      const float vy = s_y[buf][o + lane];
+      float dd[QW];
+      bool any = false;
+#pragma unroll
+      for (int i = 0; i < QW; ++i) {
+        const float dx = __fsub_rn(vx, ax[i]);
+        const float dy = __fsub_rn(vy, ay[i]);
+        dd[i] = __fmaf_rn(dx, dx, __fmul_rn(dy, dy));
+        any |= valid && dd[i] < thr[i];
+      }
+      if (__any_sync(kFullMask, any)) {
+#pragma unroll
+        for (int i = 0; i < QW; ++i) {
+          unsigned cand = __ballot_sync(kFullMask, valid && dd[i] < thr[i]);
+          while (cand) {  // lowest lane (position) first
+            const int src = __ffs(cand) - 1;
+            cand &= cand - 1;
+            const float dn = __shfl_sync(kFullMask, dd[i], src);
+            if (dn < thr[i]) {
+              list[i].insert(dn, tb + o + src, lane);
+              int tp;
+              list[i].kth(jk, lk, own[i], tp);
+              thr[i] = fminf(own[i], gnext[i]);
+            }
+          }
+        }
+      }
+    }
+    // publish this slice's k-th and read the best one: a point farther
+    // than k points of any slice is in no top-k (one at an equal
+    // distance may be, at a lower position, so it is kept)
+#pragma unroll
+    for (int i = 0; i < QW; ++i) {
+      const int q = q0 + i;
+      if (q >= nq) continue;
+      unsigned best = 0;
+      if (lane == 0) {
+        const unsigned mine = kInfBits - __float_as_uint(own[i]);
+        best = max(atomicMax(&gbest[static_cast<size_t>(c) * nq + q], mine),
+                   mine);
+      }
+      best = __shfl_sync(kFullMask, best, 0);
+      gnext[i] =
+          best ? __uint_as_float(kInfBits - best + 1u) : CUDART_INF_F;
+      thr[i] = fminf(own[i], gnext[i]);
+    }
+    __syncthreads();  // the tile's buffer is refilled two steps on
+  }
+
+  // this slice's lists to the scratch rows (c, q, slice, :k)
+#pragma unroll
+  for (int i = 0; i < QW; ++i) {
+    const int q = q0 + i;
+    if (q >= nq) continue;
+    const size_t base =
+        ((static_cast<size_t>(c) * nq + q) * n_slices + slice) * k;
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const int e = j * kWarp + lane;
+      if (e < k) {
+        part_d[base + e] = list[i].d[j];
+        part_p[base + e] = list[i].p[j];
+      }
+    }
+  }
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    s_last = atomicAdd(&done[static_cast<size_t>(c) * gridDim.x + qb], 1u) ==
+             static_cast<unsigned>(n_slices - 1);
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+
+  // the last block merges every slice's list of its queries
+  const int total = n_slices * k;
+#pragma unroll
+  for (int i = 0; i < QW; ++i) {
+    const int q = q0 + i;
+    if (q >= nq) continue;
+    WarpList<J>& l = list[i];
+    l.clear();
+    float td = CUDART_INF_F;
+    int tp = INT_MAX;
+    const size_t base = (static_cast<size_t>(c) * nq + q) * total;
+    for (int o = 0; o < total; o += kWarp) {
+      const bool valid = o + lane < total;
+      const float dv = valid ? __ldcg(part_d + base + o + lane)
+                             : CUDART_INF_F;
+      const int pv = valid ? __ldcg(part_p + base + o + lane) : INT_MAX;
+      unsigned cand = __ballot_sync(kFullMask, lex_less(dv, pv, td, tp));
+      while (cand) {
+        const int src = __ffs(cand) - 1;
+        cand &= cand - 1;
+        const float dn = __shfl_sync(kFullMask, dv, src);
+        const int pn = __shfl_sync(kFullMask, pv, src);
+        if (lex_less(dn, pn, td, tp)) {
+          l.insert(dn, pn, lane);
+          l.kth(jk, lk, td, tp);
+        }
+      }
+    }
+    const size_t ob = (static_cast<size_t>(c) * nq + q) * k;
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const int e = j * kWarp + lane;
+      if (e < k) {
+        // as the reference: a distance at or past 3e38 is no hit
+        const bool found = l.d[j] < 3.0e38f;
+        out_neg[ob + e] = found ? -l.d[j] : kNeg;
+        out_idx[ob + e] = found ? l.p[j] : -1;
+      }
     }
   }
 }
 
-template <int KMAX>
-int launch(const float* qx, const float* qy, const int* count,
-           const float* x, const float* y, int nq, int n_pad, int n_parts,
-           int k, float* out_neg, int* out_idx, cudaStream_t stream) {
-  constexpr int kThreads = 256;
-  constexpr int kQueriesPerBlock = kThreads / kWarp;
-  const dim3 grid((nq + kQueriesPerBlock - 1) / kQueriesPerBlock, n_parts);
-  knn_topk_kernel<KMAX><<<grid, kThreads, 0, stream>>>(
-      qx, qy, count, x, y, nq, n_pad, k, out_neg, out_idx);
-  return static_cast<int>(cudaGetLastError());
+int queries_per_warp(int nq) {
+  if (nq <= kWarps) return 1;
+  if (nq <= 2 * kWarps) return 2;
+  if (nq <= 4 * kWarps) return 4;
+  return 8;
+}
+
+// the template arguments of one of the twelve instances, as a type
+template <int J_, int QW_>
+struct Kernel {
+  static constexpr int J = J_, QW = QW_;
+};
+
+// f(Kernel<J, QW>{}) for the instance that serves k and qw
+template <typename F>
+int dispatch(int k, int qw, F&& f) {
+  auto by_qw = [&](auto j) -> int {
+    constexpr int J = decltype(j)::value;
+    switch (qw) {
+      case 1: return f(Kernel<J, 1>{});
+      case 2: return f(Kernel<J, 2>{});
+      case 4: return f(Kernel<J, 4>{});
+      default: return f(Kernel<J, 8>{});
+    }
+  };
+  if (k <= 32) return by_qw(std::integral_constant<int, 1>{});
+  if (k <= 64) return by_qw(std::integral_constant<int, 2>{});
+  return by_qw(std::integral_constant<int, 4>{});
 }
 
 }  // namespace
 
-// Launch on `stream`. Shapes: qx/qy (nq,); count (n_parts,);
-// x/y (n_parts, n_pad); out_neg/out_idx (n_parts, nq, k); k <= 128
-// (MAX_K in knn_topk.py).
+// The launch plan for (nq, n_pad, n_parts, k): plan[0] = queries per
+// warp, plan[1] = query blocks, plan[2] = slices per partition,
+// plan[3] = points per slice. The slices are as many as keep every
+// block of one launch resident on the card at once (one wave), and at
+// least one tile each. Returns a cudaError_t.
+REPRO_EXPORT int knn_topk_plan(int nq, int n_pad, int n_parts, int k,
+                               int* plan) {
+  if (k <= 0 || k > 128 || nq <= 0 || n_parts <= 0 || n_pad <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int qw = queries_per_warp(nq);
+  const int qblocks = (nq + kWarps * qw - 1) / (kWarps * qw);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = static_cast<cudaError_t>(dispatch(k, qw, [&](auto kern) {
+      using K = decltype(kern);
+      return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, knn_topk_kernel<K::J, K::QW>, kThreads, 0));
+    }));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long groups = static_cast<long long>(qblocks) * n_parts;
+  const long long resident = static_cast<long long>(std::max(per_sm, 1)) * sms;
+  const long long slices = std::min(std::max(1LL, resident / groups),
+                                    (n_pad + kTile - 1LL) / kTile);
+  const int slice_len = static_cast<int>((n_pad + slices - 1) / slices);
+  plan[0] = qw;
+  plan[1] = qblocks;
+  plan[2] = (n_pad + slice_len - 1) / slice_len;
+  plan[3] = slice_len;
+  return 0;
+}
+
+// Launch on `stream` with a plan from knn_topk_plan (qw, qblocks,
+// slices, slice_len = plan[0..3]). Shapes: qx/qy (nq,); count
+// (n_parts,); x/y (n_parts, n_pad); part_d/part_p (n_parts, nq, slices,
+// k) scratch; gbest (n_parts, nq) and done (n_parts, qblocks) zeros;
+// out_neg/out_idx (n_parts, nq, k); k <= 128 (MAX_K in knn_topk.py).
 REPRO_EXPORT int knn_topk_launch(
     const float* qx, const float* qy, const int* count, const float* x,
-    const float* y, int nq, int n_pad, int n_parts, int k, float* out_neg,
-    int* out_idx, void* stream) {
+    const float* y, int nq, int n_pad, int n_parts, int k, int qw,
+    int qblocks, int slices, int slice_len, float* part_d, int* part_p,
+    unsigned* gbest, unsigned* done, float* out_neg, int* out_idx,
+    void* stream) {
+  if (k <= 0 || k > 128) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(qblocks, slices, n_parts);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (k <= 16)
-    return launch<16>(qx, qy, count, x, y, nq, n_pad, n_parts, k, out_neg,
-                      out_idx, s);
-  if (k <= 32)
-    return launch<32>(qx, qy, count, x, y, nq, n_pad, n_parts, k, out_neg,
-                      out_idx, s);
-  if (k <= 64)
-    return launch<64>(qx, qy, count, x, y, nq, n_pad, n_parts, k, out_neg,
-                      out_idx, s);
-  if (k <= 128)
-    return launch<128>(qx, qy, count, x, y, nq, n_pad, n_parts, k, out_neg,
-                       out_idx, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch(k, qw, [&](auto kern) {
+    using K = decltype(kern);
+    knn_topk_kernel<K::J, K::QW><<<grid, kThreads, 0, s>>>(
+        qx, qy, count, x, y, nq, n_pad, k, slices, slice_len, part_d,
+        part_p, gbest, done, out_neg, out_idx);
+    return static_cast<int>(cudaGetLastError());
+  });
 }

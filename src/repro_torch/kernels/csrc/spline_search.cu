@@ -6,14 +6,31 @@
 // interpolation -> round half to even -> compare-count over a
 // probe-wide window of the sorted float32 keys, capped at the count.
 //
-// Grid: (query blocks of 256, partitions). Each block stages its
-// partition's knot keys, knot positions and radix row in shared memory
-// (they are read by every query of the block); the probe window is read
-// from global memory, since a partition's key row (n_pad x 4 bytes) is
-// far larger than a block's shared memory. One thread per query.
+// What bounds it on this card: latency. Each lookup is a chain of four
+// dependent reads (key -> radix row -> knot window -> probe window) of
+// a few hundred bytes in all, so the byte bound is far below the time
+// one chain takes; the kernel is as fast as the number of chains in
+// flight and the number of reads in each link.
 //
-// Bound: bytes. Each query reads `probe` keys (the window) and a few
-// knots; arithmetic is a few dozen operations per query.
+// Design: a group of G lanes (G = 16 or 32, a template argument) works
+// on one (query key, partition) pair, so a launch holds nq x n_parts
+// groups instead of one thread each:
+//   - lane 0 reads the radix row at the key's bucket and broadcasts the
+//     knot window [lo, hi] with a shuffle;
+//   - when the window and its two neighbours fit in the group (the
+//     usual case), lane i reads knot lo - 1 + i once: a ballot/__popc
+//     over the group counts the knots below the key (the segment), and
+//     the segment's two knots come from the lanes that hold them by
+//     shuffle, so the knot row is read in one coalesced load; a wider
+//     window is counted in strides of G and its knots read after;
+//   - every lane computes the same interpolation (a warp-uniform
+//     instruction costs what one lane's does, and needs no shuffle);
+//   - the probe window is read with coalesced loads, G consecutive
+//     floats per instruction and four instructions in flight per lane,
+//     and counted with __popc(__ballot_sync(...)).
+// The knot and radix rows are read through L1 (read-only loads); a
+// partition's rows (about 1,800 words at the reference's m_eff) are
+// shared by every key of the launch and stay cached.
 //
 // Numerics match the JAX reference on XLA:CPU bit for bit: the
 // interpolation p0 + t*(p1-p0) is the fused multiply-add XLA contracts it
@@ -24,20 +41,22 @@
 
 namespace {
 
-__global__ void spline_search_kernel(
+template <int G, bool STAGED>
+__global__ void __launch_bounds__(1024) spline_search_kernel(
     const float* __restrict__ q, int nq,
     const float* __restrict__ knot_keys, const float* __restrict__ knot_pos,
     int m, const int* __restrict__ radix_table, int r,
     const float* __restrict__ kmin, const float* __restrict__ scale,
     const int* __restrict__ n_knots, const int* __restrict__ count,
     const float* __restrict__ keys_f, int n_pad, int probe, int radix_bits,
-    int staged, int* __restrict__ out) {
+    int* __restrict__ out) {
+  static_assert(G == 16 || G == 32, "a group is a warp or half of one");
   extern __shared__ float smem[];
   const int c = blockIdx.y;
   const float* kk = knot_keys + static_cast<size_t>(c) * m;
   const float* kp = knot_pos + static_cast<size_t>(c) * m;
   const int* rt = radix_table + static_cast<size_t>(c) * r;
-  if (staged) {  // uniform across the block
+  if (STAGED) {
     float* s_kk = smem;
     float* s_kp = smem + m;
     int* s_rt = reinterpret_cast<int*>(smem + 2 * m);
@@ -51,37 +70,102 @@ __global__ void spline_search_kernel(
     kp = s_kp;
     rt = s_rt;
   }
-  const int qi = blockIdx.x * blockDim.x + threadIdx.x;
-  if (qi >= nq) return;
+  const int lane = threadIdx.x % G;
+  const int qi = blockIdx.x * (blockDim.x / G) + threadIdx.x / G;
+  if (qi >= nq) return;  // the whole group leaves together
+  // this group's lanes in the warp (a warp holds 32 / G groups)
+  const unsigned gmask =
+      G == kWarp ? kFullMask : 0xffffu << ((threadIdx.x % kWarp) & 16u);
   const float qv = q[qi];
 
-  // radix locate: bucket j, knot window [lo, hi]
-  float jf = floorf(__fmul_rn(__fsub_rn(qv, kmin[c]), scale[c]));
-  jf = fminf(fmaxf(jf, 0.0f), static_cast<float>(1 << radix_bits));
-  const int j = static_cast<int>(jf);
-  const int lo = rt[j];
-  const int hi = min(max(rt[j + 1], lo), max(n_knots[c] - 1, 0));
+  // radix locate (lane 0): bucket j, knot window [lo, hi]
+  int lo = 0, hi = 0, cap = 0;
+  if (lane == 0) {
+    float jf = floorf(__fmul_rn(__fsub_rn(qv, kmin[c]), scale[c]));
+    jf = fminf(fmaxf(jf, 0.0f), static_cast<float>(1 << radix_bits));
+    const int j = static_cast<int>(jf);
+    lo = rt[j];
+    hi = min(max(rt[j + 1], lo), max(n_knots[c] - 1, 0));
+    cap = count[c];
+  }
+  lo = __shfl_sync(gmask, lo, 0, G);
+  hi = __shfl_sync(gmask, hi, 0, G);
 
-  // branchless segment locate inside the window
-  int succ = lo;
-  for (int i = lo; i <= hi; ++i) succ += (kk[i] < qv) ? 1 : 0;
-  const int seg = max(succ - 1, 0);
-  const int seg1 = min(seg + 1, m - 1);
-  const float k0 = kk[seg], k1 = kk[seg1];
-  const float p0 = kp[seg], p1 = kp[seg1];
+  // segment locate: the knots of [lo, hi] below the key, counted by the
+  // group; then the segment's end knots
+  float k0, k1, p0, p1;
+  if (hi - lo + 3 <= G) {
+    // lane i holds knot lo - 1 + i: the window and both neighbours
+    const int i = lo - 1 + lane;
+    const int ic = min(max(i, 0), m - 1);
+    const float kv = kk[ic], pv = kp[ic];
+    const unsigned below =
+        __ballot_sync(gmask, i >= lo && i <= hi && kv < qv) & gmask;
+    const int seg = max(lo + __popc(below) - 1, 0);
+    const int seg1 = min(seg + 1, m - 1);
+    k0 = __shfl_sync(gmask, kv, seg - lo + 1, G);
+    p0 = __shfl_sync(gmask, pv, seg - lo + 1, G);
+    k1 = __shfl_sync(gmask, kv, seg1 - lo + 1, G);
+    p1 = __shfl_sync(gmask, pv, seg1 - lo + 1, G);
+  } else {
+    int succ = lo;
+    for (int b = lo; b <= hi; b += G) {
+      const int i = b + lane;
+      succ += __popc(__ballot_sync(gmask, i <= hi && kk[i] < qv) & gmask);
+    }
+    const int seg = max(succ - 1, 0);
+    const int seg1 = min(seg + 1, m - 1);
+    k0 = kk[seg];
+    k1 = kk[seg1];
+    p0 = kp[seg];
+    p1 = kp[seg1];
+  }
 
-  // interpolation (FMA, as XLA:CPU contracts it) and probe start
+  // interpolation (FMA, as XLA:CPU contracts it) and probe start; every
+  // lane computes the same values
   float t = __fdiv_rn(__fsub_rn(qv, k0), fmaxf(__fsub_rn(k1, k0), 1e-30f));
   t = fminf(fmaxf(t, 0.0f), 1.0f);
   const float phat = __fmaf_rn(t, __fsub_rn(p1, p0), p0);
   int start = static_cast<int>(rintf(phat)) - probe / 2;
   start = min(max(start, 0), n_pad - probe);
 
-  // exact lower bound by compare-count over the probe window
+  // exact lower bound by compare-count over the probe window: G
+  // consecutive keys per load instruction, four loads in flight
   const float* row = keys_f + static_cast<size_t>(c) * n_pad + start;
   int pos = start;
-  for (int i = 0; i < probe; ++i) pos += (row[i] < qv) ? 1 : 0;
-  out[static_cast<size_t>(c) * nq + qi] = min(pos, count[c]);
+  for (int b = 0; b < probe; b += 4 * G) {
+    float v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int i = b + u * G + lane;
+      v[u] = i < probe ? row[i] : qv;  // qv < qv is false: not counted
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      pos += __popc(__ballot_sync(gmask, v[u] < qv) & gmask);
+  }
+  if (lane == 0) out[static_cast<size_t>(c) * nq + qi] = min(pos, cap);
+}
+
+template <int G, bool STAGED>
+int launch(int threads, size_t smem, const float* q, int nq,
+           const float* knot_keys, const float* knot_pos, int m,
+           const int* radix_table, int r, const float* kmin,
+           const float* scale, const int* n_knots, const int* count,
+           const float* keys_f, int n_pad, int n_parts, int probe,
+           int radix_bits, int* out, cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        spline_search_kernel<G, STAGED>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const int per_block = threads / G;
+  const dim3 grid((nq + per_block - 1) / per_block, n_parts);
+  spline_search_kernel<G, STAGED><<<grid, threads, smem, stream>>>(
+      q, nq, knot_keys, knot_pos, m, radix_table, r, kmin, scale, n_knots,
+      count, keys_f, n_pad, probe, radix_bits, out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -89,26 +173,27 @@ __global__ void spline_search_kernel(
 // Launch on `stream`. Shapes: q (nq,); knot_keys/knot_pos (n_parts, m);
 // radix_table (n_parts, r); kmin/scale/n_knots/count (n_parts,);
 // keys_f (n_parts, n_pad); out (n_parts, nq). Returns cudaGetLastError().
+// variant: 0 = 32 lanes per key, 1 = 16 lanes per key, 2 = 32 lanes per
+// key with the knot and radix rows staged in shared memory.
 REPRO_EXPORT int spline_search_launch(
     const float* q, int nq, const float* knot_keys, const float* knot_pos,
     int m, const int* radix_table, int r, const float* kmin,
     const float* scale, const int* n_knots, const int* count,
     const float* keys_f, int n_pad, int n_parts, int probe, int radix_bits,
-    int* out, void* stream) {
-  constexpr int kThreads = 256;
-  constexpr size_t kMaxSmem = 200 * 1024;
-  const size_t smem = (2 * static_cast<size_t>(m) + r) * sizeof(float);
-  const int staged = smem <= kMaxSmem;
-  if (staged && smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        spline_search_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const dim3 grid((nq + kThreads - 1) / kThreads, n_parts);
-  spline_search_kernel<<<grid, kThreads, staged ? smem : 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      q, nq, knot_keys, knot_pos, m, radix_table, r, kmin, scale, n_knots,
-      count, keys_f, n_pad, probe, radix_bits, staged, out);
-  return static_cast<int>(cudaGetLastError());
+    int* out, void* stream, int variant) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t staged = (2 * static_cast<size_t>(m) + r) * sizeof(float);
+  if (variant == 2 && staged <= 200 * 1024)
+    return launch<32, true>(1024, staged, q, nq, knot_keys, knot_pos, m,
+                            radix_table, r, kmin, scale, n_knots, count,
+                            keys_f, n_pad, n_parts, probe, radix_bits, out,
+                            s);
+  if (variant == 1)
+    return launch<16, false>(256, 0, q, nq, knot_keys, knot_pos, m,
+                             radix_table, r, kmin, scale, n_knots, count,
+                             keys_f, n_pad, n_parts, probe, radix_bits, out,
+                             s);
+  return launch<32, false>(256, 0, q, nq, knot_keys, knot_pos, m,
+                           radix_table, r, kmin, scale, n_knots, count,
+                           keys_f, n_pad, n_parts, probe, radix_bits, out, s);
 }

@@ -2,11 +2,24 @@
 
 Replaces the Pallas TPU kernel ``src/repro/kernels/knn_topk.py``
 (``knn_topk``; wrapper ``kernels/ops.py:knn_topk``). Source:
-``csrc/knn_topk.cu``. One launch covers a chunk of partitions; a warp
-per (query, partition) keeps per-lane sorted top-k lists and merges them.
-Bound: operations (a distance per query-point pair).
+``csrc/knn_topk.cu``. Bound: operations (a distance per query-point
+pair; the points are shared by every query).
+
+One launch covers a chunk of partitions. A block of 8 warps holds up to
+64 queries and one slice of a partition's points, which it copies into
+shared memory a tile at a time (``cp.async``, double-buffered); each
+warp keeps its queries' k-lists in registers spread over its lanes and
+rejects a point with one compare against the list's k-th. The launcher
+splits the point axis into as many slices as fill the card in one wave
+(``plan``, from the occupancy of the kernel instance, nq, the number of
+partitions and ``n_pad``; never from ``count``, which lies on the card),
+and the last block of each (query block, partition) merges the slices'
+lists by (d^2, position) in the same launch, so the result is the plain
+version's bit for bit wherever the slice borders fall.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -17,7 +30,10 @@ launches = 0        # kernel launches (not plain-version calls)
 MAX_K = 128         # largest k csrc/knn_topk.cu instantiates
 NEG = -3.0e38       # empty slot value (as the reference's kernel)
 
-_SIG = {"knn_topk_launch": [P, P, P, P, P, I, I, I, I, P, P, P]}
+_SIG = {"knn_topk_plan": [I, I, I, I, P],
+        "knn_topk_launch": [P, P, P, P, P, I, I, I, I, I, I, I, I, P, P, P,
+                            P, P, P, P]}
+_plans: dict = {}   # (nq, n_pad, n_parts, k, device index) -> plan
 
 
 def knn_topk_plain(qx, qy, count, x, y, *, k: int):
@@ -69,10 +85,41 @@ def knn_topk(qx, qy, count, x, y, *, k: int):
         return neg, idx
     from repro_torch.kernels import _build
     lib = _build.load("knn_topk", _SIG)
-    err = lib.knn_topk_launch(*ptrs, nq, n_pad, c, k,
-                              ptr(neg, "neg", f32, (c, nq, k)),
-                              ptr(idx, "idx", i32, (c, nq, k)), stream())
+    qw, qblocks, slices, slice_len = plan(nq, n_pad, c, k, x.device)
+    part_d = torch.empty((c, nq, slices, k), dtype=f32, device=x.device)
+    part_p = torch.empty((c, nq, slices, k), dtype=i32, device=x.device)
+    # the best published k-th per (partition, query), and the finished
+    # slices per (partition, query block): both start at zero
+    zeros = torch.zeros(c * (nq + qblocks), dtype=i32, device=x.device)
+    err = lib.knn_topk_launch(
+        *ptrs, nq, n_pad, c, k, qw, qblocks, slices, slice_len,
+        ptr(part_d, "part_d", f32, part_d.shape),
+        ptr(part_p, "part_p", i32, part_p.shape),
+        ctypes.c_void_p(zeros.data_ptr()),
+        ctypes.c_void_p(zeros.data_ptr() + 4 * c * nq),
+        ptr(neg, "neg", f32, (c, nq, k)), ptr(idx, "idx", i32, (c, nq, k)),
+        stream())
     _build.check(lib, "knn_topk", err)
     global launches
     launches += 1
     return neg, idx
+
+
+def plan(nq: int, n_pad: int, n_parts: int, k: int, device) -> tuple:
+    """The kernel's launch plan on a CUDA ``device``: (queries per warp,
+    query blocks, slices per partition, points per slice). The slices
+    are as many as keep one launch's blocks resident at once, at least
+    one 1,024-point tile each. Host arithmetic only (no device read)."""
+    dev = torch.device(device)
+    key = (nq, n_pad, n_parts, k, dev.index)
+    got = _plans.get(key)
+    if got is None:
+        from repro_torch.kernels import _build
+        lib = _build.load("knn_topk", _SIG)
+        out = (ctypes.c_int * 4)()
+        with torch.cuda.device(dev):
+            err = lib.knn_topk_plan(nq, n_pad, n_parts, k,
+                                    ctypes.cast(out, ctypes.c_void_p))
+        _build.check(lib, "knn_topk_plan", err)
+        got = _plans[key] = tuple(out)
+    return got

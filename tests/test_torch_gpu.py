@@ -83,8 +83,9 @@ def test_gpu_spline_search_matches_plain(index, cuda):
 
 
 def test_gpu_spline_search_wide_knot_row(cuda):
-    """A knot row too wide for shared memory (eps 0 on distinct random
-    keys) takes the kernel's global-memory path."""
+    """A wide knot row (eps 0 on distinct random keys: about 60 knots
+    per radix bucket) takes the kernel's strided segment locate, whose
+    knot windows pass the lane group's width."""
     from repro_torch.core.build import fit_partitions
 
     rng = np.random.default_rng(3)
@@ -104,6 +105,55 @@ def test_gpu_spline_search_wide_knot_row(cuda):
     assert torch.equal(got, t_ss.spline_search_plain(*args, **kw))
     want = np.searchsorted(keys_f[0], q).astype(np.int32)
     assert np.array_equal(got[0].cpu().numpy(), want)
+
+
+def test_gpu_spline_search_edge_keys(cuda):
+    """Keys beyond every valid key, below kmin and at long runs of
+    duplicate keys, over rows that are full (the window start clamped at
+    n_pad - probe), part full, and empty, each bitwise against the plain
+    version and numpy's searchsorted capped at the count."""
+    from repro_torch.core.build import fit_partitions, probe_for
+
+    rng = np.random.default_rng(4)
+    n_pad, eps = 5000, 32
+    counts = np.asarray([n_pad, 3100, 4000, 0], np.int32)
+    keys = np.full((4, n_pad), (1 << 32) - 1, np.int64)
+    for c, n in enumerate(counts):
+        row = np.sort(rng.integers(1000, 1 << 22, n))
+        if c == 1:
+            row[500:900] = row[500]           # a run of 400 equal keys
+            row[2000:] = row[2000]            # the row ends in a run
+        keys[c, :n] = np.sort(row)
+    fit = fit_partitions(keys, counts, eps=eps, m_pad=512, radix_bits=10)
+    probe = probe_for(eps, int(fit["max_run"].max()), n_pad)
+    assert probe >= 512
+    valid = np.arange(n_pad)[None, :] < counts[:, None]
+    keys_f = np.where(valid, keys.astype(np.float32), np.float32(3.0e38))
+    q = np.concatenate([
+        keys_f[0, rng.integers(0, n_pad, 300)],
+        keys_f[1, [499, 500, 700, 899, 900, 1999, 2000, 3099]],
+        keys_f[2, ::37],
+        rng.integers(0, 1 << 22, 300).astype(np.float32),
+        [0.0, 1.0, 999.0, -1.0, -np.inf,                     # below kmin
+         float(1 << 22), float(1 << 24), float(1 << 31), 3.0e38,
+         np.inf]]).astype(np.float32)                        # beyond
+    args = _on(cuda, q, fit["knot_keys"], fit["knot_pos"],
+               fit["radix_table"], keys_f, fit["radix_kmin"],
+               fit["radix_scale"], fit["n_knots"], counts)
+    kw = dict(probe=probe, radix_bits=10)
+    got = t_ss.spline_search(*args, **kw)
+    assert torch.equal(got, t_ss.spline_search_plain(*args, **kw))
+    # inside the key space (keys below 2^32) the search is searchsorted
+    # capped at the count; past it (3e38, inf) the last segment runs to
+    # the knot row's 3.4e38 padding, and the kernel is held to the plain
+    # version (the reference's arithmetic) alone
+    got = got.cpu().numpy()
+    keyspace = q < 2.0 ** 32
+    for c, n in enumerate(counts):
+        want = np.minimum(np.searchsorted(keys_f[c, :n], q), n)
+        assert np.array_equal(got[c, keyspace], want[keyspace]), c
+    assert (got[0, -5:-2] == n_pad).all()    # window start clamped
+    assert (got[3] == 0).all()
 
 
 def test_gpu_range_count_matches_plain(index, cuda):
@@ -153,6 +203,55 @@ def test_gpu_knn_topk_matches_plain(index, cuda, k):
     wn, wi = t_knn.knn_topk_plain(*args, k=k)
     assert torch.equal(gn, wn) and torch.equal(gi, wi)
     assert (gi[-1] == -1).all()                 # the empty padding row
+
+
+def _knn_rows(rng, c, n_pad, border):
+    """Random rows of c partitions in which the points at both sides of
+    every slice border (positions b - 1 and b for b a multiple of
+    ``border``) sit at one spot, so their squared distances tie for any
+    query; rows have count n_pad, part of it, fewer than 128 points,
+    one point and none."""
+    x = rng.random((c, n_pad)).astype(np.float32)
+    y = rng.random((c, n_pad)).astype(np.float32)
+    b = np.arange(border, n_pad, border)
+    for pos in (b - 1, b):
+        x[:, pos], y[:, pos] = np.float32(0.25), np.float32(0.75)
+    dup = rng.integers(0, n_pad, 64)          # more ties, off the borders
+    dup = dup[~np.isin(dup, np.concatenate([b - 1, b]))]
+    x[:, dup[1:]], y[:, dup[1:]] = x[:, dup[:1]], y[:, dup[:1]]
+    count = np.linspace(0, n_pad, c).astype(np.int32)[::-1].copy()
+    count[-3:] = [100, 1, 0]
+    return x, y, count
+
+
+@pytest.mark.parametrize("k", [1, 10, 16, 17, 40, 128])
+@pytest.mark.parametrize("nq", [16, 256])
+def test_gpu_knn_topk_ties_across_slices(cuda, nq, k):
+    """The kNN kernel at the serving (16) and the exact call's (256)
+    query counts, on rows whose equal distances straddle every slice
+    border the launcher picks: bitwise the plain version, and each list
+    takes the lower position of a tie."""
+    rng = np.random.default_rng(nq + k)
+    c, n_pad = 8, 30000
+    qw, qblocks, slices, slice_len = t_knn.plan(nq, n_pad, c, k, cuda)
+    assert slices > 1 and qw * 8 * qblocks >= nq
+    x, y, count = _knn_rows(rng, c, n_pad, slice_len)
+    qx = rng.random(nq).astype(np.float32)
+    qy = rng.random(nq).astype(np.float32)
+    qx[: nq // 4], qy[: nq // 4] = np.float32(0.25), np.float32(0.75)
+    args = _on(cuda, qx, qy, count, x, y)
+    n0 = t_knn.launches
+    gn, gi = t_knn.knn_topk(*args, k=k)
+    assert t_knn.launches == n0 + 1
+    wn, wi = t_knn.knn_topk_plain(*args, k=k)
+    assert torch.equal(gn, wn) and torch.equal(gi, wi)
+    # the queries on the tie spot: distance 0 to 2 (slices - 1) points
+    ties = min(k, 2 * (slices - 1))
+    first = gi[0, : nq // 4, :ties].cpu().numpy()
+    borders = np.sort(np.concatenate([np.arange(1, slices) * slice_len - 1,
+                                      np.arange(1, slices) * slice_len]))
+    assert (first == borders[:ties][None, :]).all()
+    assert (gi[-1] == -1).all() and (gi[-2, :, 1:] == -1).all()
 
 
 def _bounds_and_flags(rng, c, nq, n_pad):

@@ -219,6 +219,70 @@ def test_knn_topk_tie_order_lowest_position():
     assert idx[0, 0].tolist() == [0, 3, 4, 1, 2, 5]
 
 
+def _knn_by_slices(qx, qy, count, x, y, k, slices):
+    """knn_topk_plain over ``slices`` slices of each row, merged by
+    (d^2, position) lexicographically: the decomposition csrc/knn_topk.cu
+    launches, each slice's list being its top-k and the merge a top-k of
+    the lists."""
+    c, n_pad = x.shape
+    step = -(-n_pad // slices)
+    d_all, p_all = [], []
+    for lo in range(0, n_pad, step):
+        hi = min(lo + step, n_pad)
+        cnt = torch.clamp(count - lo, 0, hi - lo).to(torch.int32)
+        neg, idx = t_knn.knn_topk_plain(qx, qy, cnt,
+                                        x[:, lo:hi].contiguous(),
+                                        y[:, lo:hi].contiguous(), k=k)
+        hit = idx >= 0
+        d_all.append(torch.where(hit, -neg, float("inf")).double())
+        p_all.append(torch.where(hit, idx + lo, 2 ** 31 - 1).long())
+    d, p = torch.cat(d_all, -1), torch.cat(p_all, -1)
+    # lexicographic (d^2, position): sort by position, then stably by d^2
+    order = torch.argsort(p, dim=-1, stable=True)
+    d, p = torch.gather(d, -1, order), torch.gather(p, -1, order)
+    order = torch.argsort(d, dim=-1, stable=True)[..., :k]
+    d, p = torch.gather(d, -1, order), torch.gather(p, -1, order)
+    hit = p < 2 ** 31 - 1
+    return (torch.where(hit, -d, t_knn.NEG).float(),
+            torch.where(hit, p, -1).to(torch.int32))
+
+
+@pytest.mark.parametrize("k", [1, 10, 16])
+@pytest.mark.parametrize("slices", [1, 3, 7])
+def test_knn_topk_slice_merge_is_exact(slices, k):
+    """The kernel's split of the point axis: the top-k of each slice,
+    merged by (d^2, position), is knn_topk_plain's and the JAX oracle's
+    top-k, with equal distances straddling every slice border, a row
+    with count < k, and an empty row."""
+    rng = np.random.default_rng(slices * 31 + k)
+    c, n_pad, nq = 4, 700, 6
+    step = -(-n_pad // slices)
+    x = rng.random((c, n_pad)).astype(np.float32)
+    y = rng.random((c, n_pad)).astype(np.float32)
+    for b in range(step, n_pad, step):        # ties across each border
+        x[:, b - 2:b + 2], y[:, b - 2:b + 2] = np.float32(0.4), np.float32(0.6)
+    x[:, 5::97], y[:, 5::97] = np.float32(0.4), np.float32(0.6)
+    count = np.asarray([n_pad, 451, k - 1, 0], np.int32)
+    qx = rng.random(nq).astype(np.float32)
+    qy = rng.random(nq).astype(np.float32)
+    qx[:3], qy[:3] = np.float32(0.4), np.float32(0.6)
+    qx[3], qy[3] = np.float32(0.4001), np.float32(0.6)
+    args = tuple(map(_t, (qx, qy, count, x, y)))
+    gn, gi = _knn_by_slices(*args, k=k, slices=slices)
+    wn, wi = t_knn.knn_topk_plain(*args, k=k)
+    assert torch.equal(gn, wn) and torch.equal(gi, wi)
+    qxy = jnp.asarray(np.stack([qx, qy], 1))
+    for p in range(c):
+        rn, ri = ref_knn_topk(qxy, count[p], x[p], y[p], k=k)
+        assert np.array_equal(gn[p].numpy(), np.asarray(rn)), p
+        assert np.array_equal(gi[p].numpy(), np.asarray(ri)), p
+    # the queries on the tie spot take the tied points lowest first
+    tied = np.flatnonzero((x[0] == np.float32(0.4)) &
+                          (y[0] == np.float32(0.6)))[:k]
+    assert (gi[0, :3, :len(tied)].numpy() == tied[None, :]).all()
+    assert (gi[2, :, max(k - 1, 0):] == -1).all() and (gi[3] == -1).all()
+
+
 @pytest.mark.parametrize("n", [1, 7, 1000, 3001])
 def test_morton_plain_vs_ref_and_pallas(n):
     """The morton kernel's plain version (int64 in and out) against the
