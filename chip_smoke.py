@@ -886,9 +886,11 @@ def main() -> int:
                             torch.searchsorted(*la).to(torch.int32)),
                 "spline_search vs torch.searchsorted")
     # the launcher's variants, each bitwise, timed in turns (a b c c b a)
-    variants = {0: "group32", 1: "group16", 2: "group32_staged"}
+    variants = {0: "g16_two_level", 1: "g32_two_level",
+                2: "g32_full_staged_1024", 3: "g32_full_1024",
+                4: "g32_full_256"}
     v_ms = {n: [] for n in variants.values()}
-    for v in (0, 1, 2, 2, 1, 0):
+    for v in (0, 1, 2, 3, 4, 4, 3, 2, 1, 0):
         SS.VARIANT = v
         for a in ss_args:
             require(torch.equal(SS.spline_search(*a, **kw),
@@ -899,6 +901,10 @@ def main() -> int:
     SS.VARIANT = 0
     v_ms = {n: sum(t) / len(t) for n, t in v_ms.items()}
     log(f"[kernel] spline_search variants, ms per call: {v_ms}")
+    # the floor that one launch per chunk puts on a call: as many
+    # one-element PyTorch kernels, back to back
+    one = torch.zeros(1, device=dev)
+    floor_ms = stream_ms(lambda: [one.add_(1) for _ in ss_args], 20)
     t = timed(sweep(SS.spline_search, ss_args, **kw), 50,
               "spline_search_kernel")
     pt = timed(sweep(SS.spline_search_plain, ss_args, **kw), 3)
@@ -912,7 +918,8 @@ def main() -> int:
                   covered(st, st + probe, n_pad) + p_total * nq2)
     entry("spline_search", err, t, pt, nbytes,
           p_total * nq2 * (probe + 16), lt, "range_count_1024",
-          extra={"library_equal": True, "variants_ms": v_ms})
+          extra={"library_equal": True, "variants_ms": v_ms,
+                 "launch_floor_ms": floor_ms})
 
     # range_count: every chunk. Bytes: the rects, bounds and flags, x and
     # y over the union of the active [s, min(e, count)) intervals, the

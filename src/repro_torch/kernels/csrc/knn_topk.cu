@@ -7,43 +7,51 @@
 // Outputs are -d^2 and the position; slots left empty (count < k) hold
 // -3e38 and -1.
 //
-// What bounds it on this card: operations. Five float operations per
-// (query, point) pair against 8 bytes per point that every query of the
-// launch shares, so the work is the pairs and the points must be read
-// from device memory about once, not once per query.
+// What bounds it on this card: operations, five float operations per
+// (query, point) pair, against 8 bytes per point that every query of
+// the launch shares. In practice the insertions into the k-lists cost
+// as much as the distances: each is a chain of warp shuffles and votes.
 //
 // Design:
-//   - Tiles in shared memory. A block of 8 warps holds 8 x QW queries
-//     (QW = 1, 2, 4 or 8, from nq) and one slice of a partition's
-//     points. It copies the slice into shared memory a tile of 1,024
-//     points at a time with cp.async, double-buffered (the next tile is
-//     in flight while the block scans the current one). Every query of
-//     the block reads the tile from shared memory: one 8-byte point per
-//     lane serves the warp's QW queries.
-//   - Lists in registers, spread over the lanes. Each warp scans the
-//     slice for its QW queries in order of position, 32 points per step;
-//     a query's k-list is sorted by (d^2, position) and held one entry
-//     per lane (J = ceil(k / 32) registers per lane for d^2 and for the
-//     position), so no array is indexed at run time and nothing lives in
-//     local memory (ptxas -v: 0 bytes of stack and spills).
-//   - Reject first. A point enters only when d^2 < the list's k-th
-//     (a warp-uniform threshold): one compare per pair, and one vote per
-//     step for all QW queries. A step with a candidate inserts the
-//     candidates in lane (position) order, each by a warp-wide
-//     rank (ballot + __popc) and a shift by shuffle; no lane diverges.
+//   - Points in shared memory. A block of 16 warps holds 16 x QW
+//     queries (QW = 1, 2 or 4, from nq) and one slice of a partition's
+//     points, which it copies into shared memory once (cp.async) and
+//     every query of the block reads: one 8-byte point per lane serves
+//     the warp's QW queries, and the next step's point is read while
+//     this step's distances are computed.
+//   - A scattered scan order. The rows are in Morton order, which
+//     brings a query's neighbours in a run of ever closer points: in
+//     position order nearly every point near the query became a new
+//     entry. Lane l of step t takes slot (32 t + l) * step mod m (step
+//     coprime with m, near m / golden ratio), which spreads every step
+//     over the slice and hits 32 different banks; a list then takes
+//     about k (1 + ln(points / k)) entries, as in a random order.
+//   - Lists in registers, spread over the lanes. A query's k-list is
+//     sorted by (d^2, position) and held one entry per lane (J =
+//     ceil(k / 32) registers per lane for d^2 and for the position), so
+//     no array is indexed at run time and nothing lives in local memory
+//     (ptxas -v: 0 bytes of stack and spills for every k <= 32
+//     instance).
+//   - Reject first. A point is a candidate only when d^2 <= the list's
+//     k-th d^2 (a warp-uniform register): one compare per pair, and one
+//     vote per step for all QW queries. A step with candidates inserts
+//     them one at a time by a warp-wide rank (ballot + __popc) and a
+//     shift by shuffle; no lane diverges.
 //   - The point axis split across blocks. The launcher cuts each
-//     partition into n_slices slices so that one launch fills the card
-//     (nq x n_parts alone is 128 warps at the serving shape). Each block
-//     writes its k-lists to a scratch buffer; the last block of a (query
-//     block, partition) to finish, counted by an atomic, merges the
-//     slices' lists into the output in the same launch.
+//     partition into slices so that one launch fills the card in one
+//     wave (nq x n_parts alone is 128 warps at the serving shape). Each
+//     block writes its k-lists to a scratch buffer and publishes its
+//     lists' k-th d^2 (atomicMax on an order-reversed encoding); the
+//     last block of a (query block, partition) to finish, counted by an
+//     atomic, merges the slices' lists into the output in the same
+//     launch, skipping every entry beyond the least published k-th.
 //
-// Why the split is exact: positions are unique, so (d^2, position) is a
-// strict total order and the top-k is one set in one order whatever the
-// slices. Within a slice a warp meets positions in increasing order, so
-// a point with d^2 equal to the k-th stays out (the earlier position is
-// ahead); the merge compares (d^2, position) lexicographically, so a tie
-// at a slice border goes to the lower position.
+// Why the split and the order are exact: positions are unique, so
+// (d^2, position) is a strict total order and the top-k is one set in
+// one order whatever the slices and the scan order. Every insertion and
+// the merge compare (d^2, position) lexicographically, so a tie goes to
+// the lower position wherever the slice borders fall; a point beyond
+// some slice's k-th d^2 has k points before it and is in no top-k.
 //
 // The distance is fmaf(dx, dx, dy*dy), the form XLA:CPU contracts
 // dx*dx + dy*dy to; every step is an explicit intrinsic so nvcc cannot
@@ -59,9 +67,13 @@
 namespace {
 
 constexpr float kNeg = -3.0e38f;
-constexpr int kWarps = 8;     // warps per block
+constexpr int kWarps = 16;    // warps per block
 constexpr int kThreads = kWarps * kWarp;
-constexpr int kTile = 1024;   // points per shared-memory tile
+// points per slice: at most kMaxSlice (the slice's x and y, 96 KB of
+// shared memory, two blocks to an SM), at least kMinSlice (each slice
+// pays for filling its own list: k (1 + ln(points / k)) insertions)
+constexpr int kMaxSlice = 12288;
+constexpr int kMinSlice = 4096;
 constexpr unsigned kInfBits = 0x7f800000u;
 
 __device__ __forceinline__ bool lex_less(float da, int pa, float db, int pb) {
@@ -78,8 +90,8 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::);
 }
 
 // A k-list spread over the warp: entry j * 32 + lane is (d[j], p[j]) of
@@ -97,23 +109,11 @@ struct WarpList {
     }
   }
 
-  // entry k - 1 (row jk, lane lk), the same on every lane
-  __device__ __forceinline__ void kth(int jk, int lk, float& td,
-                                      int& tp) const {
-    float vd = d[0];
-    int vp = p[0];
-#pragma unroll
-    for (int j = 1; j < J; ++j)
-      if (j == jk) {
-        vd = d[j];
-        vp = p[j];
-      }
-    td = __shfl_sync(kFullMask, vd, lk);
-    tp = __shfl_sync(kFullMask, vp, lk);
-  }
-
-  // insert (dn, pn), the same on every lane; the last entry drops out
-  __device__ __forceinline__ void insert(float dn, int pn, int lane) {
+  // insert (dn, pn), the same on every lane, which must come before
+  // entry k - 1 (row jk, lane lk); the last entry drops out, and (td, tp)
+  // becomes the new entry k - 1
+  __device__ __forceinline__ void insert(float dn, int pn, int lane, int jk,
+                                         int lk, float& td, int& tp) {
     int rank = 0;
 #pragma unroll
     for (int j = 0; j < J; ++j)
@@ -134,6 +134,18 @@ struct WarpList {
         sp[j] = wp;
       }
     }
+    // the old entry k - 2, which becomes entry k - 1 unless the new one
+    // takes that place (read while the rank is counted)
+    float ed = sd[0];
+    int ep = sp[0];
+#pragma unroll
+    for (int j = 1; j < J; ++j)
+      if (j == jk) {
+        ed = sd[j];
+        ep = sp[j];
+      }
+    ed = __shfl_sync(kFullMask, ed, lk);
+    ep = __shfl_sync(kFullMask, ep, lk);
 #pragma unroll
     for (int j = 0; j < J; ++j) {
       const int i = j * kWarp + lane;
@@ -145,8 +157,27 @@ struct WarpList {
         p[j] = sp[j];
       }
     }
+    const bool last = rank == jk * kWarp + lk;
+    td = last ? dn : ed;
+    tp = last ? pn : ep;
   }
 };
+
+// An odd step coprime with m (a multiple of 32) near m / golden ratio:
+// i -> i * step mod m visits 0..m-1 once each, spread over the range at
+// every scale, and the 32 lanes of a warp hit 32 different banks
+__device__ int scatter_step(int m) {
+  int step = static_cast<int>(0.6180339887f * static_cast<float>(m)) | 1;
+  for (;; step += 2) {
+    int a = step, b = m;
+    while (b) {
+      const int t = a % b;
+      a = b;
+      b = t;
+    }
+    if (a == 1) return step;
+  }
+}
 
 template <int J, int QW>
 __global__ void __launch_bounds__(kThreads) knn_topk_kernel(
@@ -156,109 +187,103 @@ __global__ void __launch_bounds__(kThreads) knn_topk_kernel(
     int slice_len, float* __restrict__ part_d, int* __restrict__ part_p,
     unsigned* __restrict__ gbest, unsigned* __restrict__ done,
     float* __restrict__ out_neg, int* __restrict__ out_idx) {
-  __shared__ float s_x[2][kTile];
-  __shared__ float s_y[2][kTile];
+  extern __shared__ float s_pts[];  // the slice's x, then its y
   __shared__ int s_last;
   const int warp = threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
   const int qb = blockIdx.x, slice = blockIdx.y, c = blockIdx.z;
   const int q0 = (qb * kWarps + warp) * QW;  // this warp's first query
   const int jk = (k - 1) / kWarp, lk = (k - 1) % kWarp;
+  const int cap = (slice_len + kWarp - 1) / kWarp * kWarp;
+  float* s_x = s_pts;
+  float* s_y = s_pts + cap;
   const int cnt = min(count[c], n_pad);
   const int p_begin = slice * slice_len;
-  const int p_end = min(p_begin + slice_len, cnt);
-  const float* px = x + static_cast<size_t>(c) * n_pad;
-  const float* py = y + static_cast<size_t>(c) * n_pad;
+  const int n = max(min(p_begin + slice_len, cnt) - p_begin, 0);
+  const float* px = x + static_cast<size_t>(c) * n_pad + p_begin;
+  const float* py = y + static_cast<size_t>(c) * n_pad + p_begin;
 
-  // per query: the list's k-th d^2 (own), the least float above the
-  // best k-th any slice has published (gnext: d^2 <= published iff
-  // d^2 < gnext), and the test a point must pass, d^2 < min of the two
-  float ax[QW], ay[QW], own[QW], gnext[QW], thr[QW];
+  // the slice into shared memory (cp.async; it lands while the
+  // registers are set up)
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    cp_async4(s_x + i, px + i);
+    cp_async4(s_y + i, py + i);
+  }
+  cp_async_commit();
+
+  // per query: the list's k-th entry (kd, kp), the same on every lane;
+  // a point is a candidate when d^2 <= kd (equal d^2 may still win on a
+  // lower position: the scan order is not the position order)
+  float ax[QW], ay[QW], kd[QW];
+  int kp[QW];
   WarpList<J> list[QW];
 #pragma unroll
   for (int i = 0; i < QW; ++i) {
     const int q = q0 + i;
     ax[i] = q < nq ? qx[q] : 0.0f;
     ay[i] = q < nq ? qy[q] : 0.0f;
-    own[i] = gnext[i] = CUDART_INF_F;
-    // a query past nq takes no point
-    thr[i] = q < nq ? CUDART_INF_F : -CUDART_INF_F;
+    kd[i] = q < nq ? CUDART_INF_F : -CUDART_INF_F;  // past nq: no point
+    kp[i] = INT_MAX;
     list[i].clear();
   }
+  unsigned* gb = gbest + static_cast<size_t>(c) * nq;
 
-  auto load_tile = [&](int t, int buf) {
-    const int base = p_begin + t * kTile;
-    const int n = min(kTile, p_end - base);
-    for (int i = threadIdx.x; i < n; i += kThreads) {
-      cp_async4(&s_x[buf][i], px + base + i);
-      cp_async4(&s_y[buf][i], py + base + i);
+  // scan the slice in a scattered order (Morton order brings a query's
+  // neighbours last, so nearly every point would enter the list):
+  // lane l of step t takes slot (32 t + l) * step mod m
+  const int m = (n + kWarp - 1) / kWarp * kWarp;
+  const int step = m ? scatter_step(m) : 1;
+  const int jump = m ? static_cast<int>(
+                           static_cast<long long>(kWarp) * step % m)
+                     : 0;
+  int slot = m ? static_cast<int>(static_cast<long long>(lane) * step % m)
+               : 0;
+  cp_async_wait_all();
+  __syncthreads();
+  float nx = s_x[slot], ny = s_y[slot];  // the next step's point
+  for (int t = 0; t < m / kWarp; ++t) {
+    const bool valid = slot < n;
+    const float vx = nx, vy = ny;
+    {
+      int next = slot + jump;
+      if (next >= m) next -= m;
+      nx = s_x[next];
+      ny = s_y[next];
     }
-  };
-
-  // scan: this block's slice, tile by tile
-  const int n_tiles = p_end > p_begin ? (p_end - p_begin + kTile - 1) / kTile
-                                      : 0;
-  if (n_tiles > 0) load_tile(0, 0);
-  cp_async_commit();
-  for (int t = 0; t < n_tiles; ++t) {
-    const int buf = t & 1;
-    if (t + 1 < n_tiles) load_tile(t + 1, buf ^ 1);
-    cp_async_commit();
-    cp_async_wait_one();  // tile t has landed (this thread's copies)
-    __syncthreads();      // ... and every thread's
-    const int tb = p_begin + t * kTile;
-    const int tn = min(kTile, p_end - tb);
-    for (int o = 0; o < tn; o += kWarp) {
-      const bool valid = o + lane < tn;
-      const float vx = s_x[buf][o + lane];
-      const float vy = s_y[buf][o + lane];
-      float dd[QW];
-      bool any = false;
+    float dd[QW];
+    bool any = false;
+#pragma unroll
+    for (int i = 0; i < QW; ++i) {
+      const float dx = __fsub_rn(vx, ax[i]);
+      const float dy = __fsub_rn(vy, ay[i]);
+      dd[i] = __fmaf_rn(dx, dx, __fmul_rn(dy, dy));
+      any |= valid && dd[i] <= kd[i];
+    }
+    if (__any_sync(kFullMask, any)) {
+      const int pos = p_begin + slot;
 #pragma unroll
       for (int i = 0; i < QW; ++i) {
-        const float dx = __fsub_rn(vx, ax[i]);
-        const float dy = __fsub_rn(vy, ay[i]);
-        dd[i] = __fmaf_rn(dx, dx, __fmul_rn(dy, dy));
-        any |= valid && dd[i] < thr[i];
-      }
-      if (__any_sync(kFullMask, any)) {
-#pragma unroll
-        for (int i = 0; i < QW; ++i) {
-          unsigned cand = __ballot_sync(kFullMask, valid && dd[i] < thr[i]);
-          while (cand) {  // lowest lane (position) first
-            const int src = __ffs(cand) - 1;
-            cand &= cand - 1;
-            const float dn = __shfl_sync(kFullMask, dd[i], src);
-            if (dn < thr[i]) {
-              list[i].insert(dn, tb + o + src, lane);
-              int tp;
-              list[i].kth(jk, lk, own[i], tp);
-              thr[i] = fminf(own[i], gnext[i]);
-            }
+        unsigned cand = __ballot_sync(kFullMask, valid && dd[i] <= kd[i]);
+        while (cand) {
+          const int src = __ffs(cand) - 1;
+          cand &= cand - 1;
+          const float dn = __shfl_sync(kFullMask, dd[i], src);
+          const int pn = __shfl_sync(kFullMask, pos, src);
+          if (lex_less(dn, pn, kd[i], kp[i])) {
+            list[i].insert(dn, pn, lane, jk, lk, kd[i], kp[i]);
           }
         }
       }
     }
-    // publish this slice's k-th and read the best one: a point farther
-    // than k points of any slice is in no top-k (one at an equal
-    // distance may be, at a lower position, so it is kept)
-#pragma unroll
-    for (int i = 0; i < QW; ++i) {
-      const int q = q0 + i;
-      if (q >= nq) continue;
-      unsigned best = 0;
-      if (lane == 0) {
-        const unsigned mine = kInfBits - __float_as_uint(own[i]);
-        best = max(atomicMax(&gbest[static_cast<size_t>(c) * nq + q], mine),
-                   mine);
-      }
-      best = __shfl_sync(kFullMask, best, 0);
-      gnext[i] =
-          best ? __uint_as_float(kInfBits - best + 1u) : CUDART_INF_F;
-      thr[i] = fminf(own[i], gnext[i]);
-    }
-    __syncthreads();  // the tile's buffer is refilled two steps on
+    slot += jump;
+    if (slot >= m) slot -= m;
   }
+  // publish each list's k-th: no point farther than the least of them
+  // is in the top-k, which bounds the merge
+#pragma unroll
+  for (int i = 0; i < QW; ++i)
+    if (q0 + i < nq && lane == 0)
+      atomicMax(gb + q0 + i, kInfBits - __float_as_uint(kd[i]));
 
   // this slice's lists to the scratch rows (c, q, slice, :k)
 #pragma unroll
@@ -295,21 +320,23 @@ __global__ void __launch_bounds__(kThreads) knn_topk_kernel(
     l.clear();
     float td = CUDART_INF_F;
     int tp = INT_MAX;
+    // no entry farther than the best published k-th is in the top-k
+    const float bound = __uint_as_float(kInfBits - __ldcg(gb + q));
     const size_t base = (static_cast<size_t>(c) * nq + q) * total;
     for (int o = 0; o < total; o += kWarp) {
       const bool valid = o + lane < total;
       const float dv = valid ? __ldcg(part_d + base + o + lane)
                              : CUDART_INF_F;
       const int pv = valid ? __ldcg(part_p + base + o + lane) : INT_MAX;
-      unsigned cand = __ballot_sync(kFullMask, lex_less(dv, pv, td, tp));
+      unsigned cand = __ballot_sync(
+          kFullMask, dv <= bound && lex_less(dv, pv, td, tp));
       while (cand) {
         const int src = __ffs(cand) - 1;
         cand &= cand - 1;
         const float dn = __shfl_sync(kFullMask, dv, src);
         const int pn = __shfl_sync(kFullMask, pv, src);
         if (lex_less(dn, pn, td, tp)) {
-          l.insert(dn, pn, lane);
-          l.kth(jk, lk, td, tp);
+          l.insert(dn, pn, lane, jk, lk, td, tp);
         }
       }
     }
@@ -330,11 +357,16 @@ __global__ void __launch_bounds__(kThreads) knn_topk_kernel(
 int queries_per_warp(int nq) {
   if (nq <= kWarps) return 1;
   if (nq <= 2 * kWarps) return 2;
-  if (nq <= 4 * kWarps) return 4;
-  return 8;
+  return 4;
 }
 
-// the template arguments of one of the twelve instances, as a type
+// the dynamic shared memory of a slice of slice_len points
+size_t slice_smem(int slice_len) {
+  return 2 * sizeof(float) *
+         static_cast<size_t>((slice_len + kWarp - 1) / kWarp * kWarp);
+}
+
+// the template arguments of one of the nine instances, as a type
 template <int J_, int QW_>
 struct Kernel {
   static constexpr int J = J_, QW = QW_;
@@ -348,8 +380,7 @@ int dispatch(int k, int qw, F&& f) {
     switch (qw) {
       case 1: return f(Kernel<J, 1>{});
       case 2: return f(Kernel<J, 2>{});
-      case 4: return f(Kernel<J, 4>{});
-      default: return f(Kernel<J, 8>{});
+      default: return f(Kernel<J, 4>{});
     }
   };
   if (k <= 32) return by_qw(std::integral_constant<int, 1>{});
@@ -362,14 +393,15 @@ int dispatch(int k, int qw, F&& f) {
 // The launch plan for (nq, n_pad, n_parts, k): plan[0] = queries per
 // warp, plan[1] = query blocks, plan[2] = slices per partition,
 // plan[3] = points per slice. The slices are as many as keep every
-// block of one launch resident on the card at once (one wave), and at
-// least one tile each. Returns a cudaError_t.
+// block of one launch resident on the card at once (one wave), within
+// [kMinSlice, kMaxSlice] points each. Returns a cudaError_t.
 REPRO_EXPORT int knn_topk_plan(int nq, int n_pad, int n_parts, int k,
                                int* plan) {
   if (k <= 0 || k > 128 || nq <= 0 || n_parts <= 0 || n_pad <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int qw = queries_per_warp(nq);
   const int qblocks = (nq + kWarps * qw - 1) / (kWarps * qw);
+  const size_t smem = slice_smem(std::min(n_pad, kMaxSlice));
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
@@ -377,14 +409,24 @@ REPRO_EXPORT int knn_topk_plan(int nq, int n_pad, int n_parts, int k,
   if (e == cudaSuccess)
     e = static_cast<cudaError_t>(dispatch(k, qw, [&](auto kern) {
       using K = decltype(kern);
-      return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, knn_topk_kernel<K::J, K::QW>, kThreads, 0));
+      cudaError_t r = cudaFuncSetAttribute(
+          knn_topk_kernel<K::J, K::QW>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(slice_smem(kMaxSlice)));
+      if (r == cudaSuccess)
+        r = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, knn_topk_kernel<K::J, K::QW>, kThreads, smem);
+      return static_cast<int>(r);
     }));
   if (e != cudaSuccess) return static_cast<int>(e);
   const long long groups = static_cast<long long>(qblocks) * n_parts;
-  const long long resident = static_cast<long long>(std::max(per_sm, 1)) * sms;
-  const long long slices = std::min(std::max(1LL, resident / groups),
-                                    (n_pad + kTile - 1LL) / kTile);
+  const long long resident =
+      static_cast<long long>(std::max(per_sm, 1)) * sms;
+  const long long fewest = (n_pad + kMaxSlice - 1LL) / kMaxSlice;
+  const long long most =
+      std::max(fewest, (n_pad + kMinSlice - 1LL) / kMinSlice);
+  const long long slices =
+      std::min(std::max(resident / groups, fewest), most);
   const int slice_len = static_cast<int>((n_pad + slices - 1) / slices);
   plan[0] = qw;
   plan[1] = qblocks;
@@ -394,22 +436,25 @@ REPRO_EXPORT int knn_topk_plan(int nq, int n_pad, int n_parts, int k,
 }
 
 // Launch on `stream` with a plan from knn_topk_plan (qw, qblocks,
-// slices, slice_len = plan[0..3]). Shapes: qx/qy (nq,); count
-// (n_parts,); x/y (n_parts, n_pad); part_d/part_p (n_parts, nq, slices,
-// k) scratch; gbest (n_parts, nq) and done (n_parts, qblocks) zeros;
-// out_neg/out_idx (n_parts, nq, k); k <= 128 (MAX_K in knn_topk.py).
+// slices, slice_len = plan[0..3]), which also sets the instances'
+// shared-memory limit. Shapes: qx/qy (nq,); count (n_parts,); x/y
+// (n_parts, n_pad); part_d/part_p (n_parts, nq, slices, k) scratch;
+// gbest (n_parts, nq) and done (n_parts, qblocks) zeros; out_neg/out_idx
+// (n_parts, nq, k); k <= 128 (MAX_K in knn_topk.py).
 REPRO_EXPORT int knn_topk_launch(
     const float* qx, const float* qy, const int* count, const float* x,
     const float* y, int nq, int n_pad, int n_parts, int k, int qw,
     int qblocks, int slices, int slice_len, float* part_d, int* part_p,
     unsigned* gbest, unsigned* done, float* out_neg, int* out_idx,
     void* stream) {
-  if (k <= 0 || k > 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (k <= 0 || k > 128 || slice_len <= 0 || slice_len > kMaxSlice)
+    return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(qblocks, slices, n_parts);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dispatch(k, qw, [&](auto kern) {
     using K = decltype(kern);
-    knn_topk_kernel<K::J, K::QW><<<grid, kThreads, 0, s>>>(
+    const size_t smem = slice_smem(slice_len);
+    knn_topk_kernel<K::J, K::QW><<<grid, kThreads, smem, s>>>(
         qx, qy, count, x, y, nq, n_pad, k, slices, slice_len, part_d,
         part_p, gbest, done, out_neg, out_idx);
     return static_cast<int>(cudaGetLastError());

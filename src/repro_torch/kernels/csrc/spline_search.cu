@@ -6,31 +6,35 @@
 // interpolation -> round half to even -> compare-count over a
 // probe-wide window of the sorted float32 keys, capped at the count.
 //
-// What bounds it on this card: latency. Each lookup is a chain of four
-// dependent reads (key -> radix row -> knot window -> probe window) of
-// a few hundred bytes in all, so the byte bound is far below the time
-// one chain takes; the kernel is as fast as the number of chains in
-// flight and the number of reads in each link.
+// What bounds it on this card: latency and the launch. Each lookup is a
+// chain of four dependent reads (key -> radix row -> knot window ->
+// probe window) of a few hundred bytes, far below the byte bound's
+// reach, and one launch per chunk of partitions puts the launch's own
+// cost (a few microseconds) on every chunk.
 //
-// Design: a group of G lanes (G = 16 or 32, a template argument) works
-// on one (query key, partition) pair, so a launch holds nq x n_parts
-// groups instead of one thread each:
+// Design: a group of G = 16 lanes (half a warp) works on one (query
+// key, partition) pair, so a launch holds nq x n_parts groups instead
+// of one thread each:
 //   - lane 0 reads the radix row at the key's bucket and broadcasts the
 //     knot window [lo, hi] with a shuffle;
 //   - when the window and its two neighbours fit in the group (the
 //     usual case), lane i reads knot lo - 1 + i once: a ballot/__popc
 //     over the group counts the knots below the key (the segment), and
 //     the segment's two knots come from the lanes that hold them by
-//     shuffle, so the knot row is read in one coalesced load; a wider
-//     window is counted in strides of G and its knots read after;
+//     shuffle; a wider window is counted in strides of G;
 //   - every lane computes the same interpolation (a warp-uniform
 //     instruction costs what one lane's does, and needs no shuffle);
-//   - the probe window is read with coalesced loads, G consecutive
-//     floats per instruction and four instructions in flight per lane,
-//     and counted with __popc(__ballot_sync(...)).
-// The knot and radix rows are read through L1 (read-only loads); a
-// partition's rows (about 1,800 words at the reference's m_eff) are
-// shared by every key of the launch and stay cached.
+//   - the probe window is sorted, so its compare-count is taken in two
+//     levels: the group counts the window's every G-th key below q
+//     (one load per lane), then the G keys after the last such sample
+//     (one coalesced load); a window wider than G * G keys is read
+//     whole, G keys per load and eight loads in flight. Both count with
+//     __popc(__ballot_sync(...)). At the reference's probe of 256 keys
+//     the two levels read 18 sectors of 32 bytes instead of 32.
+// The knot and radix rows are read through L1: a partition's rows
+// (about 1,800 words at the reference's m_eff) are shared by every key
+// of the launch and stay cached, and staging them in shared memory
+// measured slower (PERF.md §6).
 //
 // Numerics match the JAX reference on XLA:CPU bit for bit: the
 // interpolation p0 + t*(p1-p0) is the fused multiply-add XLA contracts it
@@ -41,7 +45,7 @@
 
 namespace {
 
-template <int G, bool STAGED>
+template <int G, bool STAGED, bool TWO_LEVEL>
 __global__ void __launch_bounds__(1024) spline_search_kernel(
     const float* __restrict__ q, int nq,
     const float* __restrict__ knot_keys, const float* __restrict__ knot_pos,
@@ -129,25 +133,40 @@ __global__ void __launch_bounds__(1024) spline_search_kernel(
   int start = static_cast<int>(rintf(phat)) - probe / 2;
   start = min(max(start, 0), n_pad - probe);
 
-  // exact lower bound by compare-count over the probe window: G
-  // consecutive keys per load instruction, four loads in flight
+  // exact lower bound by compare-count over the probe window
   const float* row = keys_f + static_cast<size_t>(c) * n_pad + start;
   int pos = start;
-  for (int b = 0; b < probe; b += 4 * G) {
-    float v[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int i = b + u * G + lane;
-      v[u] = i < probe ? row[i] : qv;  // qv < qv is false: not counted
+  const int n1 = (probe + G - 1) / G;
+  if (TWO_LEVEL && n1 <= G) {
+    // the row is sorted: count the window's every G-th key below q
+    // (c1), then the G keys from sample c1 - 1 on; all before them are
+    // below q, all from sample c1 on are not
+    const float s1 = lane < n1 ? row[lane * G] : qv;
+    const int c1 = __popc(__ballot_sync(gmask, s1 < qv) & gmask);
+    if (c1 > 0) {
+      const int b = (c1 - 1) * G;
+      const int i = b + lane;
+      const float v = i < probe ? row[i] : qv;
+      pos += b + __popc(__ballot_sync(gmask, v < qv) & gmask);
     }
+  } else {
+    // G consecutive keys per load instruction, eight loads in flight
+    for (int b = 0; b < probe; b += 8 * G) {
+      float v[8];
 #pragma unroll
-    for (int u = 0; u < 4; ++u)
-      pos += __popc(__ballot_sync(gmask, v[u] < qv) & gmask);
+      for (int u = 0; u < 8; ++u) {
+        const int i = b + u * G + lane;
+        v[u] = i < probe ? row[i] : qv;  // qv < qv is false: not counted
+      }
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        pos += __popc(__ballot_sync(gmask, v[u] < qv) & gmask);
+    }
   }
   if (lane == 0) out[static_cast<size_t>(c) * nq + qi] = min(pos, cap);
 }
 
-template <int G, bool STAGED>
+template <int G, bool STAGED, bool TWO_LEVEL>
 int launch(int threads, size_t smem, const float* q, int nq,
            const float* knot_keys, const float* knot_pos, int m,
            const int* radix_table, int r, const float* kmin,
@@ -156,13 +175,13 @@ int launch(int threads, size_t smem, const float* q, int nq,
            int radix_bits, int* out, cudaStream_t stream) {
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        spline_search_kernel<G, STAGED>,
+        spline_search_kernel<G, STAGED, TWO_LEVEL>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const int per_block = threads / G;
   const dim3 grid((nq + per_block - 1) / per_block, n_parts);
-  spline_search_kernel<G, STAGED><<<grid, threads, smem, stream>>>(
+  spline_search_kernel<G, STAGED, TWO_LEVEL><<<grid, threads, smem, stream>>>(
       q, nq, knot_keys, knot_pos, m, radix_table, r, kmin, scale, n_knots,
       count, keys_f, n_pad, probe, radix_bits, out);
   return static_cast<int>(cudaGetLastError());
@@ -173,8 +192,10 @@ int launch(int threads, size_t smem, const float* q, int nq,
 // Launch on `stream`. Shapes: q (nq,); knot_keys/knot_pos (n_parts, m);
 // radix_table (n_parts, r); kmin/scale/n_knots/count (n_parts,);
 // keys_f (n_parts, n_pad); out (n_parts, nq). Returns cudaGetLastError().
-// variant: 0 = 32 lanes per key, 1 = 16 lanes per key, 2 = 32 lanes per
-// key with the knot and radix rows staged in shared memory.
+// variant (lanes per key, threads per block, probe): 0 = 16, 256,
+// two-level; 1 = 32, 256, two-level; 2 = 32, 1024, full with the knot
+// and radix rows staged in shared memory; 3 = 32, 1024, full; 4 = 32,
+// 256, full.
 REPRO_EXPORT int spline_search_launch(
     const float* q, int nq, const float* knot_keys, const float* knot_pos,
     int m, const int* radix_table, int r, const float* kmin,
@@ -183,17 +204,18 @@ REPRO_EXPORT int spline_search_launch(
     int* out, void* stream, int variant) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t staged = (2 * static_cast<size_t>(m) + r) * sizeof(float);
-  if (variant == 2 && staged <= 200 * 1024)
-    return launch<32, true>(1024, staged, q, nq, knot_keys, knot_pos, m,
-                            radix_table, r, kmin, scale, n_knots, count,
-                            keys_f, n_pad, n_parts, probe, radix_bits, out,
-                            s);
-  if (variant == 1)
-    return launch<16, false>(256, 0, q, nq, knot_keys, knot_pos, m,
-                             radix_table, r, kmin, scale, n_knots, count,
-                             keys_f, n_pad, n_parts, probe, radix_bits, out,
-                             s);
-  return launch<32, false>(256, 0, q, nq, knot_keys, knot_pos, m,
-                           radix_table, r, kmin, scale, n_knots, count,
-                           keys_f, n_pad, n_parts, probe, radix_bits, out, s);
+#define REPRO_SS_ARGS                                                     \
+  q, nq, knot_keys, knot_pos, m, radix_table, r, kmin, scale, n_knots,     \
+      count, keys_f, n_pad, n_parts, probe, radix_bits, out, s
+  switch (variant) {
+    case 1: return launch<32, false, true>(256, 0, REPRO_SS_ARGS);
+    case 2:
+      if (staged <= 200 * 1024)
+        return launch<32, true, false>(1024, staged, REPRO_SS_ARGS);
+      return launch<32, false, false>(1024, 0, REPRO_SS_ARGS);
+    case 3: return launch<32, false, false>(1024, 0, REPRO_SS_ARGS);
+    case 4: return launch<32, false, false>(256, 0, REPRO_SS_ARGS);
+    default: return launch<16, false, true>(256, 0, REPRO_SS_ARGS);
+  }
+#undef REPRO_SS_ARGS
 }

@@ -5,16 +5,18 @@ Replaces the Pallas TPU kernel ``src/repro/kernels/knn_topk.py``
 ``csrc/knn_topk.cu``. Bound: operations (a distance per query-point
 pair; the points are shared by every query).
 
-One launch covers a chunk of partitions. A block of 8 warps holds up to
-64 queries and one slice of a partition's points, which it copies into
-shared memory a tile at a time (``cp.async``, double-buffered); each
-warp keeps its queries' k-lists in registers spread over its lanes and
-rejects a point with one compare against the list's k-th. The launcher
-splits the point axis into as many slices as fill the card in one wave
-(``plan``, from the occupancy of the kernel instance, nq, the number of
-partitions and ``n_pad``; never from ``count``, which lies on the card),
-and the last block of each (query block, partition) merges the slices'
-lists by (d^2, position) in the same launch, so the result is the plain
+One launch covers a chunk of partitions. A block of 16 warps holds up
+to 64 queries and one slice of a partition's points, copied into shared
+memory once (``cp.async``). Each warp scans the slice in a scattered
+order (the rows are in Morton order, which brings a query's neighbours
+in a run of ever closer points, each a new entry) and keeps its
+queries' k-lists in registers spread over its lanes, rejecting a point
+with one compare against the list's k-th. The launcher splits the point
+axis into as many slices as fill the card in one wave (``plan``: from
+the kernel instance's occupancy, nq, the number of partitions and
+``n_pad``; never from ``count``, which lies on the card), and the last
+block of each (query block, partition) merges the slices' lists by
+(d^2, position) in the same launch, so the result is the plain
 version's bit for bit wherever the slice borders fall.
 """
 from __future__ import annotations
@@ -108,8 +110,9 @@ def knn_topk(qx, qy, count, x, y, *, k: int):
 def plan(nq: int, n_pad: int, n_parts: int, k: int, device) -> tuple:
     """The kernel's launch plan on a CUDA ``device``: (queries per warp,
     query blocks, slices per partition, points per slice). The slices
-    are as many as keep one launch's blocks resident at once, at least
-    one 1,024-point tile each. Host arithmetic only (no device read)."""
+    are as many as keep one launch's blocks resident at once, with
+    4,096 to 12,288 points each. Host arithmetic only (no device
+    read)."""
     dev = torch.device(device)
     key = (nq, n_pad, n_parts, k, dev.index)
     got = _plans.get(key)

@@ -2,15 +2,21 @@
 
 Replaces the Pallas TPU kernel ``src/repro/kernels/spline_search.py``
 (``spline_search``; wrapper ``kernels/ops.py:spline_search``). Source:
-``csrc/spline_search.cu``. One launch covers a chunk of partitions (grid:
-query blocks x partitions); each block stages its partition's knot and
-radix rows in shared memory. Bound: bytes (the probe windows).
+``csrc/spline_search.cu``. One launch covers a chunk of partitions; a
+group of 16 lanes works on each (query key, partition): lane 0 reads the
+radix row, the group locates the segment with a ballot over the knot
+window, and counts the probe window's keys below q in two levels (every
+16th key, then the 16 after the last one below), with coalesced loads.
+Bound: latency (four dependent reads per key) and the launch; the byte
+bound is far below either.
 
 The plain version is the whole learned search on torch tensors: radix
 bucket -> knot window -> segment -> interpolation -> round -> a
 ``probe``-wide compare-count. ``probe`` (fixed at build from eps and the
 longest duplicate-key run) keeps the true lower bound inside every probe
-window, so the windowed compare-count reproduces ``searchsorted``.
+window, so the windowed compare-count reproduces ``searchsorted``. The
+kernel's two-level count relies on each ``keys_f`` row being sorted, as
+the index builds it (padding 3e38 past the count).
 
 Bitwise notes: the interpolation ``p0 + t*(p1 - p0)`` is the FMA that
 XLA:CPU contracts it to (``fma_f32``); ``torch.round`` rounds half to

@@ -234,7 +234,7 @@ def test_gpu_knn_topk_ties_across_slices(cuda, nq, k):
     rng = np.random.default_rng(nq + k)
     c, n_pad = 8, 30000
     qw, qblocks, slices, slice_len = t_knn.plan(nq, n_pad, c, k, cuda)
-    assert slices > 1 and qw * 8 * qblocks >= nq
+    assert slices > 1 and slices * slice_len >= n_pad
     x, y, count = _knn_rows(rng, c, n_pad, slice_len)
     qx = rng.random(nq).astype(np.float32)
     qy = rng.random(nq).astype(np.float32)
