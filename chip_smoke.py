@@ -70,7 +70,13 @@ result line):
               run's inputs (bytes over 3.35 TB/s, or operations over 67
               TFLOP/s for float32 and 16.7 TOP/s for int32, whichever is
               larger). ``launches`` counts every path this script drives
-              (main, serve, morton).
+              (main, serve, morton). spline_search is also held equal to
+              torch.searchsorted (its library call) on every chunk, with
+              the floor of as many one-element PyTorch launches beside
+              it; knn_topk is also held bitwise and timed at the serving
+              fallback's shape (SERVE_Q queries on the same chunks), with
+              its launch plans; each kernel instance's ptxas registers,
+              stack and spills go to the report.
 
 Device busy time and idle share come from torch.profiler traces; each
 trace is checked against the wrappers' launch counts (``traced``): a
@@ -885,22 +891,6 @@ def main() -> int:
         require(torch.equal(SS.spline_search(*a, **kw),
                             torch.searchsorted(*la).to(torch.int32)),
                 "spline_search vs torch.searchsorted")
-    # the launcher's variants, each bitwise, timed in turns (a b c c b a)
-    variants = {0: "g16_two_level", 1: "g32_two_level",
-                2: "g32_full_staged_1024", 3: "g32_full_1024",
-                4: "g32_full_256"}
-    v_ms = {n: [] for n in variants.values()}
-    for v in (0, 1, 2, 3, 4, 4, 3, 2, 1, 0):
-        SS.VARIANT = v
-        for a in ss_args:
-            require(torch.equal(SS.spline_search(*a, **kw),
-                                SS.spline_search_plain(*a, **kw)),
-                    f"spline_search variant {v} vs plain")
-        v_ms[variants[v]].append(
-            stream_ms(sweep(SS.spline_search, ss_args, **kw), 20))
-    SS.VARIANT = 0
-    v_ms = {n: sum(t) / len(t) for n, t in v_ms.items()}
-    log(f"[kernel] spline_search variants, ms per call: {v_ms}")
     # the floor that one launch per chunk puts on a call: as many
     # one-element PyTorch kernels, back to back
     one = torch.zeros(1, device=dev)
@@ -918,8 +908,7 @@ def main() -> int:
                   covered(st, st + probe, n_pad) + p_total * nq2)
     entry("spline_search", err, t, pt, nbytes,
           p_total * nq2 * (probe + 16), lt, "range_count_1024",
-          extra={"library_equal": True, "variants_ms": v_ms,
-                 "launch_floor_ms": floor_ms})
+          extra={"library_equal": True, "launch_floor_ms": floor_ms})
 
     # range_count: every chunk. Bytes: the rects, bounds and flags, x and
     # y over the union of the active [s, min(e, count)) intervals, the

@@ -86,10 +86,7 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
                "l"(src));
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
+// waits for every cp.async this thread issued (an implicit commit)
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::);
 }
@@ -209,7 +206,6 @@ __global__ void __launch_bounds__(kThreads) knn_topk_kernel(
     cp_async4(s_x + i, px + i);
     cp_async4(s_y + i, py + i);
   }
-  cp_async_commit();
 
   // per query: the list's k-th entry (kd, kp), the same on every lane;
   // a point is a candidate when d^2 <= kd (equal d^2 may still win on a

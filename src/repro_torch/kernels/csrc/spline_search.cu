@@ -12,7 +12,7 @@
 // reach, and one launch per chunk of partitions puts the launch's own
 // cost (a few microseconds) on every chunk.
 //
-// Design: a group of G = 16 lanes (half a warp) works on one (query
+// Design: a group of 16 lanes (half a warp) works on one (query
 // key, partition) pair, so a launch holds nq x n_parts groups instead
 // of one thread each:
 //   - lane 0 reads the radix row at the key's bucket and broadcasts the
@@ -21,14 +21,14 @@
 //     usual case), lane i reads knot lo - 1 + i once: a ballot/__popc
 //     over the group counts the knots below the key (the segment), and
 //     the segment's two knots come from the lanes that hold them by
-//     shuffle; a wider window is counted in strides of G;
+//     shuffle; a wider window is counted in strides of 16;
 //   - every lane computes the same interpolation (a warp-uniform
 //     instruction costs what one lane's does, and needs no shuffle);
 //   - the probe window is sorted, so its compare-count is taken in two
-//     levels: the group counts the window's every G-th key below q
-//     (one load per lane), then the G keys after the last such sample
-//     (one coalesced load); a window wider than G * G keys is read
-//     whole, G keys per load and eight loads in flight. Both count with
+//     levels: the group counts the window's every 16th key below q
+//     (one load per lane), then the 16 keys after the last such sample
+//     (one coalesced load); a window wider than 16 * 16 keys is read
+//     whole, 16 keys per load and eight loads in flight. Both count with
 //     __popc(__ballot_sync(...)). At the reference's probe of 256 keys
 //     the two levels read 18 sectors of 32 bytes instead of 32.
 // The knot and radix rows are read through L1: a partition's rows
@@ -45,8 +45,10 @@
 
 namespace {
 
-template <int G, bool STAGED, bool TWO_LEVEL>
-__global__ void __launch_bounds__(1024) spline_search_kernel(
+constexpr int kGroup = 16;     // lanes per (key, partition): half a warp
+constexpr int kThreads = 256;  // threads per block
+
+__global__ void __launch_bounds__(kThreads) spline_search_kernel(
     const float* __restrict__ q, int nq,
     const float* __restrict__ knot_keys, const float* __restrict__ knot_pos,
     int m, const int* __restrict__ radix_table, int r,
@@ -54,32 +56,15 @@ __global__ void __launch_bounds__(1024) spline_search_kernel(
     const int* __restrict__ n_knots, const int* __restrict__ count,
     const float* __restrict__ keys_f, int n_pad, int probe, int radix_bits,
     int* __restrict__ out) {
-  static_assert(G == 16 || G == 32, "a group is a warp or half of one");
-  extern __shared__ float smem[];
   const int c = blockIdx.y;
   const float* kk = knot_keys + static_cast<size_t>(c) * m;
   const float* kp = knot_pos + static_cast<size_t>(c) * m;
   const int* rt = radix_table + static_cast<size_t>(c) * r;
-  if (STAGED) {
-    float* s_kk = smem;
-    float* s_kp = smem + m;
-    int* s_rt = reinterpret_cast<int*>(smem + 2 * m);
-    for (int i = threadIdx.x; i < m; i += blockDim.x) {
-      s_kk[i] = kk[i];
-      s_kp[i] = kp[i];
-    }
-    for (int i = threadIdx.x; i < r; i += blockDim.x) s_rt[i] = rt[i];
-    __syncthreads();
-    kk = s_kk;
-    kp = s_kp;
-    rt = s_rt;
-  }
-  const int lane = threadIdx.x % G;
-  const int qi = blockIdx.x * (blockDim.x / G) + threadIdx.x / G;
+  const int lane = threadIdx.x % kGroup;
+  const int qi = blockIdx.x * (blockDim.x / kGroup) + threadIdx.x / kGroup;
   if (qi >= nq) return;  // the whole group leaves together
-  // this group's lanes in the warp (a warp holds 32 / G groups)
-  const unsigned gmask =
-      G == kWarp ? kFullMask : 0xffffu << ((threadIdx.x % kWarp) & 16u);
+  // this group's half of the warp
+  const unsigned gmask = 0xffffu << ((threadIdx.x % kWarp) & kGroup);
   const float qv = q[qi];
 
   // radix locate (lane 0): bucket j, knot window [lo, hi]
@@ -92,13 +77,13 @@ __global__ void __launch_bounds__(1024) spline_search_kernel(
     hi = min(max(rt[j + 1], lo), max(n_knots[c] - 1, 0));
     cap = count[c];
   }
-  lo = __shfl_sync(gmask, lo, 0, G);
-  hi = __shfl_sync(gmask, hi, 0, G);
+  lo = __shfl_sync(gmask, lo, 0, kGroup);
+  hi = __shfl_sync(gmask, hi, 0, kGroup);
 
   // segment locate: the knots of [lo, hi] below the key, counted by the
   // group; then the segment's end knots
   float k0, k1, p0, p1;
-  if (hi - lo + 3 <= G) {
+  if (hi - lo + 3 <= kGroup) {
     // lane i holds knot lo - 1 + i: the window and both neighbours
     const int i = lo - 1 + lane;
     const int ic = min(max(i, 0), m - 1);
@@ -107,13 +92,13 @@ __global__ void __launch_bounds__(1024) spline_search_kernel(
         __ballot_sync(gmask, i >= lo && i <= hi && kv < qv) & gmask;
     const int seg = max(lo + __popc(below) - 1, 0);
     const int seg1 = min(seg + 1, m - 1);
-    k0 = __shfl_sync(gmask, kv, seg - lo + 1, G);
-    p0 = __shfl_sync(gmask, pv, seg - lo + 1, G);
-    k1 = __shfl_sync(gmask, kv, seg1 - lo + 1, G);
-    p1 = __shfl_sync(gmask, pv, seg1 - lo + 1, G);
+    k0 = __shfl_sync(gmask, kv, seg - lo + 1, kGroup);
+    p0 = __shfl_sync(gmask, pv, seg - lo + 1, kGroup);
+    k1 = __shfl_sync(gmask, kv, seg1 - lo + 1, kGroup);
+    p1 = __shfl_sync(gmask, pv, seg1 - lo + 1, kGroup);
   } else {
     int succ = lo;
-    for (int b = lo; b <= hi; b += G) {
+    for (int b = lo; b <= hi; b += kGroup) {
       const int i = b + lane;
       succ += __popc(__ballot_sync(gmask, i <= hi && kk[i] < qv) & gmask);
     }
@@ -136,26 +121,26 @@ __global__ void __launch_bounds__(1024) spline_search_kernel(
   // exact lower bound by compare-count over the probe window
   const float* row = keys_f + static_cast<size_t>(c) * n_pad + start;
   int pos = start;
-  const int n1 = (probe + G - 1) / G;
-  if (TWO_LEVEL && n1 <= G) {
-    // the row is sorted: count the window's every G-th key below q
-    // (c1), then the G keys from sample c1 - 1 on; all before them are
+  const int n1 = (probe + kGroup - 1) / kGroup;
+  if (n1 <= kGroup) {
+    // the row is sorted: count the window's every kGroup-th key below
+    // q (c1), then the kGroup keys from sample c1 - 1 on; all before them are
     // below q, all from sample c1 on are not
-    const float s1 = lane < n1 ? row[lane * G] : qv;
+    const float s1 = lane < n1 ? row[lane * kGroup] : qv;
     const int c1 = __popc(__ballot_sync(gmask, s1 < qv) & gmask);
     if (c1 > 0) {
-      const int b = (c1 - 1) * G;
+      const int b = (c1 - 1) * kGroup;
       const int i = b + lane;
       const float v = i < probe ? row[i] : qv;
       pos += b + __popc(__ballot_sync(gmask, v < qv) & gmask);
     }
   } else {
-    // G consecutive keys per load instruction, eight loads in flight
-    for (int b = 0; b < probe; b += 8 * G) {
+    // kGroup consecutive keys per load, eight loads in flight
+    for (int b = 0; b < probe; b += 8 * kGroup) {
       float v[8];
 #pragma unroll
       for (int u = 0; u < 8; ++u) {
-        const int i = b + u * G + lane;
+        const int i = b + u * kGroup + lane;
         v[u] = i < probe ? row[i] : qv;  // qv < qv is false: not counted
       }
 #pragma unroll
@@ -166,56 +151,23 @@ __global__ void __launch_bounds__(1024) spline_search_kernel(
   if (lane == 0) out[static_cast<size_t>(c) * nq + qi] = min(pos, cap);
 }
 
-template <int G, bool STAGED, bool TWO_LEVEL>
-int launch(int threads, size_t smem, const float* q, int nq,
-           const float* knot_keys, const float* knot_pos, int m,
-           const int* radix_table, int r, const float* kmin,
-           const float* scale, const int* n_knots, const int* count,
-           const float* keys_f, int n_pad, int n_parts, int probe,
-           int radix_bits, int* out, cudaStream_t stream) {
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        spline_search_kernel<G, STAGED, TWO_LEVEL>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const int per_block = threads / G;
-  const dim3 grid((nq + per_block - 1) / per_block, n_parts);
-  spline_search_kernel<G, STAGED, TWO_LEVEL><<<grid, threads, smem, stream>>>(
-      q, nq, knot_keys, knot_pos, m, radix_table, r, kmin, scale, n_knots,
-      count, keys_f, n_pad, probe, radix_bits, out);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 // Launch on `stream`. Shapes: q (nq,); knot_keys/knot_pos (n_parts, m);
 // radix_table (n_parts, r); kmin/scale/n_knots/count (n_parts,);
-// keys_f (n_parts, n_pad); out (n_parts, nq). Returns cudaGetLastError().
-// variant (lanes per key, threads per block, probe): 0 = 16, 256,
-// two-level; 1 = 32, 256, two-level; 2 = 32, 1024, full with the knot
-// and radix rows staged in shared memory; 3 = 32, 1024, full; 4 = 32,
-// 256, full.
+// keys_f (n_parts, n_pad), each row sorted; out (n_parts, nq). Returns
+// cudaGetLastError().
 REPRO_EXPORT int spline_search_launch(
     const float* q, int nq, const float* knot_keys, const float* knot_pos,
     int m, const int* radix_table, int r, const float* kmin,
     const float* scale, const int* n_knots, const int* count,
     const float* keys_f, int n_pad, int n_parts, int probe, int radix_bits,
-    int* out, void* stream, int variant) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t staged = (2 * static_cast<size_t>(m) + r) * sizeof(float);
-#define REPRO_SS_ARGS                                                     \
-  q, nq, knot_keys, knot_pos, m, radix_table, r, kmin, scale, n_knots,     \
-      count, keys_f, n_pad, n_parts, probe, radix_bits, out, s
-  switch (variant) {
-    case 1: return launch<32, false, true>(256, 0, REPRO_SS_ARGS);
-    case 2:
-      if (staged <= 200 * 1024)
-        return launch<32, true, false>(1024, staged, REPRO_SS_ARGS);
-      return launch<32, false, false>(1024, 0, REPRO_SS_ARGS);
-    case 3: return launch<32, false, false>(1024, 0, REPRO_SS_ARGS);
-    case 4: return launch<32, false, false>(256, 0, REPRO_SS_ARGS);
-    default: return launch<16, false, true>(256, 0, REPRO_SS_ARGS);
-  }
-#undef REPRO_SS_ARGS
+    int* out, void* stream) {
+  constexpr int per_block = kThreads / kGroup;
+  const dim3 grid((nq + per_block - 1) / per_block, n_parts);
+  spline_search_kernel<<<grid, kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+          q, nq, knot_keys, knot_pos, m, radix_table, r, kmin, scale,
+          n_knots, count, keys_f, n_pad, probe, radix_bits, out);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -34,8 +34,7 @@ from repro_torch.kernels._args import I, P, on_cpu, ptr, stream
 launches = 0        # kernel launches (not plain-version calls)
 
 _SIG = {"spline_search_launch": [P, I, P, P, I, P, I, P, P, P, P, P, I,
-                                 I, I, I, P, P, I]}
-VARIANT = 0         # launcher variant under measurement (see the .cu)
+                                 I, I, I, P, P]}
 
 _TINY = float(np.float32(1e-30))     # jnp.maximum(.., 1e-30) in float32
 
@@ -133,8 +132,7 @@ def spline_search(q, knot_keys, knot_pos, radix_table, keys_f, kmin,
     qp, kk, kp, rt, km, sc, nk, cn, kf = ptrs
     err = lib.spline_search_launch(qp, nq, kk, kp, m, rt, r, km, sc, nk, cn,
                                    kf, n_pad, c, probe, radix_bits,
-                                   ptr(out, "out", i32, (c, nq)), stream(),
-                                   VARIANT)
+                                   ptr(out, "out", i32, (c, nq)), stream())
     _build.check(lib, "spline_search", err)
     global launches
     launches += 1
