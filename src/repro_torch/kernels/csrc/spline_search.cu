@@ -17,20 +17,17 @@
 // of one thread each:
 //   - lane 0 reads the radix row at the key's bucket and broadcasts the
 //     knot window [lo, hi] with a shuffle;
-//   - when the window and its two neighbours fit in the group (the
-//     usual case), lane i reads knot lo - 1 + i once: a ballot/__popc
-//     over the group counts the knots below the key (the segment), and
-//     the segment's two knots come from the lanes that hold them by
-//     shuffle; a wider window is counted in strides of 16;
+//   - the group counts the window's knots below the key in strides of 16
+//     (one coalesced load per lane and a ballot/__popc per stride),
+//     which gives the segment;
 //   - every lane computes the same interpolation (a warp-uniform
 //     instruction costs what one lane's does, and needs no shuffle);
 //   - the probe window is sorted, so its compare-count is taken in two
-//     levels: the group counts the window's every 16th key below q
-//     (one load per lane), then the 16 keys after the last such sample
-//     (one coalesced load); a window wider than 16 * 16 keys is read
-//     whole, 16 keys per load and eight loads in flight. Both count with
-//     __popc(__ballot_sync(...)). At the reference's probe of 256 keys
-//     the two levels read 18 sectors of 32 bytes instead of 32.
+//     levels: the group counts the window's samples at stride
+//     s = ceil(probe / 16) below q (one load per lane), then the s keys
+//     after the last such sample (ceil(s / 16) coalesced loads). Both
+//     count with __popc(__ballot_sync(...)). At the reference's probe of
+//     256 keys the two levels read 18 sectors of 32 bytes instead of 32.
 // The knot and radix rows are read through L1: a partition's rows
 // (about 1,800 words at the reference's m_eff) are shared by every key
 // of the launch and stay cached, and staging them in shared memory
@@ -81,34 +78,15 @@ __global__ void __launch_bounds__(kThreads) spline_search_kernel(
   hi = __shfl_sync(gmask, hi, 0, kGroup);
 
   // segment locate: the knots of [lo, hi] below the key, counted by the
-  // group; then the segment's end knots
-  float k0, k1, p0, p1;
-  if (hi - lo + 3 <= kGroup) {
-    // lane i holds knot lo - 1 + i: the window and both neighbours
-    const int i = lo - 1 + lane;
-    const int ic = min(max(i, 0), m - 1);
-    const float kv = kk[ic], pv = kp[ic];
-    const unsigned below =
-        __ballot_sync(gmask, i >= lo && i <= hi && kv < qv) & gmask;
-    const int seg = max(lo + __popc(below) - 1, 0);
-    const int seg1 = min(seg + 1, m - 1);
-    k0 = __shfl_sync(gmask, kv, seg - lo + 1, kGroup);
-    p0 = __shfl_sync(gmask, pv, seg - lo + 1, kGroup);
-    k1 = __shfl_sync(gmask, kv, seg1 - lo + 1, kGroup);
-    p1 = __shfl_sync(gmask, pv, seg1 - lo + 1, kGroup);
-  } else {
-    int succ = lo;
-    for (int b = lo; b <= hi; b += kGroup) {
-      const int i = b + lane;
-      succ += __popc(__ballot_sync(gmask, i <= hi && kk[i] < qv) & gmask);
-    }
-    const int seg = max(succ - 1, 0);
-    const int seg1 = min(seg + 1, m - 1);
-    k0 = kk[seg];
-    k1 = kk[seg1];
-    p0 = kp[seg];
-    p1 = kp[seg1];
+  // group in strides of its width; then the segment's end knots
+  int succ = lo;
+  for (int b = lo; b <= hi; b += kGroup) {
+    const int i = b + lane;
+    succ += __popc(__ballot_sync(gmask, i <= hi && kk[i] < qv) & gmask);
   }
+  const int seg = max(succ - 1, 0);
+  const int seg1 = min(seg + 1, m - 1);
+  const float k0 = kk[seg], k1 = kk[seg1], p0 = kp[seg], p1 = kp[seg1];
 
   // interpolation (FMA, as XLA:CPU contracts it) and probe start; every
   // lane computes the same values
@@ -118,34 +96,25 @@ __global__ void __launch_bounds__(kThreads) spline_search_kernel(
   int start = static_cast<int>(rintf(phat)) - probe / 2;
   start = min(max(start, 0), n_pad - probe);
 
-  // exact lower bound by compare-count over the probe window
+  // exact lower bound by compare-count over the sorted probe window, in
+  // two levels: the group counts the samples row[l * stride] below q
+  // (c1 of at most kGroup), then the stride keys from sample c1 - 1 on,
+  // kGroup per load; all keys before them are below q, all from sample
+  // c1 on are not
   const float* row = keys_f + static_cast<size_t>(c) * n_pad + start;
+  const int stride = (probe + kGroup - 1) / kGroup;
+  const int si = lane * stride;
+  const float s1 = si < probe ? row[si] : qv;  // qv < qv: not counted
+  const int c1 = __popc(__ballot_sync(gmask, s1 < qv) & gmask);
   int pos = start;
-  const int n1 = (probe + kGroup - 1) / kGroup;
-  if (n1 <= kGroup) {
-    // the row is sorted: count the window's every kGroup-th key below
-    // q (c1), then the kGroup keys from sample c1 - 1 on; all before them are
-    // below q, all from sample c1 on are not
-    const float s1 = lane < n1 ? row[lane * kGroup] : qv;
-    const int c1 = __popc(__ballot_sync(gmask, s1 < qv) & gmask);
-    if (c1 > 0) {
-      const int b = (c1 - 1) * kGroup;
-      const int i = b + lane;
-      const float v = i < probe ? row[i] : qv;
-      pos += b + __popc(__ballot_sync(gmask, v < qv) & gmask);
-    }
-  } else {
-    // kGroup consecutive keys per load, eight loads in flight
-    for (int b = 0; b < probe; b += 8 * kGroup) {
-      float v[8];
-#pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        const int i = b + u * kGroup + lane;
-        v[u] = i < probe ? row[i] : qv;  // qv < qv is false: not counted
-      }
-#pragma unroll
-      for (int u = 0; u < 8; ++u)
-        pos += __popc(__ballot_sync(gmask, v[u] < qv) & gmask);
+  if (c1 > 0) {
+    const int b = (c1 - 1) * stride;
+    const int e = min(b + stride, probe);
+    pos += b;
+    for (int o = b; o < e; o += kGroup) {
+      const int i = o + lane;
+      const float v = i < e ? row[i] : qv;
+      pos += __popc(__ballot_sync(gmask, v < qv) & gmask);
     }
   }
   if (lane == 0) out[static_cast<size_t>(c) * nq + qi] = min(pos, cap);

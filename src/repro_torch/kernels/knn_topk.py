@@ -35,7 +35,6 @@ NEG = -3.0e38       # empty slot value (as the reference's kernel)
 _SIG = {"knn_topk_plan": [I, I, I, I, P],
         "knn_topk_launch": [P, P, P, P, P, I, I, I, I, I, I, I, I, P, P, P,
                             P, P, P, P]}
-_plans: dict = {}   # (nq, n_pad, n_parts, k, device index) -> plan
 
 
 def knn_topk_plain(qx, qy, count, x, y, *, k: int):
@@ -90,8 +89,8 @@ def knn_topk(qx, qy, count, x, y, *, k: int):
     qw, qblocks, slices, slice_len = plan(nq, n_pad, c, k, x.device)
     part_d = torch.empty((c, nq, slices, k), dtype=f32, device=x.device)
     part_p = torch.empty((c, nq, slices, k), dtype=i32, device=x.device)
-    # the best published k-th per (partition, query), and the finished
-    # slices per (partition, query block): both start at zero
+    # the least published k-th per (partition, query), encoded, and the
+    # finished slices per (partition, query block): both from zero
     zeros = torch.zeros(c * (nq + qblocks), dtype=i32, device=x.device)
     err = lib.knn_topk_launch(
         *ptrs, nq, n_pad, c, k, qw, qblocks, slices, slice_len,
@@ -111,18 +110,13 @@ def plan(nq: int, n_pad: int, n_parts: int, k: int, device) -> tuple:
     """The kernel's launch plan on a CUDA ``device``: (queries per warp,
     query blocks, slices per partition, points per slice). The slices
     are as many as keep one launch's blocks resident at once, with
-    4,096 to 12,288 points each. Host arithmetic only (no device
-    read)."""
-    dev = torch.device(device)
-    key = (nq, n_pad, n_parts, k, dev.index)
-    got = _plans.get(key)
-    if got is None:
-        from repro_torch.kernels import _build
-        lib = _build.load("knn_topk", _SIG)
-        out = (ctypes.c_int * 4)()
-        with torch.cuda.device(dev):
-            err = lib.knn_topk_plan(nq, n_pad, n_parts, k,
-                                    ctypes.cast(out, ctypes.c_void_p))
-        _build.check(lib, "knn_topk_plan", err)
-        got = _plans[key] = tuple(out)
-    return got
+    4,096 to 12,288 points each. Host arithmetic and an occupancy query
+    only (no device read); computed anew on every call."""
+    from repro_torch.kernels import _build
+    lib = _build.load("knn_topk", _SIG)
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(torch.device(device)):
+        err = lib.knn_topk_plan(nq, n_pad, n_parts, k,
+                                ctypes.cast(out, ctypes.c_void_p))
+    _build.check(lib, "knn_topk_plan", err)
+    return tuple(out)

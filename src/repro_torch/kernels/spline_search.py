@@ -5,8 +5,9 @@ Replaces the Pallas TPU kernel ``src/repro/kernels/spline_search.py``
 ``csrc/spline_search.cu``. One launch covers a chunk of partitions; a
 group of 16 lanes works on each (query key, partition): lane 0 reads the
 radix row, the group locates the segment with a ballot over the knot
-window, and counts the probe window's keys below q in two levels (every
-16th key, then the 16 after the last one below), with coalesced loads.
+window in strides of 16, and counts the probe window's keys below q in
+two levels (16 samples at stride ceil(probe / 16), then the keys after
+the last sample below q), with coalesced loads.
 Bound: latency (four dependent reads per key) and the launch; the byte
 bound is far below either.
 

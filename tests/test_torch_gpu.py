@@ -107,11 +107,14 @@ def test_gpu_spline_search_wide_knot_row(cuda):
     assert np.array_equal(got[0].cpu().numpy(), want)
 
 
-def test_gpu_spline_search_edge_keys(cuda):
+@pytest.mark.parametrize("run", [40, 400])
+def test_gpu_spline_search_edge_keys(cuda, run):
     """Keys beyond every valid key, below kmin and at long runs of
     duplicate keys, over rows that are full (the window start clamped at
     n_pad - probe), part full, and empty, each bitwise against the plain
-    version and numpy's searchsorted capped at the count."""
+    version and numpy's searchsorted capped at the count. The runs set
+    the probe: 256 keys (the reference index's, one key per sample of
+    the two-level count) and 1,024 (64 keys per sample)."""
     from repro_torch.core.build import fit_partitions, probe_for
 
     rng = np.random.default_rng(4)
@@ -121,17 +124,19 @@ def test_gpu_spline_search_edge_keys(cuda):
     for c, n in enumerate(counts):
         row = np.sort(rng.integers(1000, 1 << 22, n))
         if c == 1:
-            row[500:900] = row[500]           # a run of 400 equal keys
-            row[2000:] = row[2000]            # the row ends in a run
+            row[500:500 + run] = row[500]     # a run of equal keys
+            row[n - run:] = row[n - run]      # the row ends in a run
         keys[c, :n] = np.sort(row)
     fit = fit_partitions(keys, counts, eps=eps, m_pad=512, radix_bits=10)
     probe = probe_for(eps, int(fit["max_run"].max()), n_pad)
-    assert probe >= 512
+    assert probe == {40: 256, 400: 1024}[run]
     valid = np.arange(n_pad)[None, :] < counts[:, None]
     keys_f = np.where(valid, keys.astype(np.float32), np.float32(3.0e38))
+    n1 = counts[1]
     q = np.concatenate([
         keys_f[0, rng.integers(0, n_pad, 300)],
-        keys_f[1, [499, 500, 700, 899, 900, 1999, 2000, 3099]],
+        keys_f[1, [499, 500, 500 + run // 2, 500 + run - 1, 500 + run,
+                   n1 - run - 1, n1 - run, n1 - 1]],
         keys_f[2, ::37],
         rng.integers(0, 1 << 22, 300).astype(np.float32),
         [0.0, 1.0, 999.0, -1.0, -np.inf,                     # below kmin
