@@ -75,8 +75,15 @@ result line):
               the floor of as many one-element PyTorch launches beside
               it; knn_topk is also held bitwise and timed at the serving
               fallback's shape (SERVE_Q queries on the same chunks), with
-              its launch plans; each kernel instance's ptxas registers,
-              stack and spills go to the report.
+              its launch plans; range_count and circle_count must make
+              one launch per chunk on their main-path calls, and report
+              their grid, the spread of their learned intervals
+              (p50/p90/p99/max, each launch's total positions and
+              longest interval), each chunk's device time and, bitwise
+              too, their time at the serving shape; each kernel
+              instance's ptxas registers, stack and spills go to the
+              report (the two count kernels must have no stack and no
+              spills).
 
 Device busy time and idle share come from torch.profiler traces; each
 trace is checked against the wrappers' launch counts (``traced``): a
@@ -200,9 +207,12 @@ def device_profile(fn, reps: int, counts=None) -> dict:
 
 
 # this port's kernels as the trace names them
-OUR_KERNELS = ("spline_search_kernel", "range_count_kernel",
-               "point_probe_kernel", "knn_topk_kernel", "circle_count_kernel",
-               "join_count_kernel", "morton_kernel")
+OUR_KERNELS = ("spline_search_kernel", "interval_count_kernel",
+               "point_probe_kernel", "knn_topk_kernel", "join_count_kernel",
+               "morton_kernel")
+# range_count's and circle_count's instances of the shared interval scan
+RANGE_TRACE = "interval_count_kernel<RectTest>"
+CIRCLE_TRACE = "interval_count_kernel<CircleTest>"
 
 
 def traced(fn, reps: int) -> tuple:
@@ -369,6 +379,142 @@ def range_oracle_ids(x, y, order, xs, rect):
     return np.sort(cand[(y[cand] >= rect[1]) & (y[cand] <= rect[3])])
 
 
+def serve_round(x, y, part, seed, dev):
+    """src/repro/launch/serve.py's make_round at q = SERVE_Q, its inputs
+    on the card."""
+    import torch
+    from repro_torch.core.plan import (CircleQuery, Knn, PointQuery,
+                                       RangeCount, RangeQuery, SpatialJoin)
+    from repro_torch.data import spatial as ds
+    q = SERVE_Q
+    rng = np.random.default_rng(seed)
+    ix = rng.integers(0, len(x), q)
+    rects = ds.random_rects(q, 1e-5, part.bounds, seed=seed, centers=(x, y))
+    polys, ne = ds.random_polygons(max(q // 8, 4), part.bounds, seed=seed)
+    px, py, pr, rc, pl, pn = (
+        torch.as_tensor(np.ascontiguousarray(a), device=dev)
+        for a in (x[ix], y[ix], np.full(q, 0.02, np.float32), rects, polys,
+                  ne))
+    return [(PointQuery(), px, py), (RangeCount(), rc), (RangeQuery(), rc),
+            (CircleQuery(), px, py, pr), (Knn(k=10), px, py),
+            (SpatialJoin(), pl, pn)]
+
+
+def main_inputs(x, y, part):
+    """Phase 5's queries, from seeds: (qx, qy) 512 data points and 512
+    random points; 1,024 rects at selectivity 1e-5; kx, ky the 256 kNN
+    queries; then src/repro/launch/spatial.py's traffic: 256 rects, 256
+    circles of r = 0.01 on data points, 32 polygons."""
+    from repro_torch.data import spatial as ds
+    rng = np.random.default_rng(1)
+    ix = rng.integers(0, len(x), 512)
+    qx = np.concatenate([x[ix], rng.random(512).astype(np.float32)])
+    qy = np.concatenate([y[ix], rng.random(512).astype(np.float32)])
+    rects = ds.random_rects(1024, 1e-5, part.bounds, seed=2, centers=(x, y))
+    kx, ky = qx[256:512], qy[256:512]
+    rq_rects = ds.random_rects(256, 1e-5, part.bounds, seed=3,
+                               centers=(x, y))
+    cix = rng.integers(0, len(x), 256)
+    cx, cy = x[cix], y[cix]
+    cr = np.full(256, 0.01, np.float32)
+    polys, ne = ds.random_polygons(32, part.bounds, seed=4)
+    return qx, qy, rects, kx, ky, rq_rects, cx, cy, cr, polys, ne
+
+
+def full_index(dev):
+    """Phase 4's data, partitioning and index: taxi, N_POINTS points,
+    seed 0, kdtree with N_PARTS partitions. Returns (x, y, part, index,
+    data seconds, build seconds)."""
+    import torch
+    from repro_torch.core import build_index, fit
+    from repro_torch.data import spatial as ds
+    t0 = time.perf_counter()
+    x, y = ds.make("taxi", N_POINTS, seed=0)
+    part = fit("kdtree", x, y, N_PARTS, seed=0)
+    data_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    index = build_index(x, y, part, device=dev)
+    torch.cuda.synchronize()
+    return x, y, part, index, data_s, time.perf_counter() - t0
+
+
+def interval_spread(launches) -> dict:
+    """The learned intervals of one call's launches, each given as (s, e,
+    active, count, n_pad): lengths max(0, min(e, count, n_pad) -
+    max(s, 0)) of the active pairs; their p50/p90/p99/max over the
+    non-empty ones, and each launch's total positions and longest
+    interval."""
+    import torch
+    per_total, per_long, lens = [], [], []
+    for s, e, act, count, n_pad in launches:
+        hi = torch.minimum(e, count[:, None]).clamp(max=n_pad)
+        ln = torch.where(act, (hi - s.clamp(min=0)).clamp(min=0), 0)
+        per_total.append(int(ln.sum()))
+        per_long.append(int(ln.max()) if ln.numel() else 0)
+        lens.append(ln[ln > 0].double())
+    lens = torch.cat(lens)
+    q = torch.tensor([0.5, 0.9, 0.99], dtype=lens.dtype, device=lens.device)
+    q = torch.quantile(lens, q).tolist() if lens.numel() else [0.0] * 3
+    return {"non_empty": int(lens.numel()), "positions": sum(per_total),
+            "p50": q[0], "p90": q[1], "p99": q[2],
+            "max": int(lens.max()) if lens.numel() else 0,
+            "per_launch_positions": per_total, "per_launch_longest": per_long}
+
+
+def ptxas_summary(lines) -> dict:
+    """Registers, stack and spill bytes of every kernel instance in an
+    nvcc -Xptxas -v report's lines."""
+    import re
+    regs = [int(m.group(1)) for ln in lines
+            for m in [re.search(r"Used (\d+) registers", ln)] if m]
+    frames = [tuple(map(int, m.groups())) for ln in lines
+              for m in [re.search(r"(\d+) bytes stack frame, (\d+) bytes "
+                                  r"spill stores, (\d+) bytes spill loads",
+                                  ln)] if m]
+    return {"registers": regs, "stack": [f[0] for f in frames],
+            "spill_stores": [f[1] for f in frames],
+            "spill_loads": [f[2] for f in frames]}
+
+
+def count_launch_args(ex, rects, klo, khi, circ=None) -> list:
+    """The arguments of each range_count launch (``circ`` None) or
+    circle_count launch of one exact call of executor ``ex`` on
+    ``rects`` (circle MBRs) with key bounds ``klo``, ``khi``: one tuple
+    per chunk of ``ex.cfg.part_chunk`` partitions, its learned bounds
+    from the plain backend."""
+    from repro_torch.core import local_ops as L
+    from repro_torch.core import queries as Q
+    from repro_torch.core.backends import TorchBackend
+    kw = dict(radix_bits=ex.index.radix_bits, probe=ex.index.probe)
+    c = ex.cfg.part_chunk
+    overlap = Q.rect_overlaps_box(rects, ex.bounds)
+    mid = () if circ is None else (circ,)
+    out = []
+    for lo, ch in L._chunks(ex.parts, c):
+        s, e = TorchBackend().bounds(ch, klo, khi, **kw)
+        act = overlap[:, lo:lo + c].t().contiguous()
+        out.append((rects, s, e, *mid, act, ch["count"], ch["x"], ch["y"]))
+    return out
+
+
+def interval_ends(args) -> tuple:
+    """(s, hi) over all of ``count_launch_args``' launches, hi =
+    min(e, count) on active pairs and s on the others."""
+    import torch
+    s = torch.cat([a[1] for a in args])
+    hi = torch.cat([torch.where(a[-4], torch.minimum(a[2], a[-3][:, None]),
+                                a[1]) for a in args])
+    return s, hi
+
+
+def first_queries(args, q: int) -> tuple:
+    """A count launch's arguments cut to its first ``q`` queries: the
+    rects (and circles) are query-major, s, e and active pair-major."""
+    rects, s, e, *mid, act, count, x, y = args
+    cut = [rects[:q], s[:, :q], e[:, :q], *(m[:q] for m in mid), act[:, :q]]
+    return (*(t.contiguous() for t in cut), count, x, y)
+
+
 def serve_phase(index, part, x, y, dev) -> tuple:
     """Phase 6: serving mode on ``index`` (see the module docstring).
     Returns (report, {kernel: launches over the steady rounds})."""
@@ -376,39 +522,21 @@ def serve_phase(index, part, x, y, dev) -> tuple:
     from repro_torch import kernels as KERN
     from repro_torch.core import EngineConfig
     from repro_torch.core import local_ops as L
-    from repro_torch.core.plan import (CircleQuery, Knn, PointQuery,
-                                       RangeCount, RangeQuery, SpatialJoin)
+    from repro_torch.core.plan import Knn, RangeQuery, SpatialJoin
     from repro_torch.data import spatial as ds
     from repro_torch.serve import SpatialServeSession
-
-    q = SERVE_Q
-
-    def serve_round(seed):
-        """serve.py's make_round, its inputs on the card."""
-        rng = np.random.default_rng(seed)
-        ix = rng.integers(0, len(x), q)
-        rects = ds.random_rects(q, 1e-5, part.bounds, seed=seed,
-                                centers=(x, y))
-        polys, ne = ds.random_polygons(max(q // 8, 4), part.bounds,
-                                       seed=seed)
-        px, py, pr, rc, pl, pn = (
-            torch.as_tensor(np.ascontiguousarray(a), device=dev)
-            for a in (x[ix], y[ix], np.full(q, 0.02, np.float32), rects,
-                      polys, ne))
-        return [(PointQuery(), px, py), (RangeCount(), rc),
-                (RangeQuery(), rc), (CircleQuery(), px, py, pr),
-                (Knn(k=10), px, py), (SpatialJoin(), pl, pn)]
 
     sess = SpatialServeSession(index, device=DEVICE)
     plain = SpatialServeSession(index, EngineConfig(backend="torch"),
                                 device=DEVICE)
     sx, px_ = sess.executor, plain.executor
-    rounds = [serve_round(seed) for seed in range(SERVE_ROUNDS + 1)]
+    rounds = [serve_round(x, y, part, seed, dev)
+              for seed in range(SERVE_ROUNDS + 1)]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     sess.warmup(rounds[0])
     torch.cuda.synchronize()
-    report = {"q": q, "warmup_s": time.perf_counter() - t0}
+    report = {"q": SERVE_Q, "warmup_s": time.perf_counter() - t0}
     plain.warmup(rounds[0])
     report["tiers_after_warmup"] = {str(k): v for k, v in sx._sticky.items()}
     require(set(sx._sticky) == {("range",), ("circle", False), ("knn", 10),
@@ -622,15 +750,9 @@ def main() -> int:
 
     phase("index")
     # 4. full-size build on the card
-    t0 = time.perf_counter()
-    x, y = ds.make("taxi", N_POINTS, seed=0)
-    part = fit("kdtree", x, y, N_PARTS, seed=0)
-    report["data_s"] = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    index = build_index(x, y, part, device=DEVICE)
-    torch.cuda.synchronize()
-    report["index_build_s"] = time.perf_counter() - t0
+    x, y, part, index, report["data_s"], report["index_build_s"] = \
+        full_index(dev)
     eng = SpatialEngine(index, device=DEVICE)
     ex = eng.executor
     require(eng.backend == BACKEND, "auto backend on the card")
@@ -646,20 +768,9 @@ def main() -> int:
 
     phase("main")
     # 5. the main path, once, with the launch counts around it
-    rng = np.random.default_rng(1)
-    ix = rng.integers(0, N_POINTS, 512)
-    qx = np.concatenate([x[ix], rng.random(512).astype(np.float32)])
-    qy = np.concatenate([y[ix], rng.random(512).astype(np.float32)])
-    rects = ds.random_rects(1024, 1e-5, part.bounds, seed=2, centers=(x, y))
-    kx, ky = qx[256:512], qy[256:512]
+    (qx, qy, rects, kx, ky, rq_rects, cx, cy, cr, polys,
+     ne) = main_inputs(x, y, part)
     k = 10
-    # src/repro/launch/spatial.py's traffic at its default --queries 256
-    rq_rects = ds.random_rects(256, 1e-5, part.bounds, seed=3,
-                               centers=(x, y))
-    cix = rng.integers(0, N_POINTS, 256)
-    cx, cy = x[cix], y[cix]
-    cr = np.full(256, 0.01, np.float32)
-    polys, ne = ds.random_polygons(32, part.bounds, seed=4)
 
     def circle_exact(e):
         return e.executor._circle_exact(e.executor._circle_args((cx, cy, cr)))
@@ -836,7 +947,6 @@ def main() -> int:
     rect_t = torch.as_tensor(rects, device=dev)
     klo, khi = (K.keys_to_f32(v) for v in K.rect_key_range(rect_t, ex.spec))
     q2 = torch.cat([klo, khi + 1.0]).contiguous()
-    overlap = Q.rect_overlaps_box(rect_t, ex.bounds)
     chunks = list(L._chunks(parts, c))
     tb = TorchBackend()
     rows = []
@@ -845,6 +955,37 @@ def main() -> int:
         return lambda: [fn(*a, **kws) for a in arglist]
 
     by_path = {"main": launches, "serve": serve_launches}
+
+    def interval_extra(name, fn, plain, args, lib, call):
+        """range_count's and circle_count's own fields: one launch per
+        chunk on the main path, the grid, the spread of the intervals,
+        each chunk's device time, and ptxas' registers (no stack, no
+        spills)."""
+        per_call = path_launches[call][name]
+        require(per_call == len(chunks),
+                f"{name}: {per_call} launches per call, {len(chunks)} chunks")
+        ptx = ptxas_summary(report["ptxas"][lib])
+        require(ptx["registers"] and not any(
+            ptx["stack"] + ptx["spill_stores"] + ptx["spill_loads"]),
+            f"{lib}: stack or spills {ptx}")
+        spread = interval_spread([(a[1], a[2], a[-4], a[-3], n_pad)
+                                  for a in args])
+        log(f"[{name}] grid {RF.grid(dev)}, intervals p50 {spread['p50']} "
+            f"p90 {spread['p90']} p99 {spread['p99']} max {spread['max']}, "
+            f"ptxas {ptx}")
+        # the serving fallback's shape: the first SERVE_Q queries of the
+        # same chunks, each launch bitwise too
+        narrow = [first_queries(a, SERVE_Q) for a in args]
+        for a in narrow:
+            require(torch.equal(fn(*a), plain(*a)),
+                    f"{name} vs plain at the serving shape")
+        serve_ms = stream_ms(sweep(fn, narrow), 20)
+        return {"launches_per_call": per_call, "grid": RF.grid(dev),
+                "spread": spread, "ptxas": ptx,
+                "per_chunk_ms": [stream_ms(lambda a=a: fn(*a), 20)
+                                 for a in args],
+                "serve_shape_q": SERVE_Q, "serve_shape_ms": serve_ms,
+                "serve_shape_ms_per_launch": serve_ms / len(narrow)}
 
     def entry(name, err, t, pt, nbytes, nops, lt, call, peak_ops=PEAK_F32,
               extra=None):
@@ -913,27 +1054,22 @@ def main() -> int:
     # range_count: every chunk. Bytes: the rects, bounds and flags, x and
     # y over the union of the active [s, min(e, count)) intervals, the
     # output.
-    rc_args, hi_all, s_all = [], [], []
-    for lo, ch in chunks:
-        s, e = tb.bounds(ch, klo, khi, **kw)
-        act = overlap[:, lo:lo + c].t().contiguous()
-        rc_args.append((rect_t, s, e, act, ch["count"], ch["x"], ch["y"]))
-        s_all.append(s)
-        hi_all.append(torch.where(act, torch.minimum(e, ch["count"][:, None]),
-                                  s))
+    rc_args = count_launch_args(ex, rect_t, klo, khi)
     err = 0
     for a in rc_args:
         err = max(err, int((RF.range_count(*a) -
                             RF.range_count_plain(*a)).abs().max()))
-    t = timed(sweep(RF.range_count, rc_args), 50, "range_count_kernel")
+    t = timed(sweep(RF.range_count, rc_args), 50, RANGE_TRACE)
     pt = timed(sweep(RF.range_count_plain, rc_args), 2)
-    s_all, hi_all = torch.cat(s_all), torch.cat(hi_all)
+    s_all, hi_all = interval_ends(rc_args)
     pairs = int((hi_all - s_all).clamp(min=0).sum())
     nq = rect_t.shape[0]
     nbytes = (16 * nq * len(chunks) + 9 * p_total * nq + 4 * p_total +
               8 * covered(s_all, hi_all, n_pad) + 4 * p_total * nq)
     entry("range_count", err, t, pt, nbytes, 4 * pairs, None,
-          "range_count_1024")
+          "range_count_1024", extra=interval_extra(
+              "range_count", RF.range_count, RF.range_count_plain,
+              rc_args, "range_filter", "range_count_1024"))
 
     # point_probe: the first-match and the overflow candidate sets. Bytes:
     # the queries, key/x/y over the union of the windows, the output.
@@ -1004,29 +1140,22 @@ def main() -> int:
     # [s, min(e, count)) intervals, the output; about ten operations per
     # scanned position.
     crect, cklo, ckhi, ccirc = ex._circle_args((cx, cy, cr))
-    c_overlap = Q.rect_overlaps_box(crect, ex.bounds)
-    cc_args, hi_all, s_all = [], [], []
-    for lo, ch in chunks:
-        s, e = tb.bounds(ch, cklo, ckhi, **kw)
-        act = c_overlap[:, lo:lo + c].t().contiguous()
-        cc_args.append((crect, s, e, ccirc, act, ch["count"], ch["x"],
-                        ch["y"]))
-        s_all.append(s)
-        hi_all.append(torch.where(act, torch.minimum(e, ch["count"][:, None]),
-                                  s))
+    cc_args = count_launch_args(ex, crect, cklo, ckhi, ccirc)
     err = 0
     for a in cc_args:
         err = max(err, int((CF.circle_count(*a) -
                             CF.circle_count_plain(*a)).abs().max()))
-    t = timed(sweep(CF.circle_count, cc_args), 20, "circle_count_kernel")
+    t = timed(sweep(CF.circle_count, cc_args), 20, CIRCLE_TRACE)
     pt = timed(sweep(CF.circle_count_plain, cc_args), 1)
-    s_all, hi_all = torch.cat(s_all), torch.cat(hi_all)
+    s_all, hi_all = interval_ends(cc_args)
     pairs = int((hi_all - s_all).clamp(min=0).sum())
     nq = crect.shape[0]
     nbytes = (28 * nq * len(chunks) + 9 * p_total * nq + 4 * p_total +
               8 * covered(s_all, hi_all, n_pad) + 4 * p_total * nq)
     entry("circle_count", err, t, pt, nbytes, 10 * pairs, None,
-          "circle_exact_256")
+          "circle_exact_256", extra=interval_extra(
+              "circle_count", CF.circle_count, CF.circle_count_plain,
+              cc_args, "circle_filter", "circle_exact_256"))
 
     # point_in_polygon (the fused join count): the full join's chunks.
     # Bytes: the polygons, MBRs, bounds and flags, x and y over the union
@@ -1060,8 +1189,10 @@ def main() -> int:
     nbytes = ((8 * e_max + 20) * npg * len(chunks) + 9 * p_total * npg +
               4 * p_total + 8 * covered(s_all, hi_all, n_pad) +
               4 * p_total * npg)
+    # the same interval shape as the two count kernels (ROADMAP §2b)
     entry("point_in_polygon", err, t, pt, nbytes, 8 * in_mbr_edges, None,
-          "join_full_32")
+          "join_full_32", extra={"spread": interval_spread(
+              [(a[3], a[4], a[5], a[6], n_pad) for a in jc_args])})
 
     # morton, at its own entry point (the index build's key step is
     # core/keys.morton_encode, as in the reference): the quantized

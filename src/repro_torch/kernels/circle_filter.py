@@ -3,10 +3,12 @@ wrapper.
 
 Replaces the Pallas TPU kernel ``src/repro/kernels/circle_filter.py``
 (``circle_count``; wrapper ``kernels/ops.py:circle_count``). Source:
-``csrc/circle_filter.cu``. One launch covers a chunk of partitions; a
-warp per (circle, partition) scans only [s, min(e, count)), tests the
-circle's MBR and then the distance, and skips inactive pairs. Bound:
-bytes (8 per scanned position).
+``csrc/circle_filter.cu`` on ``csrc/interval_scan.cuh``, as
+``range_filter``: one launch per chunk of partitions spreads the
+positions of the active [s, min(e, count)) intervals evenly over a grid
+fixed by the card's SM count (``range_filter.grid``); each position
+tests the circle's MBR and then the distance. Bound: bytes (8 per
+scanned position).
 
 Bitwise note: XLA:CPU contracts the reference's ``dx*dx + dy*dy`` into
 ``fma(dx, dx, dy*dy)`` (tests/test_torch_hazards.py measures it), so
@@ -72,3 +74,4 @@ def circle_count(rects, s, e, circ, active, count, x, y):
     global launches
     launches += 1
     return out
+

@@ -8,57 +8,42 @@
 // As range_filter.cu: the TPU kernel scanned the whole partition row
 // under a mask; here a circle touches only [s, min(e, count)), and an
 // inactive (circle, partition) pair (the MBR misses the partition's box)
-// touches nothing and counts 0, as the reference's mask gives.
+// touches nothing and counts 0, as the reference's mask gives. The scan
+// is interval_scan.cuh's, one launch per chunk.
 //
 // The distance is fmaf(dx, dx, dy*dy) <= r*r: XLA:CPU contracts the
 // reference's dx*dx + dy*dy to that FMA. Every step is an explicitly
 // rounded intrinsic, so nvcc cannot contract it another way.
 //
-// One warp per (circle, partition); lanes stride over the interval, so
-// neighbouring lanes read neighbouring coordinates; a shuffle reduction
-// gives the integer count, which is order-independent and so bitwise.
-// Grid: (circle blocks of 8 warps, partitions).
-//
 // Bound: bytes — 8 bytes of coordinates per position in the intervals,
 // against about ten operations each.
-#include "common.cuh"
+#include "interval_scan.cuh"
 
 namespace {
 
-__global__ void circle_count_kernel(
-    const float* __restrict__ rects, const int* __restrict__ s,
-    const int* __restrict__ e, const float* __restrict__ circ,
-    const unsigned char* __restrict__ active,
-    const int* __restrict__ count, const float* __restrict__ x,
-    const float* __restrict__ y, int nq, int n_pad, int* __restrict__ out) {
-  const int w = (blockIdx.x * blockDim.x + threadIdx.x) / kWarp;
-  const int lane = threadIdx.x % kWarp;
-  const int c = blockIdx.y;
-  if (w >= nq) return;  // whole warp leaves together
-  const size_t cq = static_cast<size_t>(c) * nq + w;
-  int acc = 0;
-  if (active[cq]) {
-    const float xl = rects[4 * w], yl = rects[4 * w + 1];
-    const float xh = rects[4 * w + 2], yh = rects[4 * w + 3];
-    const float cx = circ[3 * w], cy = circ[3 * w + 1];
-    const float r = circ[3 * w + 2];
-    const float r2 = __fmul_rn(r, r);
-    const int lo = max(s[cq], 0);
-    const int hi = min(min(e[cq], count[c]), n_pad);
-    const float* px = x + static_cast<size_t>(c) * n_pad;
-    const float* py = y + static_cast<size_t>(c) * n_pad;
-    for (int p = lo + lane; p < hi; p += kWarp) {
-      const float vx = px[p], vy = py[p];
-      if (vx >= xl && vx <= xh && vy >= yl && vy <= yh) {
-        const float dx = __fsub_rn(vx, cx);
-        const float dy = __fsub_rn(vy, cy);
-        acc += __fmaf_rn(dx, dx, __fmul_rn(dy, dy)) <= r2 ? 1 : 0;
-      }
-    }
+struct CircleTest {
+  const float* rects;  // (nq, 4): the circle's MBR
+  const float* circ;   // (nq, 3): cx, cy, r
+  float xl, yl, xh, yh, cx, cy, r2;
+
+  __device__ __forceinline__ void load(int q) {
+    xl = __ldg(rects + 4 * q);
+    yl = __ldg(rects + 4 * q + 1);
+    xh = __ldg(rects + 4 * q + 2);
+    yh = __ldg(rects + 4 * q + 3);
+    cx = __ldg(circ + 3 * q);
+    cy = __ldg(circ + 3 * q + 1);
+    const float r = __ldg(circ + 3 * q + 2);
+    r2 = __fmul_rn(r, r);
   }
-  acc = warp_sum(acc);
-  if (lane == 0) out[cq] = acc;
-}
+
+  __device__ __forceinline__ bool operator()(float vx, float vy) const {
+    if (!(vx >= xl && vx <= xh && vy >= yl && vy <= yh)) return false;
+    const float dx = __fsub_rn(vx, cx);
+    const float dy = __fsub_rn(vy, cy);
+    return __fmaf_rn(dx, dx, __fmul_rn(dy, dy)) <= r2;
+  }
+};
 
 }  // namespace
 
@@ -69,11 +54,7 @@ REPRO_EXPORT int circle_count_launch(
     const unsigned char* active, const int* count, const float* x,
     const float* y, int nq, int n_pad, int n_parts, int* out,
     void* stream) {
-  constexpr int kThreads = 256;
-  constexpr int kQueriesPerBlock = kThreads / kWarp;
-  const dim3 grid((nq + kQueriesPerBlock - 1) / kQueriesPerBlock, n_parts);
-  circle_count_kernel<<<grid, kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      rects, s, e, circ, active, count, x, y, nq, n_pad, out);
-  return static_cast<int>(cudaGetLastError());
+  CircleTest test{rects, circ, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  return interval_scan::launch(test, s, e, active, count, x, y, nq, n_pad,
+                               n_parts, out, stream);
 }

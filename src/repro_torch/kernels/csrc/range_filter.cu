@@ -11,43 +11,30 @@
 // rect misses the partition's box) touches nothing: its count is 0, as
 // the reference's mask gives. The count is the same either way.
 //
-// One warp per (query, partition); lanes stride over the interval, so
-// neighbouring lanes read neighbouring coordinates; a shuffle reduction
-// gives the integer count, which is order-independent and so bitwise.
-// Grid: (query blocks of 8 warps, partitions).
+// The scan is interval_scan.cuh's: the positions of the chunk's
+// intervals spread evenly over a fixed grid, one launch per chunk.
 //
 // Bound: bytes — 8 bytes of coordinates per position in the intervals,
 // four compares each.
-#include "common.cuh"
+#include "interval_scan.cuh"
 
 namespace {
 
-__global__ void range_count_kernel(
-    const float* __restrict__ rects, const int* __restrict__ s,
-    const int* __restrict__ e, const unsigned char* __restrict__ active,
-    const int* __restrict__ count, const float* __restrict__ x,
-    const float* __restrict__ y, int nq, int n_pad, int* __restrict__ out) {
-  const int w = (blockIdx.x * blockDim.x + threadIdx.x) / kWarp;
-  const int lane = threadIdx.x % kWarp;
-  const int c = blockIdx.y;
-  if (w >= nq) return;  // whole warp leaves together
-  const size_t cq = static_cast<size_t>(c) * nq + w;
-  int acc = 0;
-  if (active[cq]) {
-    const float xl = rects[4 * w], yl = rects[4 * w + 1];
-    const float xh = rects[4 * w + 2], yh = rects[4 * w + 3];
-    const int lo = max(s[cq], 0);
-    const int hi = min(min(e[cq], count[c]), n_pad);
-    const float* px = x + static_cast<size_t>(c) * n_pad;
-    const float* py = y + static_cast<size_t>(c) * n_pad;
-    for (int p = lo + lane; p < hi; p += kWarp) {
-      const float vx = px[p], vy = py[p];
-      acc += (vx >= xl && vx <= xh && vy >= yl && vy <= yh) ? 1 : 0;
-    }
+struct RectTest {
+  const float* rects;  // (nq, 4): xl, yl, xh, yh
+  float xl, yl, xh, yh;
+
+  __device__ __forceinline__ void load(int q) {
+    xl = __ldg(rects + 4 * q);
+    yl = __ldg(rects + 4 * q + 1);
+    xh = __ldg(rects + 4 * q + 2);
+    yh = __ldg(rects + 4 * q + 3);
   }
-  acc = warp_sum(acc);
-  if (lane == 0) out[cq] = acc;
-}
+
+  __device__ __forceinline__ bool operator()(float vx, float vy) const {
+    return vx >= xl && vx <= xh && vy >= yl && vy <= yh;
+  }
+};
 
 }  // namespace
 
@@ -58,11 +45,12 @@ REPRO_EXPORT int range_count_launch(
     const unsigned char* active, const int* count, const float* x,
     const float* y, int nq, int n_pad, int n_parts, int* out,
     void* stream) {
-  constexpr int kThreads = 256;
-  constexpr int kQueriesPerBlock = kThreads / kWarp;
-  const dim3 grid((nq + kQueriesPerBlock - 1) / kQueriesPerBlock, n_parts);
-  range_count_kernel<<<grid, kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      rects, s, e, active, count, x, y, nq, n_pad, out);
-  return static_cast<int>(cudaGetLastError());
+  RectTest test{rects, 0.f, 0.f, 0.f, 0.f};
+  return interval_scan::launch(test, s, e, active, count, x, y, nq, n_pad,
+                               n_parts, out, stream);
+}
+
+// The grid every launch on the current device takes, into *blocks.
+REPRO_EXPORT int range_count_grid(int* blocks) {
+  return interval_scan::grid_size(blocks);
 }

@@ -3,11 +3,15 @@ wrapper.
 
 Replaces the Pallas TPU kernel ``src/repro/kernels/range_filter.py``
 (``range_count``; wrapper ``kernels/ops.py:range_count``). Source:
-``csrc/range_filter.cu``. One launch covers a chunk of partitions; a
-warp per (query, partition) scans only [s, min(e, count)), and skips
-inactive pairs. Bound: bytes (8 per scanned position).
+``csrc/range_filter.cu`` on ``csrc/interval_scan.cuh``. One launch
+covers a chunk of partitions: the positions of its active
+[s, min(e, count)) intervals are spread evenly over a grid fixed by the
+card's SM count (``grid``), so the longest interval no longer sets the
+launch's time. Bound: bytes (8 per scanned position).
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -15,7 +19,8 @@ from repro_torch.kernels._args import I, P, on_cpu, ptr, stream
 
 launches = 0        # kernel launches (not plain-version calls)
 
-_SIG = {"range_count_launch": [P, P, P, P, P, P, P, I, I, I, P, P]}
+_SIG = {"range_count_launch": [P, P, P, P, P, P, P, I, I, I, P, P],
+        "range_count_grid": [P]}
 
 
 def range_mask(rects, s, e, count, x, y, active=None):
@@ -71,3 +76,16 @@ def range_count(rects, s, e, active, count, x, y):
     global launches
     launches += 1
     return out
+
+
+def grid(device) -> int:
+    """Blocks of every launch on the CUDA ``device``, range_count's and
+    circle_count's alike (csrc/interval_scan.cuh): the shares a chunk's
+    positions are cut into, one per SM."""
+    from repro_torch.kernels import _build
+    lib = _build.load("range_filter", _SIG)
+    out = ctypes.c_int(0)
+    with torch.cuda.device(torch.device(device)):
+        err = lib.range_count_grid(ctypes.byref(out))
+    _build.check(lib, "range_count_grid", err)
+    return out.value

@@ -177,6 +177,70 @@ def test_gpu_range_count_matches_plain(index, cuda):
     assert torch.equal(got, t_rf.range_count_plain(*args))
 
 
+# the interval sets both count kernels are held to, here and (against
+# a mirror of csrc/interval_scan.cuh's split) in test_torch_kernels.py
+INTERVAL_KINDS = ("empty", "one_row", "all_rows", "clipped", "inactive",
+                  "share_edges", "skewed")
+
+
+def skewed_intervals(kind, c, nq, n_pad, grid, seed):
+    """Learned bounds (s, e (c, nq) int32, active (c, nq) bool, count
+    (c,) int32) of one kind, for pairs i = partition * nq + query:
+
+    empty: every pair empty (e <= s) or inactive; one_row: pair 0 spans
+    its whole row and the rest are empty; all_rows: every pair spans its
+    row; clipped: s < 0, e past n_pad and past count; inactive:
+    non-empty intervals on inactive pairs beside active ones;
+    share_edges: lengths whose running sums fall on the edges of
+    ``grid`` equal shares (a multiple of 2 positions each); skewed: the
+    main path's shape, mostly short intervals and a few near the row's
+    length. Rows are full except under clipped and skewed, where they
+    hold fewer points, down to none."""
+    rng = np.random.default_rng(seed)
+    n = c * nq
+    count = np.full(c, n_pad, np.int32)
+    s = rng.integers(0, n_pad, (c, nq)).astype(np.int32)
+    e = s.copy()
+    active = np.ones((c, nq), bool)
+    if kind == "empty":
+        e = s - rng.integers(0, 3, (c, nq)).astype(np.int32)
+        active = rng.random((c, nq)) < 0.5
+        e[~active] = s[~active] + 7          # inactive: not counted
+    elif kind == "one_row":
+        if n:
+            s.flat[0], e.flat[0] = 0, n_pad
+    elif kind == "all_rows":
+        s[:], e[:] = 0, n_pad
+    elif kind == "clipped":
+        count = rng.integers(0, n_pad + 1, c).astype(np.int32)
+        s = rng.integers(-n_pad, n_pad, (c, nq)).astype(np.int32)
+        e = (s + rng.integers(0, 2 * n_pad, (c, nq))).astype(np.int32)
+    elif kind == "inactive":
+        e = np.minimum(s + rng.integers(1, n_pad, (c, nq)), n_pad).astype(
+            np.int32)
+        active = rng.random((c, nq)) < 0.5
+    elif kind == "share_edges":
+        units = np.zeros(n, np.int64)          # shares per pair, sum grid
+        units[:min(n, grid)] = grid // max(min(n, grid), 1)
+        units[:grid - int(units.sum())] += 1 if n else 0
+        length = (2 * units).reshape(c, nq).astype(np.int32)
+        assert (length <= n_pad).all()
+        s = rng.integers(0, n_pad - length + 1).astype(np.int32)
+        e = (s + length).astype(np.int32)
+    elif kind == "skewed":
+        count = np.linspace(n_pad, 0, c).astype(np.int32)
+        length = np.exp(rng.uniform(0, np.log(n_pad), (c, nq))).astype(
+            np.int32)
+        long = rng.random((c, nq)) < 0.05
+        length[long] = n_pad - rng.integers(0, 16, int(long.sum()))
+        s = rng.integers(0, n_pad - length + 1).astype(np.int32)
+        e = (s + length).astype(np.int32)
+        active = (rng.random((c, nq)) < 0.4) | long
+    else:
+        raise ValueError(kind)
+    return s, e, active, count
+
+
 def test_gpu_point_probe_matches_plain(index, cuda):
     _, _, idx = index
     rng = np.random.default_rng(5)
@@ -292,6 +356,42 @@ def test_gpu_circle_count_matches_plain(index, cuda):
     assert t_cf.launches == n0 + 1
     assert int(got.sum()) > 0 and int(got[-1].sum()) == 0   # count = 0
     assert torch.equal(got, t_cf.circle_count_plain(*args))
+
+
+@pytest.mark.parametrize("c", [1, 8, 136])
+@pytest.mark.parametrize("nq", [0, 1, 16, 256, 1024])
+@pytest.mark.parametrize("kind", INTERVAL_KINDS)
+def test_gpu_count_kernels_on_skewed_intervals(cuda, kind, nq, c):
+    """range_count and circle_count on the skewed interval sets, twice
+    in a row (the second launch finds the grid barrier's counters
+    reset): one launch per call, each bitwise its plain version."""
+    grid = t_rf.grid(cuda)                      # both kernels'
+    assert grid > 0
+    n_pad = 1200
+    rng = np.random.default_rng(nq * 1000 + c)
+    x = rng.random((c, n_pad), dtype=np.float32)
+    y = rng.random((c, n_pad), dtype=np.float32)
+    cx = rng.random(nq, dtype=np.float32)
+    cy = rng.random(nq, dtype=np.float32)
+    r = rng.uniform(0.0, 0.3, nq).astype(np.float32)
+    rects = np.stack([cx - r, cy - r, cx + r, cy + r], 1).astype(np.float32)
+    circ = np.stack([cx, cy, r], 1)
+    s, e, active, count = skewed_intervals(kind, c, nq, n_pad, grid,
+                                           seed=nq + c)
+    rect_t, circ_t, s_t, e_t, act_t, cnt_t, x_t, y_t = _on(
+        cuda, rects, circ, s, e, active, count, x, y)
+    calls = ((t_rf, t_rf.range_count_plain,
+              (rect_t, s_t, e_t, act_t, cnt_t, x_t, y_t)),
+             (t_cf, t_cf.circle_count_plain,
+              (rect_t, s_t, e_t, circ_t, act_t, cnt_t, x_t, y_t)))
+    for mod, plain, args in calls:
+        fn = mod.range_count if mod is t_rf else mod.circle_count
+        n0 = mod.launches
+        got = [fn(*args) for _ in range(2)]
+        assert mod.launches == n0 + (2 if nq else 0)
+        want = plain(*args)
+        assert got[0].shape == (c, nq)
+        assert torch.equal(got[0], want) and torch.equal(got[1], want)
 
 
 def _polygons(rng):

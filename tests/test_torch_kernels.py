@@ -31,6 +31,7 @@ from repro_torch.kernels import morton as t_mo
 from repro_torch.kernels import point_probe as t_pp
 from repro_torch.kernels import range_filter as t_rf
 from repro_torch.kernels import spline_search as t_ss
+from test_torch_gpu import INTERVAL_KINDS, skewed_intervals
 
 # the suite runs in parallel worker processes: one torch thread each
 torch.set_num_threads(1)
@@ -281,6 +282,124 @@ def test_knn_topk_slice_merge_is_exact(slices, k):
                           (y[0] == np.float32(0.6)))[:k]
     assert (gi[0, :3, :len(tied)].numpy() == tied[None, :]).all()
     assert (gi[2, :, max(k - 1, 0):] == -1).all() and (gi[3] == -1).all()
+
+
+def _counts_by_shares(hit, s, e, active, count, n_pad, grid, tile):
+    """csrc/interval_scan.cuh's split, in numpy. Phase 1: block b zeroes
+    the outputs of its slice of ceil(n / grid) pairs and sums their
+    lengths. Phase 2: the active intervals' positions, laid end to end,
+    are cut into ``grid`` equal shares; each block scans the pairs of
+    the slices that hold its share, in tiles of ``tile``, and adds each
+    pair's hits in its share to the pair's output. ``hit(pairs,
+    positions)`` tests points. Returns the (C, Q) counts and the (pair,
+    position) of every scanned position; checks that every output is
+    zeroed exactly once."""
+    c, nq = s.shape
+    n = c * nq
+    lo = np.maximum(s, 0).reshape(-1).astype(np.int64)
+    hi = np.minimum(np.minimum(e, count[:, None]), n_pad).reshape(-1)
+    ln = np.where(active.reshape(-1), np.maximum(hi - lo, 0), 0)
+    per = -(-n // grid)
+    zeroed = np.zeros(n, np.int64)
+    slice_total = np.zeros(grid, np.int64)
+    for b in range(grid):
+        p0 = min(b * per, n)
+        p1 = min(p0 + per, n)
+        zeroed[p0:p1] += 1
+        slice_total[b] = ln[p0:p1].sum()
+    assert (zeroed == 1).all()
+    soff = np.concatenate([[0], np.cumsum(slice_total)])
+    total = int(soff[-1])
+    share = -(-total // grid)
+    out = np.zeros(n, np.int64)
+    seen = [np.zeros((0, 2), np.int64)]
+    for b in range(grid):
+        a = min(b * share, total)
+        z = min(a + share, total)
+        if a == z:
+            continue
+        first = int(np.searchsorted(soff[1:], a, side="right"))
+        last = int(np.searchsorted(soff, z - 1, side="right")) - 1
+        q1 = min((last + 1) * per, n)
+        base, t0 = int(soff[first]), first * per
+        while t0 < q1 and base < z:
+            tl = ln[t0:min(t0 + tile, q1)]
+            incl = base + np.cumsum(tl)
+            v = np.arange(max(a, base), min(z, base + int(tl.sum())))
+            j = np.searchsorted(incl, v, side="right")
+            start = np.concatenate([[base], incl])[j]
+            pos = lo[t0 + j] + (v - start)
+            seen.append(np.stack([t0 + j, pos], 1))
+            np.add.at(out, t0 + j, hit(t0 + j, pos))
+            base += int(tl.sum())
+            t0 += tile
+    return out.reshape(c, nq), np.concatenate(seen)
+
+
+@pytest.mark.parametrize("c", [1, 8])
+@pytest.mark.parametrize("nq", [0, 1, 16])
+@pytest.mark.parametrize("kind", INTERVAL_KINDS)
+def test_interval_split_covers_each_position_once(kind, nq, c):
+    """The balanced split of range_count and circle_count (mirrored from
+    csrc/interval_scan.cuh at an H100's grid of 132 blocks and 2,048
+    pairs per tile, and at 5 blocks and 4 pairs per tile): it scans
+    every position of every active interval exactly once, and its
+    per-pair sums are range_count_plain's and circle_count_plain's."""
+    from repro_torch._num import fma_f32
+
+    n_pad = 600
+    rng = np.random.default_rng(nq * 10 + c)
+    x = rng.random((c, n_pad)).astype(np.float32)
+    y = rng.random((c, n_pad)).astype(np.float32)
+    cx = rng.random(nq).astype(np.float32)
+    cy = rng.random(nq).astype(np.float32)
+    r = rng.uniform(0.1, 0.6, nq).astype(np.float32)
+    rects = np.stack([cx - r, cy - r, cx + r, cy + r], 1).astype(np.float32)
+    rects[::3] = [0.0, 0.0, 1.0, 1.0]            # every point
+    circ = np.stack([cx, cy, r], 1).astype(np.float32)
+    xt, yt = _t(x), _t(y)
+
+    def gather(i, pos):
+        i = torch.from_numpy(i)
+        pos = torch.from_numpy(pos.astype(np.int64))
+        return xt[i // nq, pos], yt[i // nq, pos], i % nq
+
+    def in_rect(i, pos):
+        px, py, q = gather(i, pos)
+        rq = _t(rects)[q]
+        return ((px >= rq[:, 0]) & (px <= rq[:, 2]) &
+                (py >= rq[:, 1]) & (py <= rq[:, 3]))
+
+    def in_circle(i, pos):
+        px, py, q = gather(i, pos)
+        cq = _t(circ)[q]
+        dx, dy = px - cq[:, 0], py - cq[:, 1]
+        near = fma_f32(dx, dx, dy * dy) <= cq[:, 2] * cq[:, 2]
+        return (in_rect(i, pos) & near).numpy().astype(np.int64)
+
+    for grid, tile in ((132, 2048), (5, 4)):
+        s, e, active, count = skewed_intervals(kind, c, nq, n_pad, grid,
+                                               seed=grid + nq + c)
+        args = tuple(map(_t, (s, e, active, count)))
+        lo = np.maximum(s, 0).reshape(-1)
+        hi = np.minimum(np.minimum(e, count[:, None]), n_pad).reshape(-1)
+        want = [(i, p) for i in range(c * nq) if active.flat[i]
+                for p in range(lo[i], hi[i])]
+        got, seen = _counts_by_shares(
+            lambda i, p: in_rect(i, p).numpy().astype(np.int64), s, e,
+            active, count, n_pad, grid, tile)
+        seen = seen[np.lexsort((seen[:, 1], seen[:, 0]))]
+        assert np.array_equal(seen, np.asarray(want, np.int64).reshape(-1, 2))
+        plain = t_rf.range_count_plain(_t(rects), args[0], args[1],
+                                       args[2], args[3], xt, yt)
+        assert np.array_equal(got, plain.numpy())
+        got, _ = _counts_by_shares(in_circle, s, e, active, count, n_pad,
+                                   grid, tile)
+        plain = t_cf.circle_count_plain(_t(rects), args[0], args[1],
+                                        _t(circ), args[2], args[3], xt, yt)
+        assert np.array_equal(got, plain.numpy())
+        if kind in ("one_row", "all_rows") and nq:
+            assert plain.sum() > 0
 
 
 @pytest.mark.parametrize("n", [1, 7, 1000, 3001])
