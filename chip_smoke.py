@@ -10,7 +10,8 @@ result line):
 
   1. device   the card's name and power limit (nvidia-smi);
   2. build    every kernel of the main path from src/repro_torch/kernels/
-              csrc, one nvcc per source, all at once;
+              csrc, and the empty kernel of csrc/launch_floor.cu, one nvcc
+              per source, all at once;
   3. golden   all 11 keys of tests/golden/spatial_golden.json replayed
               bitwise with backend="cuda" on the golden inputs rebuilt by
               the port, in tests/golden/gen_golden.py's order on one
@@ -75,15 +76,19 @@ result line):
               the floor of as many one-element PyTorch launches beside
               it; knn_topk is also held bitwise and timed at the serving
               fallback's shape (SERVE_Q queries on the same chunks), with
-              its launch plans; range_count and circle_count must make
-              one launch per chunk on their main-path calls, and report
-              their grid, the spread of their learned intervals
-              (p50/p90/p99/max, each launch's total positions and
-              longest interval), each chunk's device time and, bitwise
-              too, their time at the serving shape; each kernel
-              instance's ptxas registers, stack and spills go to the
-              report (the two count kernels must have no stack and no
-              spills).
+              its launch plans; range_count, circle_count and
+              point_in_polygon (the three instances of the interval
+              scan) must make one launch per chunk on their main-path
+              calls, and report their grid, the spread of their learned
+              intervals (p50/p90/p99/max, each launch's total positions
+              and longest interval), each chunk's device time and,
+              bitwise too, their time at the serving shape (the first
+              SERVE_Q queries, or SERVE_POLYGONS polygons, of the same
+              chunks); each kernel instance's ptxas registers, stack and
+              spills go to the report (the three instances must have no
+              stack and no spills); beside point_probe, the floor of one
+              launch on the card: an empty kernel (csrc/launch_floor.cu,
+              on no query path) timed the same way.
 
 Device busy time and idle share come from torch.profiler traces; each
 trace is checked against the wrappers' launch counts (``traced``): a
@@ -116,6 +121,7 @@ PEAK_I32 = 16.7e12
 N_POINTS = 1 << 23
 N_PARTS = 128
 SERVE_Q = 16             # src/repro/launch/serve.py's narrow traffic
+SERVE_POLYGONS = max(SERVE_Q // 8, 4)    # its join's polygons
 SERVE_ROUNDS = 8
 DEVICE = "cuda"          # where the port runs, and the kernel backend
 BACKEND = "cuda"
@@ -208,11 +214,12 @@ def device_profile(fn, reps: int, counts=None) -> dict:
 
 # this port's kernels as the trace names them
 OUR_KERNELS = ("spline_search_kernel", "interval_count_kernel",
-               "point_probe_kernel", "knn_topk_kernel", "join_count_kernel",
-               "morton_kernel")
-# range_count's and circle_count's instances of the shared interval scan
+               "point_probe_kernel", "knn_topk_kernel", "morton_kernel")
+# range_count's, circle_count's and the join's instances of the shared
+# interval scan
 RANGE_TRACE = "interval_count_kernel<RectTest>"
 CIRCLE_TRACE = "interval_count_kernel<CircleTest>"
+POLYGON_TRACE = "interval_count_kernel<PolygonTest>"
 
 
 def traced(fn, reps: int) -> tuple:
@@ -390,7 +397,7 @@ def serve_round(x, y, part, seed, dev):
     rng = np.random.default_rng(seed)
     ix = rng.integers(0, len(x), q)
     rects = ds.random_rects(q, 1e-5, part.bounds, seed=seed, centers=(x, y))
-    polys, ne = ds.random_polygons(max(q // 8, 4), part.bounds, seed=seed)
+    polys, ne = ds.random_polygons(SERVE_POLYGONS, part.bounds, seed=seed)
     px, py, pr, rc, pl, pn = (
         torch.as_tensor(np.ascontiguousarray(a), device=dev)
         for a in (x[ix], y[ix], np.full(q, 0.02, np.float32), rects, polys,
@@ -497,13 +504,15 @@ def count_launch_args(ex, rects, klo, khi, circ=None) -> list:
     return out
 
 
-def interval_ends(args) -> tuple:
-    """(s, hi) over all of ``count_launch_args``' launches, hi =
-    min(e, count) on active pairs and s on the others."""
+def interval_ends(args, first: int = 1) -> tuple:
+    """(s, hi) over all of ``count_launch_args``' (or, ``first`` = 3,
+    ``join_launch_args``') launches, hi = min(e, count) on active pairs
+    and s on the others."""
     import torch
-    s = torch.cat([a[1] for a in args])
-    hi = torch.cat([torch.where(a[-4], torch.minimum(a[2], a[-3][:, None]),
-                                a[1]) for a in args])
+    s = torch.cat([a[first] for a in args])
+    hi = torch.cat([torch.where(a[-4], torch.minimum(a[first + 1],
+                                                     a[-3][:, None]),
+                                a[first]) for a in args])
     return s, hi
 
 
@@ -512,6 +521,38 @@ def first_queries(args, q: int) -> tuple:
     rects (and circles) are query-major, s, e and active pair-major."""
     rects, s, e, *mid, act, count, x, y = args
     cut = [rects[:q], s[:, :q], e[:, :q], *(m[:q] for m in mid), act[:, :q]]
+    return (*(t.contiguous() for t in cut), count, x, y)
+
+
+def join_launch_args(ex, polys, ne) -> list:
+    """The arguments of each join_count launch of one full join of
+    executor ``ex`` on ``polys`` (numpy, with edge counts ``ne``): one
+    tuple per chunk of ``ex.cfg.part_chunk`` partitions, its learned
+    bounds from the plain backend."""
+    from repro_torch.core import local_ops as L
+    from repro_torch.core import queries as Q
+    from repro_torch.core.backends import TorchBackend
+    kw = dict(radix_bits=ex.index.radix_bits, probe=ex.index.probe)
+    c = ex.cfg.part_chunk
+    jpoly, jne, jmbr_k = ex._join_args((polys, ne))
+    jmbrs = jmbr_k[:, :4].contiguous()
+    jklo, jkhi = jmbr_k[:, 4].contiguous(), jmbr_k[:, 5].contiguous()
+    overlap = Q.rect_overlaps_box(jmbrs, ex.bounds)
+    out = []
+    for lo, ch in L._chunks(ex.parts, c):
+        s, e = TorchBackend().bounds(ch, jklo, jkhi, **kw)
+        act = overlap[:, lo:lo + c].t().contiguous()
+        out.append((jpoly, jne, jmbrs, s, e, act, ch["count"], ch["x"],
+                    ch["y"]))
+    return out
+
+
+def first_polygons(args, q: int) -> tuple:
+    """A join_count launch's arguments cut to its first ``q`` polygons:
+    polygons, edge counts and MBRs are polygon-major, s, e and active
+    pair-major."""
+    polys, ne, mbrs, s, e, act, count, x, y = args
+    cut = [polys[:q], ne[:q], mbrs[:q], s[:, :q], e[:, :q], act[:, :q]]
     return (*(t.contiguous() for t in cut), count, x, y)
 
 
@@ -691,7 +732,6 @@ def main() -> int:
     from repro_torch.core import fit
     from repro_torch.core import keys as K
     from repro_torch.core import local_ops as L
-    from repro_torch.core import queries as Q
     from repro_torch.core.backends import TorchBackend
     from repro_torch.data import spatial as ds
     from repro_torch.kernels import _build
@@ -723,8 +763,9 @@ def main() -> int:
     report["build_s"] = time.perf_counter() - t0
     require(set(libs) == {"spline_search", "range_filter", "point_probe",
                           "knn_topk", "circle_filter", "point_in_polygon",
-                          "morton"}, f"kernel sources: {sorted(libs)}")
-    log(f"[build] {len(libs)} kernels in {report['build_s']:.1f} s")
+                          "morton", "launch_floor"},
+            f"kernel sources: {sorted(libs)}")
+    log(f"[build] {len(libs)} sources in {report['build_s']:.1f} s")
     # ptxas -v: each instance's registers, stack and spills
     report["ptxas"] = {}
     for name in libs:
@@ -956,11 +997,39 @@ def main() -> int:
 
     by_path = {"main": launches, "serve": serve_launches}
 
-    def interval_extra(name, fn, plain, args, lib, call):
-        """range_count's and circle_count's own fields: one launch per
-        chunk on the main path, the grid, the spread of the intervals,
-        each chunk's device time, and ptxas' registers (no stack, no
-        spills)."""
+    def launch_floor(n, blocks, threads) -> dict:
+        """The card's floor per launch: an empty kernel
+        (csrc/launch_floor.cu, on no query path) timed as the kernels
+        are, ms per launch over 17 launches back to back, of one block
+        of 32 threads and of ``blocks`` blocks of ``threads`` threads,
+        and ms for ``n`` such launches (a main-path call's)."""
+        from repro_torch.kernels._args import I, P, stream
+        lib = _build.load("launch_floor", {"empty_launch": [I, I, P]})
+
+        def empty(k, b, th):
+            def go():
+                for _ in range(k):
+                    _build.check(lib, "empty_launch",
+                                 lib.empty_launch(b, th, stream()))
+            return go
+        out = {"one_block_ms_per_launch":
+               stream_ms(empty(17, 1, 32), 20) / 17,
+               "grid": [blocks, threads],
+               "ms_per_launch": stream_ms(empty(17, blocks, threads), 20) / 17,
+               "launches_per_call": n,
+               "ms_per_call": stream_ms(empty(n, blocks, threads), 20)}
+        log(f"[floor] empty kernel: {out}")
+        return out
+
+    def interval_extra(name, fn, plain, args, lib, call, narrow, sq,
+                       first=1):
+        """The interval scan's instances' own fields: one launch per
+        chunk on the main path, the grid, the spread of the intervals
+        (s and e at ``first`` and ``first + 1`` in a launch's arguments,
+        active and count fourth and third from the end), each chunk's
+        device time, ptxas' registers (no stack, no spills), and the
+        time of ``narrow``, the serving fallback's launches of ``sq``
+        queries on the same chunks, each bitwise too."""
         per_call = path_launches[call][name]
         require(per_call == len(chunks),
                 f"{name}: {per_call} launches per call, {len(chunks)} chunks")
@@ -968,14 +1037,11 @@ def main() -> int:
         require(ptx["registers"] and not any(
             ptx["stack"] + ptx["spill_stores"] + ptx["spill_loads"]),
             f"{lib}: stack or spills {ptx}")
-        spread = interval_spread([(a[1], a[2], a[-4], a[-3], n_pad)
-                                  for a in args])
+        spread = interval_spread([(a[first], a[first + 1], a[-4], a[-3],
+                                   n_pad) for a in args])
         log(f"[{name}] grid {RF.grid(dev)}, intervals p50 {spread['p50']} "
             f"p90 {spread['p90']} p99 {spread['p99']} max {spread['max']}, "
             f"ptxas {ptx}")
-        # the serving fallback's shape: the first SERVE_Q queries of the
-        # same chunks, each launch bitwise too
-        narrow = [first_queries(a, SERVE_Q) for a in args]
         for a in narrow:
             require(torch.equal(fn(*a), plain(*a)),
                     f"{name} vs plain at the serving shape")
@@ -984,7 +1050,7 @@ def main() -> int:
                 "spread": spread, "ptxas": ptx,
                 "per_chunk_ms": [stream_ms(lambda a=a: fn(*a), 20)
                                  for a in args],
-                "serve_shape_q": SERVE_Q, "serve_shape_ms": serve_ms,
+                "serve_shape_q": sq, "serve_shape_ms": serve_ms,
                 "serve_shape_ms_per_launch": serve_ms / len(narrow)}
 
     def entry(name, err, t, pt, nbytes, nops, lt, call, peak_ops=PEAK_F32,
@@ -1069,7 +1135,8 @@ def main() -> int:
     entry("range_count", err, t, pt, nbytes, 4 * pairs, None,
           "range_count_1024", extra=interval_extra(
               "range_count", RF.range_count, RF.range_count_plain,
-              rc_args, "range_filter", "range_count_1024"))
+              rc_args, "range_filter", "range_count_1024",
+              [first_queries(a, SERVE_Q) for a in rc_args], SERVE_Q))
 
     # point_probe: the first-match and the overflow candidate sets. Bytes:
     # the queries, key/x/y over the union of the windows, the output.
@@ -1096,7 +1163,9 @@ def main() -> int:
     win = covered(flat, flat + probe, p_total * n_pad)
     entry("point_probe", err, t, pt,
           len(pp_args) * nq * 24 + 12 * win + 4 * len(pp_args) * nq,
-          3 * len(pp_args) * nq * probe, None, "point_1024")
+          3 * len(pp_args) * nq * probe, None, "point_1024",
+          extra={"launch_floor": launch_floor(len(pp_args),
+                                              -(-nq // 8), 256)})
 
     # knn_topk: every chunk. Bytes: the queries, x and y of the valid
     # points, the outputs.
@@ -1155,44 +1224,37 @@ def main() -> int:
     entry("circle_count", err, t, pt, nbytes, 10 * pairs, None,
           "circle_exact_256", extra=interval_extra(
               "circle_count", CF.circle_count, CF.circle_count_plain,
-              cc_args, "circle_filter", "circle_exact_256"))
+              cc_args, "circle_filter", "circle_exact_256",
+              [first_queries(a, SERVE_Q) for a in cc_args], SERVE_Q))
 
     # point_in_polygon (the fused join count): the full join's chunks.
     # Bytes: the polygons, MBRs, bounds and flags, x and y over the union
     # of the active intervals, the output; operations: about 8 per edge
-    # per scanned point inside the polygon's MBR.
-    jpoly, jne, jmbr_k = ex._join_args((polys, ne))
-    jmbrs = jmbr_k[:, :4].contiguous()
-    jklo, jkhi = jmbr_k[:, 4].contiguous(), jmbr_k[:, 5].contiguous()
-    j_overlap = Q.rect_overlaps_box(jmbrs, ex.bounds)
-    jc_args, hi_all, s_all = [], [], []
+    # per scanned point inside the polygon's MBR (n_edges of them, as
+    # the kernel loops over min(n_edges, E) <= n_edges).
+    jc_args = join_launch_args(ex, polys, ne)
     in_mbr_edges = 0
-    for lo, ch in chunks:
-        s, e = tb.bounds(ch, jklo, jkhi, **kw)
-        act = j_overlap[:, lo:lo + c].t().contiguous()
-        a = (jpoly, jne, jmbrs, s, e, act, ch["count"], ch["x"], ch["y"])
-        jc_args.append(a)
-        s_all.append(s)
-        hi_all.append(torch.where(act, torch.minimum(e, ch["count"][:, None]),
-                                  s))
-        in_mbr = RF.range_mask(jmbrs, s, e, ch["count"], ch["x"], ch["y"],
+    for jpoly, jne, jmbrs, s, e, act, count, cx_, cy_ in jc_args:
+        in_mbr = RF.range_mask(jmbrs, s, e, count, cx_, cy_,
                                act).sum(-1)                   # (C, PG)
         in_mbr_edges += int((in_mbr * jne[None, :]).sum())
     err = 0
     for a in jc_args:
         err = max(err, int((PIP.join_count(*a) -
                             PIP.join_count_plain(*a)).abs().max()))
-    t = timed(sweep(PIP.join_count, jc_args), 20, "join_count_kernel")
+    t = timed(sweep(PIP.join_count, jc_args), 20, POLYGON_TRACE)
     pt = timed(sweep(PIP.join_count_plain, jc_args), 1)
-    s_all, hi_all = torch.cat(s_all), torch.cat(hi_all)
+    s_all, hi_all = interval_ends(jc_args, first=3)
     npg, e_max = jpoly.shape[0], jpoly.shape[1]
     nbytes = ((8 * e_max + 20) * npg * len(chunks) + 9 * p_total * npg +
               4 * p_total + 8 * covered(s_all, hi_all, n_pad) +
               4 * p_total * npg)
-    # the same interval shape as the two count kernels (ROADMAP §2b)
     entry("point_in_polygon", err, t, pt, nbytes, 8 * in_mbr_edges, None,
-          "join_full_32", extra={"spread": interval_spread(
-              [(a[3], a[4], a[5], a[6], n_pad) for a in jc_args])})
+          "join_full_32", extra=interval_extra(
+              "point_in_polygon", PIP.join_count, PIP.join_count_plain,
+              jc_args, "point_in_polygon", "join_full_32",
+              [first_polygons(a, SERVE_POLYGONS) for a in jc_args],
+              SERVE_POLYGONS, first=3))
 
     # morton, at its own entry point (the index build's key step is
     # core/keys.morton_encode, as in the reference): the quantized

@@ -5,15 +5,17 @@ Replaces the Pallas TPU kernel ``src/repro/kernels/point_in_polygon.py``
 (``point_in_polygon``; wrapper ``kernels/ops.py:point_in_polygon``),
 which flags one polygon's containment over a whole partition row and is
 launched once per polygon, its flags then ANDed with the range filter's
-mask (``PallasBackend.join_scan``). Source: ``csrc/point_in_polygon.cu``,
-the fused form: one launch per chunk of partitions covers every polygon;
-a block per (polygon, partition) keeps the vertices in shared memory and
-ray-casts only the points of [s, min(e, count)) inside the polygon's
-MBR, then reduces the count. Counting only the masked points gives the
-count of ``mask & inside`` over the whole row.
+mask (``PallasBackend.join_scan``). Source: ``csrc/point_in_polygon.cu``
+on ``csrc/interval_scan.cuh``, the fused form, as ``range_filter``: one
+launch per chunk of partitions spreads the positions of every polygon's
+active [s, min(e, count)) intervals evenly over a grid fixed by the
+card's SM count (``range_filter.grid``); each position tests the
+polygon's MBR and then ray-casts its edges, the vertices read from
+global memory (no limit on their number). Counting only the masked
+points gives the count of ``mask & inside`` over the whole row.
 
-Bound: operations (about 8 float operations per edge per scanned point)
-or bytes (8 per scanned position), whichever is larger.
+Bound: operations (about 8 float operations per edge per scanned point
+in the MBR) or bytes (8 per scanned position), whichever is larger.
 
 Bitwise notes: XLA:CPU contracts the crossing ``x1 + t*(x2 - x1)`` into
 ``fma(t, x2 - x1, x1)`` (tests/test_torch_hazards.py measures it); the
@@ -30,9 +32,6 @@ from repro_torch.kernels._args import I, P, on_cpu, ptr, stream
 from repro_torch.kernels.range_filter import range_mask
 
 launches = 0        # kernel launches (not plain-version calls)
-# vertices whose (x, y) fit a block's default 48 KB of shared memory
-# beside the kernel's 32 bytes of per-warp sums: 6140
-MAX_EDGES = (48 * 1024 - 32) // 8
 
 _SIG = {"join_count_launch": [P, P, P, P, P, P, P, P, P, I, I, I, I, P, P]}
 
@@ -89,8 +88,6 @@ def join_count(polys, n_edges, mbrs, s, e, active, count, x, y):
         return join_count_plain(*args)
     c, n_pad = x.shape
     pg, e_max = polys.shape[0], polys.shape[1]
-    if e_max > MAX_EDGES:
-        raise ValueError(f"{e_max} vertices per polygon > {MAX_EDGES}")
     f32, i32 = torch.float32, torch.int32
     ptrs = [ptr(polys, "polys", f32, (pg, e_max, 2)),
             ptr(n_edges, "n_edges", i32, (pg,)),
@@ -99,6 +96,8 @@ def join_count(polys, n_edges, mbrs, s, e, active, count, x, y):
             ptr(active, "active", torch.bool, (c, pg)),
             ptr(count, "count", i32, (c,)), ptr(x, "x", f32, (c, n_pad)),
             ptr(y, "y", f32, (c, n_pad))]
+    if polys.data_ptr() % 8:            # the kernel reads float2 vertices
+        raise ValueError("polys: not aligned to 8 bytes")
     out = torch.empty((c, pg), dtype=i32, device=x.device)
     if pg == 0 or c == 0:
         return out

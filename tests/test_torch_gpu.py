@@ -409,6 +409,23 @@ def _polygons(rng):
             np.concatenate([ne, [6, 2, 1, 0]]).astype(np.int32))
 
 
+def polygon_set(nq, seed):
+    """``nq`` polygons (E = 12), their edge counts and MBRs (closed, of
+    their first n_edges vertices): the four of ``_polygons`` with little
+    or no area (concave with horizontal edges, sliver, single vertex,
+    none) first, then random ones."""
+    polys, ne = _polygons(None)
+    more, more_ne = ds.random_polygons(max(nq - 4, 0), (0.1, 0.1, 0.9, 0.9),
+                                       seed=seed, radius=0.1)
+    polys = np.concatenate([polys[-4:], more])[:nq]
+    ne = np.concatenate([ne[-4:], more_ne])[:nq].astype(np.int32)
+    em = np.arange(polys.shape[1])[None, :, None] < ne[:, None, None]
+    mbrs = np.concatenate([np.where(em, polys, 3e38).min(1),
+                           np.where(em, polys, -3e38).max(1)],
+                          1).astype(np.float32)
+    return polys, ne, mbrs
+
+
 def test_gpu_join_count_matches_plain(index, cuda):
     x, y, idx = index
     rng = np.random.default_rng(7)
@@ -429,26 +446,56 @@ def test_gpu_join_count_matches_plain(index, cuda):
 
 
 def test_gpu_join_count_at_max_edges(index, cuda):
-    """Polygons of MAX_EDGES vertices fill the block's shared memory and
-    still launch; one vertex more is refused before the launch."""
+    """Polygons of 6,140 vertices (the most an earlier kernel could hold
+    in a block's shared memory), and of 6,141 and 12,000, past it: the
+    kernel reads the vertices from global memory, so each launches and
+    equals the plain version bitwise."""
     x, y, idx = index
-    e_max = t_pip.MAX_EDGES
-    ang = np.linspace(0, 2 * np.pi, e_max, endpoint=False)
-    ring = np.stack([0.5 + 0.3 * np.cos(ang), 0.5 + 0.2 * np.sin(ang)], -1)
-    polys = np.stack([ring, ring * 0.5 + 0.2]).astype(np.float32)
-    ne = np.asarray([e_max, e_max // 3], np.int32)
-    mbrs = np.concatenate([polys.min(1), polys.max(1)], 1)
     c, n_pad = idx.x.shape
     s = np.zeros((c, 2), np.int32)
     e = np.full((c, 2), n_pad, np.int32)
     active = np.ones((c, 2), bool)
-    args = _on(cuda, polys, ne, mbrs, s, e, active, idx.count, idx.x, idx.y)
-    got = t_pip.join_count(*args)
-    assert int(got.sum()) > 0
-    assert torch.equal(got, t_pip.join_count_plain(*args))
-    wide = torch.cat([args[0], args[0][:, :1]], 1)
-    with pytest.raises(ValueError, match="vertices per polygon"):
-        t_pip.join_count(wide, *args[1:])
+    for e_max in (6140, 6141, 12000):
+        ang = np.linspace(0, 2 * np.pi, e_max, endpoint=False)
+        ring = np.stack([0.5 + 0.3 * np.cos(ang), 0.5 + 0.2 * np.sin(ang)],
+                        -1)
+        polys = np.stack([ring, ring * 0.5 + 0.2]).astype(np.float32)
+        ne = np.asarray([e_max, e_max // 3], np.int32)
+        mbrs = np.concatenate([polys.min(1), polys.max(1)], 1)
+        args = _on(cuda, polys, ne, mbrs, s, e, active, idx.count, idx.x,
+                   idx.y)
+        n0 = t_pip.launches
+        got = t_pip.join_count(*args)
+        assert t_pip.launches == n0 + 1
+        assert int(got.sum()) > 0
+        assert torch.equal(got, t_pip.join_count_plain(*args))
+
+
+@pytest.mark.parametrize("c", [1, 8, 136])
+@pytest.mark.parametrize("nq", [0, 1, 4, 32, 256])
+@pytest.mark.parametrize("kind", INTERVAL_KINDS)
+def test_gpu_join_count_on_skewed_intervals(cuda, kind, nq, c):
+    """join_count on the count kernels' skewed interval sets, with the
+    degenerate polygons first, twice in a row (the second launch finds
+    the grid barrier's counters reset): one launch per call, bitwise
+    the plain version."""
+    grid = t_rf.grid(cuda)
+    n_pad = 1200
+    rng = np.random.default_rng(nq * 1000 + c + 1)
+    x = rng.random((c, n_pad), dtype=np.float32)
+    y = rng.random((c, n_pad), dtype=np.float32)
+    polys, ne, mbrs = polygon_set(nq, seed=nq + c)
+    s, e, active, count = skewed_intervals(kind, c, nq, n_pad, grid,
+                                           seed=nq + c)
+    args = _on(cuda, polys, ne, mbrs, s, e, active, count, x, y)
+    n0 = t_pip.launches
+    got = [t_pip.join_count(*args) for _ in range(2)]
+    assert t_pip.launches == n0 + (2 if nq else 0)
+    want = t_pip.join_count_plain(*args)
+    assert got[0].shape == (c, nq)
+    assert torch.equal(got[0], want) and torch.equal(got[1], want)
+    if kind == "all_rows" and nq:
+        assert int(want.sum()) > 0
 
 
 def test_gpu_engine_golden_and_backends_agree(cuda):

@@ -28,10 +28,11 @@ from repro_torch.core import keys as TK
 from repro_torch.kernels import circle_filter as t_cf
 from repro_torch.kernels import knn_topk as t_knn
 from repro_torch.kernels import morton as t_mo
+from repro_torch.kernels import point_in_polygon as t_pip
 from repro_torch.kernels import point_probe as t_pp
 from repro_torch.kernels import range_filter as t_rf
 from repro_torch.kernels import spline_search as t_ss
-from test_torch_gpu import INTERVAL_KINDS, skewed_intervals
+from test_torch_gpu import INTERVAL_KINDS, polygon_set, skewed_intervals
 
 # the suite runs in parallel worker processes: one torch thread each
 torch.set_num_threads(1)
@@ -397,6 +398,53 @@ def test_interval_split_covers_each_position_once(kind, nq, c):
                                    grid, tile)
         plain = t_cf.circle_count_plain(_t(rects), args[0], args[1],
                                         _t(circ), args[2], args[3], xt, yt)
+        assert np.array_equal(got, plain.numpy())
+        if kind in ("one_row", "all_rows") and nq:
+            assert plain.sum() > 0
+
+
+@pytest.mark.parametrize("c", [1, 8])
+@pytest.mark.parametrize("nq", [0, 1, 4, 16])
+@pytest.mark.parametrize("kind", INTERVAL_KINDS)
+def test_interval_split_join_covers_each_position_once(kind, nq, c):
+    """The same split for join_count (csrc/point_in_polygon.cu on
+    csrc/interval_scan.cuh) at both grids and tiles, with the degenerate
+    polygons (concave with horizontal edges, sliver, single vertex, no
+    edges) first: every position of every active interval is scanned
+    exactly once, and the per-pair sums of the hit test (the MBR, then
+    point_in_polygon_plain) are join_count_plain's."""
+    n_pad = 600
+    rng = np.random.default_rng(nq * 10 + c + 1)
+    x = rng.random((c, n_pad)).astype(np.float32)
+    y = rng.random((c, n_pad)).astype(np.float32)
+    polys, ne, mbrs = polygon_set(nq, seed=nq + c)
+    xt, yt = _t(x), _t(y)
+    pt, net, mt = _t(polys), _t(ne), _t(mbrs)
+
+    def in_polygon(i, pos):
+        i = torch.from_numpy(i)
+        pos = torch.from_numpy(pos.astype(np.int64))
+        px, py, g = xt[i // nq, pos], yt[i // nq, pos], i % nq
+        m = mt[g]
+        in_mbr = ((px >= m[:, 0]) & (px <= m[:, 2]) &
+                  (py >= m[:, 1]) & (py <= m[:, 3]))
+        inside = t_pip.point_in_polygon_plain(px[:, None], py[:, None],
+                                              pt[g], net[g])[:, 0]
+        return (in_mbr & inside).numpy().astype(np.int64)
+
+    for grid, tile in ((132, 2048), (5, 4)):
+        s, e, active, count = skewed_intervals(kind, c, nq, n_pad, grid,
+                                               seed=grid + nq + c)
+        lo = np.maximum(s, 0).reshape(-1)
+        hi = np.minimum(np.minimum(e, count[:, None]), n_pad).reshape(-1)
+        want = [(i, p) for i in range(c * nq) if active.flat[i]
+                for p in range(lo[i], hi[i])]
+        got, seen = _counts_by_shares(in_polygon, s, e, active, count,
+                                      n_pad, grid, tile)
+        seen = seen[np.lexsort((seen[:, 1], seen[:, 0]))]
+        assert np.array_equal(seen, np.asarray(want, np.int64).reshape(-1, 2))
+        plain = t_pip.join_count_plain(pt, net, mt, *map(_t, (s, e, active,
+                                                             count)), xt, yt)
         assert np.array_equal(got, plain.numpy())
         if kind in ("one_row", "all_rows") and nq:
             assert plain.sum() > 0

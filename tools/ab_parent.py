@@ -1,31 +1,35 @@
 #!/usr/bin/env python3
-"""Time this tree's range_count and circle_count kernels against another
-tree's (a parent commit's), in one process on one CUDA card.
+"""Time this tree's interval-scan kernels (range_count, circle_count and
+the join's point_in_polygon) against another tree's (a parent commit's),
+in one process on one CUDA card.
 
     mkdir -p build/parent && git archive <parent> | tar -x -C build/parent
     python3 tools/ab_parent.py build/parent
 
-The other tree's csrc/range_filter.cu and csrc/circle_filter.cu are built
-from its own csrc directory beside this tree's. Their launchers take the
-same arguments, so swapping the loaded libraries under this tree's
-wrappers changes nothing else. On chip_smoke.py's index and queries
-(taxi, 2^23 points, kdtree with 128 partitions):
+The other tree's csrc/range_filter.cu, csrc/circle_filter.cu and
+csrc/point_in_polygon.cu are built from its own csrc directory beside
+this tree's. Their launchers take the same arguments, so swapping the
+loaded libraries under this tree's wrappers changes nothing else. On
+chip_smoke.py's index and queries (taxi, 2^23 points, kdtree with 128
+partitions; 32 polygons for the full join):
 
   - in turns (parent, change, change, parent): each kernel's device time
-    per main-path call and per chunk (CUDA events, the stream held busy:
-    chip_smoke.stream_ms), the host's time to enqueue a call's launches
-    (chip_smoke.cuda_ms), and the device busy time (a profiler trace) of
-    the 1,024-rect range count, of the exact circle program on 256
-    circles and of a steady serving round at q = 16, which also runs
+    per main-path call, per chunk and per call at the serving shape (the
+    first 16 queries, or 4 polygons, of the same chunks), all from CUDA
+    events with the stream held busy (chip_smoke.stream_ms), the host's
+    time to enqueue a call's launches (chip_smoke.cuda_ms), and the
+    device busy time (a profiler trace) of the 1,024-rect range count,
+    of the exact circle program on 256 circles, of the full join of 32
+    polygons and of a steady serving round at q = 16, which also runs
     once under torch.cuda.set_sync_debug_mode("error") with host_syncs
     held;
   - in PAIRS interleaved pairs, alternating which tree goes first: the
     wall time (median of a few synchronised calls) of the range count,
-    the exact circle program, the serving round and its range-count and
-    circle requests, and the host's time to enqueue one call's 17
-    launches of each kernel (no synchronise in the timed region); per
-    metric, each tree's median and quartiles over the pairs and the
-    pairs the change won.
+    the exact circle program, the full join, the serving round and its
+    range-count, circle and join requests, and the host's time to
+    enqueue one call's 17 launches of each kernel (no synchronise in the
+    timed region); per metric, each tree's median and quartiles over the
+    pairs and the pairs the change won.
 
 Every turn's outputs must equal the first turn's bit for bit. Writes
 chiprun_out/ab_parent.json and prints one line per turn and per metric.
@@ -45,7 +49,7 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke as CS  # noqa: E402  (puts src/ on the path)
 
-SOURCES = ("range_filter", "circle_filter")
+SOURCES = ("range_filter", "circle_filter", "point_in_polygon")
 ORDER = ("parent", "change", "change", "parent")
 PAIRS = 20
 
@@ -55,8 +59,10 @@ def build_other(tree: Path) -> dict:
     them with this tree's signatures (where the function exists)."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import circle_filter as CF
+    from repro_torch.kernels import point_in_polygon as PIP
     from repro_torch.kernels import range_filter as RF
-    sigs = {"range_filter": RF._SIG, "circle_filter": CF._SIG}
+    sigs = {"range_filter": RF._SIG, "circle_filter": CF._SIG,
+            "point_in_polygon": PIP._SIG}
     out = _build.BUILD_DIR / "parent"
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -96,6 +102,7 @@ def main() -> int:
     from repro_torch.core import keys as K
     from repro_torch.kernels import _build
     from repro_torch.kernels import circle_filter as CF
+    from repro_torch.kernels import point_in_polygon as PIP
     from repro_torch.kernels import range_filter as RF
     from repro_torch.serve import SpatialServeSession
 
@@ -103,9 +110,10 @@ def main() -> int:
     card = CS.card_line()
     libs = {"parent": build_other(Path(sys.argv[1]).resolve()),
             "change": {n: _build.load(n, m._SIG)
-                       for n, m in zip(SOURCES, (RF, CF))}}
+                       for n, m in zip(SOURCES, (RF, CF, PIP))}}
     x, y, part, index, _, _ = CS.full_index(dev)
-    (_, _, rects, _, _, _, cx, cy, cr, _, _) = CS.main_inputs(x, y, part)
+    (_, _, rects, _, _, _, cx, cy, cr, polys,
+     ne) = CS.main_inputs(x, y, part)
     eng = SpatialEngine(index, device=dev)
     ex = eng.executor
     rect_t = torch.as_tensor(rects, device=dev)
@@ -113,18 +121,28 @@ def main() -> int:
     rc_args = CS.count_launch_args(ex, rect_t, klo, khi)
     crect, cklo, ckhi, ccirc = ex._circle_args((cx, cy, cr))
     cc_args = CS.count_launch_args(ex, crect, cklo, ckhi, ccirc)
+    jc_args = CS.join_launch_args(ex, polys, ne)
     calls = {"range_count_1024": lambda: eng.range_count(rects),
              "circle_exact_256":
-                 lambda: ex._circle_exact(ex._circle_args((cx, cy, cr)))}
+                 lambda: ex._circle_exact(ex._circle_args((cx, cy, cr))),
+             "join_full_32": lambda: eng.join_count(polys, ne, mode="full")}
     sess = SpatialServeSession(index, device=dev)
     sess.warmup(CS.serve_round(x, y, part, 0, dev))
     reqs = CS.serve_round(x, y, part, 1, dev)
-    kernels = {"range_count": (RF.range_count, rc_args),
-               "circle_count": (CF.circle_count, cc_args)}
+    # name -> (wrapper, main-path launches, serving-shape launches)
+    kernels = {
+        "range_count": (RF.range_count, rc_args,
+                        [CS.first_queries(a, CS.SERVE_Q) for a in rc_args]),
+        "circle_count": (CF.circle_count, cc_args,
+                         [CS.first_queries(a, CS.SERVE_Q) for a in cc_args]),
+        "join_count": (PIP.join_count, jc_args,
+                       [CS.first_polygons(a, CS.SERVE_POLYGONS)
+                        for a in jc_args])}
 
     def outputs():
         got = [fn() for fn in calls.values()]
-        got += [fn(*a) for fn, args in kernels.values() for a in args]
+        got += [fn(*a) for fn, args, narrow in kernels.values()
+                for a in args + narrow]
         for o in sess.submit_batch(reqs):
             got += list(o) if isinstance(o, tuple) else [o]
         return got
@@ -145,14 +163,17 @@ def main() -> int:
         CS.require(all(torch.equal(a, b) for a, b in zip(got, first)),
                    f"{tree}: outputs differ from the first turn's")
         row = {"tree": tree}
-        for kname, (fn, args) in kernels.items():
+        for kname, (fn, args, narrow) in kernels.items():
             def sweep(fn=fn, args=args):
                 return [fn(*a) for a in args]
             row[kname] = {
                 "ms_per_call": CS.stream_ms(sweep, 20),
                 "enqueue_ms_per_call": CS.cuda_ms(sweep, 50),
                 "ms_per_chunk": [CS.stream_ms(lambda fn=fn, a=a: fn(*a), 20)
-                                 for a in args]}
+                                 for a in args],
+                "serve_shape_ms_per_call": CS.stream_ms(
+                    lambda fn=fn, narrow=narrow: [fn(*a) for a in narrow],
+                    20)}
         for cname, fn in calls.items():
             KERN.reset_launch_counts()
             fn()
@@ -174,7 +195,8 @@ def main() -> int:
         turns.append(row)
         CS.log(f"[ab] {tree}: " + "; ".join(
             f"{k} {row[k]['ms_per_call']:.5f} ms/call (enqueue "
-            f"{row[k]['enqueue_ms_per_call']:.5f})" for k in kernels)
+            f"{row[k]['enqueue_ms_per_call']:.5f}, serving shape "
+            f"{row[k]['serve_shape_ms_per_call']:.5f})" for k in kernels)
             + "; busy " + ", ".join(
                 f"{c} {row[c]['busy_ms']:.3f}"
                 for c in (*calls, "serve_round")))
@@ -195,17 +217,17 @@ def main() -> int:
     # sample); walls end in a synchronise
     walls = {"range_count_1024": (CS.host_ms, calls["range_count_1024"], 9),
              "circle_exact_256": (CS.host_ms, calls["circle_exact_256"], 9),
+             "join_full_32": (CS.host_ms, calls["join_full_32"], 9),
              "serve_round": (CS.host_ms, round_, 3),
              "serve_request_range_count":
                  (CS.host_ms, lambda: sess.submit(*reqs[1]), 5),
              "serve_request_circle_count":
                  (CS.host_ms, lambda: sess.submit(*reqs[3]), 3),
-             "enqueue_range_count_17_launches":
-                 (enqueue_ms, lambda: [RF.range_count(*a) for a in rc_args],
-                  21),
-             "enqueue_circle_count_17_launches":
-                 (enqueue_ms, lambda: [CF.circle_count(*a) for a in cc_args],
-                  21)}
+             "serve_request_join":
+                 (CS.host_ms, lambda: sess.submit(*reqs[5]), 3),
+             **{f"enqueue_{k}_17_launches":
+                (enqueue_ms, lambda fn=fn, args=args: [fn(*a) for a in args],
+                 21) for k, (fn, args, _) in kernels.items()}}
     samples = {w: {"parent": [], "change": []} for w in walls}
     for pair in range(PAIRS):
         for tree in (("parent", "change") if pair % 2 == 0
