@@ -28,7 +28,9 @@ result line):
               ladder does not reach) on the same circles, pruned 10-NN,
               and join_count windowed and full on 32 random polygons.
               Every launch count is set to 0 just before and read just
-              after, with each path's own launches; results held bitwise
+              after, with each path's own launches (a point call must
+              launch the fused point kernel once and nothing else);
+              results held bitwise
               against the plain-PyTorch backend on the card, against each
               other (join windowed == full, pruned d2 == exact d2, circle
               counts == the exact program's) and against a numpy brute
@@ -47,8 +49,9 @@ result line):
               maintain() after each. Each steady round runs with its
               inputs on the card under
               torch.cuda.set_sync_debug_mode("error"), must leave
-              host_syncs where it was, launch the fallback kernels, and
-              equal bitwise the same rounds on a backend="torch" session;
+              host_syncs where it was, launch the fallback kernels (and
+              the point kernel exactly once), and equal bitwise the same
+              rounds on a backend="torch" session;
               counts are held against the exact programs and kNN
               distances against exact kNN. Per round: wall ms, launches,
               what maintain() moved, peak memory; once, a profiler trace
@@ -86,9 +89,14 @@ result line):
               SERVE_Q queries, or SERVE_POLYGONS polygons, of the same
               chunks); each kernel instance's ptxas registers, stack and
               spills go to the report (the three instances must have no
-              stack and no spills); beside point_probe, the floor of one
-              launch on the card: an empty kernel (csrc/launch_floor.cu,
-              on no query path) timed the same way.
+              stack and no spills); point_probe (the fused point query:
+              candidate filter, learned lookup and probe scan in one
+              launch per call, a warp per query and candidate) is held
+              bitwise on two launches in a row and timed, with its
+              registers, stack and spills, and beside it
+              the floor of one launch on the card at its grid: an empty
+              kernel (csrc/launch_floor.cu, on no query path) timed the
+              same way.
 
 Device busy time and idle share come from torch.profiler traces; each
 trace is checked against the wrappers' launch counts (``traced``): a
@@ -214,7 +222,8 @@ def device_profile(fn, reps: int, counts=None) -> dict:
 
 # this port's kernels as the trace names them
 OUR_KERNELS = ("spline_search_kernel", "interval_count_kernel",
-               "point_probe_kernel", "knn_topk_kernel", "morton_kernel")
+               "point_query_kernel", "knn_topk_kernel", "morton_kernel")
+POINT_TRACE = "point_query_kernel"
 # range_count's, circle_count's and the join's instances of the shared
 # interval scan
 RANGE_TRACE = "interval_count_kernel<RectTest>"
@@ -222,14 +231,15 @@ CIRCLE_TRACE = "interval_count_kernel<CircleTest>"
 POLYGON_TRACE = "interval_count_kernel<PolygonTest>"
 
 
-def traced(fn, reps: int) -> tuple:
+def traced(fn, reps: int, counts=None) -> tuple:
     """(device_profile(fn, reps), retention): the share of this port's
     kernel launches during the traced calls (counted by the wrappers)
     that the trace holds, or None when the calls launch none of them.
     A retention below 1 means the trace lost activities, and its busy
-    time is short by about as much."""
+    time is short by about as much. ``counts``, a dict, gets the trace's
+    activities per call by name."""
     from repro_torch import kernels as KERN
-    counts: dict = {}
+    counts = {} if counts is None else counts
     KERN.reset_launch_counts()
     prof = device_profile(fn, reps, counts)
     launched = sum(KERN.launch_counts().values()) * reps / (reps + 1)
@@ -621,6 +631,9 @@ def serve_phase(index, part, x, y, dev) -> tuple:
         require(sx.host_syncs == syncs, f"serve round {i}: host_syncs moved")
         require(all(got[n] > 0 for n in PATH_KERNELS),
                 f"serve round {i}: launches {got}")
+        require(got["point_probe"] == 1,
+                f"serve round {i}: the point request launched "
+                f"{got['point_probe']} point kernels")
         for n, c in got.items():
             launches[n] += c
         for j, (a, b) in enumerate(zip(out, plain.submit_batch(reqs))):
@@ -732,7 +745,6 @@ def main() -> int:
     from repro_torch.core import fit
     from repro_torch.core import keys as K
     from repro_torch.core import local_ops as L
-    from repro_torch.core.backends import TorchBackend
     from repro_torch.data import spatial as ds
     from repro_torch.kernels import _build
     from repro_torch.kernels import circle_filter as CF
@@ -863,6 +875,8 @@ def main() -> int:
         log(f"[main] {name}: first call {first_ms[name]:.1f} ms, tier "
             f"{tiers[name]}, launches {path_launches[name]}, "
             f"max_memory_allocated {peak[name]}")
+    require(path_launches["point_1024"] == {"point_probe": 1},
+            f"point_1024 launched {path_launches['point_1024']}")
     launches = KERN.launch_counts()
     log(f"[main] launches {launches}")
     # every kernel but morton, whose only entry point is its own (phase 7)
@@ -916,13 +930,18 @@ def main() -> int:
         slow = first_ms[name] > 1000
         lat[name] = host_ms(lambda: fn(eng), 1 if slow else 5)
         lat_plain[name] = host_ms(lambda: fn(plain), 1 if slow else 3)
-        prof, kept = traced(lambda: fn(eng), 1 if slow else 3)
+        acts: dict = {}
+        prof, kept = traced(lambda: fn(eng), 1 if slow else 3, acts)
         busy = sum(prof.values())
         top = sorted(prof.items(), key=lambda kv: -kv[1])[:5]
         report["where"][name] = {"device_busy_ms": busy,
                                  "idle_share": 1.0 - busy / lat[name],
                                  "trace_retention": kept,
+                                 "activities_per_call": sum(acts.values()),
                                  "top_device_ms": top}
+        if name == "point_1024":
+            report["where"][name]["activities"] = acts
+            log(f"[where] point_1024 activities per call: {acts}")
         log(f"[latency] {name}: cuda {lat[name]:.3f} ms (device busy "
             f"{busy:.3f} ms, idle share {1.0 - busy / lat[name]:.3f}, "
             f"trace retention {kept}), torch backend "
@@ -989,7 +1008,6 @@ def main() -> int:
     klo, khi = (K.keys_to_f32(v) for v in K.rect_key_range(rect_t, ex.spec))
     q2 = torch.cat([klo, khi + 1.0]).contiguous()
     chunks = list(L._chunks(parts, c))
-    tb = TorchBackend()
     rows = []
 
     def sweep(fn, arglist, **kws):
@@ -1138,34 +1156,66 @@ def main() -> int:
               rc_args, "range_filter", "range_count_1024",
               [first_queries(a, SERVE_Q) for a in rc_args], SERVE_Q))
 
-    # point_probe: the first-match and the overflow candidate sets. Bytes:
-    # the queries, key/x/y over the union of the windows, the output.
+    # point_probe, the fused point query: the main path's call, one
+    # launch, held bitwise on two launches in a row. Bytes (each input
+    # read once): the queries, the grid boxes, the knot-key rows of the
+    # candidate partitions and their two knot positions per (query,
+    # candidate), the keys over the union of the lookup and probe
+    # windows, x and y where a probe-window key equals the query's, the
+    # output; also the bytes of two knot rows and two windows per query.
+    ov = ex.index.overflow
     qxt = torch.as_tensor(qx, device=dev)
     qyt = torch.as_tensor(qy, device=dev)
     qk = K.keys_to_f32(K.make_keys(qxt, qyt, ex.spec))
-    prog = L._PointLocal(ex.index, ex.cfg, tb)
-    pp_args = []
-    for pid in prog.candidates(ex.bounds, qxt, qyt):
-        start = prog.window_starts(parts, pid, qk)
-        pp_args.append((pid.to(torch.int32), start.to(torch.int32), qk, qxt,
-                        qyt, parts["keys_f"], parts["x"], parts["y"]))
+    kk, kp, keys_f = parts["knot_keys"], parts["knot_pos"], parts["keys_f"]
+    pq_args = (ex.bounds, kk, kp, keys_f, parts["x"], parts["y"],
+               parts["count"], qxt, qyt, qk)
+    pq_kw = dict(overflow=ov, probe=probe)
+    want = PP.point_query_plain(*pq_args, **pq_kw)
+    require(torch.equal(want, res["point_1024"].to(torch.int32)),
+            "point_query_plain vs the main path's point call")
     err = 0
-    for a in pp_args:
-        err = max(err, int((PP.point_probe(*a, probe=probe) -
-                            PP.point_probe_plain(*a, probe=probe)
-                            ).abs().max()))
-    t = timed(sweep(PP.point_probe, pp_args, probe=probe), 100,
-              "point_probe_kernel")
-    pt = timed(sweep(PP.point_probe_plain, pp_args, probe=probe), 10)
-    nq = qk.shape[0]
-    flat = torch.cat([a[0].to(torch.int64) * n_pad + a[1]
-                      for a in pp_args])[None, :]
-    win = covered(flat, flat + probe, p_total * n_pad)
-    entry("point_probe", err, t, pt,
-          len(pp_args) * nq * 24 + 12 * win + 4 * len(pp_args) * nq,
-          3 * len(pp_args) * nq * probe, None, "point_1024",
-          extra={"launch_floor": launch_floor(len(pp_args),
-                                              -(-nq // 8), 256)})
+    for _ in range(2):
+        got = PP.point_query(*pq_args, **pq_kw)
+        require(torch.equal(got, want), "point_query vs plain")
+        err = max(err, int((got - want).abs().max()))
+    t = timed(lambda: PP.point_query(*pq_args, **pq_kw), 100, POINT_TRACE)
+    pt = timed(lambda: PP.point_query_plain(*pq_args, **pq_kw), 10)
+    nq, m = qk.shape[0], kk.shape[1]
+    pid1 = PP.first_box(ex.bounds, qxt, qyt, ov)
+    pids = torch.cat([pid1, torch.full_like(pid1, ov)])
+    qk2 = torch.cat([qk, qk])
+    # the lookup window's start, from lower_bound_plain's own steps
+    krow, prow = kk[pids], kp[pids]
+    seg = ((krow < qk2[:, None]).sum(1, keepdim=True) - 1).clamp(0, m - 2)
+    phat = SS.interpolate(qk2[:, None], krow.gather(1, seg),
+                          krow.gather(1, seg + 1), prow.gather(1, seg),
+                          prow.gather(1, seg + 1))[:, 0]
+    start = (torch.round(phat).to(torch.int64) - probe // 2).clamp(
+        0, n_pad - probe)
+    pos = PP.lower_bound_plain(kk, kp, keys_f, parts["count"], pids, qk2,
+                               probe=probe)
+    s2 = (pos - probe // 2).clamp(0, n_pad - probe)
+    lo = (torch.cat([start, s2]) + torch.cat([pids, pids]) * n_pad)[None]
+    cols = s2[:, None] + torch.arange(probe, device=dev)
+    eq = keys_f[pids[:, None], cols] == qk2[:, None]
+    xy_at = torch.unique((pids[:, None] * n_pad + cols)[eq]).numel()
+    nbytes = (12 * nq + 16 * ov + 4 * m * torch.unique(pids).numel() +
+              8 * torch.unique(pids * m + seg[:, 0]).numel() +
+              4 * covered(lo, lo + probe, p_total * n_pad) + 8 * xy_at +
+              4 * nq)
+    rows_windows = 12 * nq + 16 * ov + 2 * nq * 4 * (m + probe) + 4 * nq
+    # operations: the box tests up to each point's first box, the knot
+    # row's and both windows' compares, about ten for the interpolation
+    nops = (4 * int((pid1 + 1).clamp(max=ov).sum()) +
+            2 * nq * (m + 2 * probe + 10))
+    blocks = -(-2 * nq * 32 // 256)     # a warp per (query, candidate)
+    ptx = ptxas_summary(report["ptxas"]["point_probe"])
+    entry("point_probe", err, t, pt, nbytes, nops, None, "point_1024",
+          extra={"grid": [blocks, 256], "ptxas": ptx,
+                 "bound_ms_two_rows_two_windows_per_query":
+                     rows_windows / PEAK_BYTES * 1e3,
+                 "launch_floor": launch_floor(1, blocks, 256)})
 
     # knn_topk: every chunk. Bytes: the queries, x and y of the valid
     # points, the outputs.

@@ -7,16 +7,20 @@ Every local program in ``core/local_ops.py`` is staged:
   scan     the per-partition point work inside those bounds;
   merge    the cross-partition reduction — owned by the program.
 
-A backend supplies lookup and scan. Both take a whole chunk of
+A backend supplies lookup and scan, and the point program whole
+(``point_query``: its candidates, lookup, scan and merge are one kernel
+on the cuda backend). Lookup and scan take a whole chunk of
 partitions per call (every leaf has a leading partition axis), so one
 kernel launch covers the chunk: the kernels put the partition axis in
 their grid.
 
   torch   the plain PyTorch stages (the kernels' plain versions), on any
           device; bitwise the JAX package's ``xla`` backend.
-  cuda    routes lower_bound, range_scan, circle_scan, point_scan,
-          knn_scan and join_scan to the hand-written CUDA kernels in
-          ``repro_torch/kernels``.
+  cuda    routes lower_bound, range_scan, circle_scan, knn_scan and
+          join_scan to the hand-written CUDA kernels in
+          ``repro_torch/kernels``, and the point program whole
+          (point_query: candidates, lookup, scan and merge) to one
+          kernel launch.
 
 The windowed programs' gathers (``core/queries.py``) are plain PyTorch
 under both backends, as the reference keeps them on the XLA gather path.
@@ -104,16 +108,16 @@ class TorchBackend:
         return _pip.join_count_plain(polys, n_edges, mbrs, s, e, active,
                                      ch["count"], ch["x"], ch["y"])
 
-    def point_windows(self, parts, pid, start, probe: int):
-        """Each query's (probe,) key/x/y window from ITS partition."""
-        return _pp.gather_windows(pid, start, probe, parts["keys_f"],
-                                  parts["x"], parts["y"])
-
-    def point_scan(self, parts, pid, start, qkf, qx, qy, *, probe: int):
-        """(Q,) exact membership: equality probe of the window
-        [start, start+probe) of each query's partition."""
-        wk, wx, wy = self.point_windows(parts, pid, start, probe)
-        return _pp.count_matches(qkf, qx, qy, wk, wx, wy) > 0
+    def point_query(self, parts, bounds, qx, qy, qkf, *, overflow: int,
+                    probe: int):
+        """(Q,) int32 exact membership: each point's first-match grid
+        partition and the overflow grid, the learned lookup in each and
+        the equality probe of the window around it, merged."""
+        return _pp.point_query_plain(bounds, parts["knot_keys"],
+                                     parts["knot_pos"], parts["keys_f"],
+                                     parts["x"], parts["y"], parts["count"],
+                                     qx, qy, qkf, overflow=overflow,
+                                     probe=probe)
 
     def knn_scan(self, ch, qx, qy, k: int):
         """Per-partition kNN candidates: (neg_d2, vid), (C, Q, k) each,
@@ -156,11 +160,14 @@ class CudaBackend(TorchBackend):
                                _active(active, s), ch["count"], ch["x"],
                                ch["y"])
 
-    def point_scan(self, parts, pid, start, qkf, qx, qy, *, probe: int):
-        hits = _pp.point_probe(pid.to(torch.int32), start.to(torch.int32),
-                               qkf, qx, qy, parts["keys_f"], parts["x"],
-                               parts["y"], probe=probe)
-        return hits > 0
+    def point_query(self, parts, bounds, qx, qy, qkf, *, overflow: int,
+                    probe: int):
+        return _pp.point_query(bounds.contiguous(), parts["knot_keys"],
+                               parts["knot_pos"], parts["keys_f"],
+                               parts["x"], parts["y"], parts["count"],
+                               qx.contiguous(), qy.contiguous(),
+                               qkf.contiguous(), overflow=overflow,
+                               probe=probe)
 
     def knn_scan(self, ch, qx, qy, k: int):
         neg, idx = _knn.knn_topk(qx, qy, ch["count"], ch["x"], ch["y"],

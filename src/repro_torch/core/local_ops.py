@@ -208,37 +208,16 @@ class _LocalFn:
 
 class _PointLocal(_LocalFn):
     """Point probe, query-centric: each query touches only its
-    first-match grid partition and the overflow grid (paper Alg. 1).
-    Lookup: ``Q.lower_bound_at`` per query; scan: the backend's
-    point_scan over the probe window (one launch per candidate set)."""
+    first-match grid partition and the overflow grid (paper Alg. 1). The
+    whole program (candidates, lookup, scan, merge) is the backend's
+    point_query stage: one kernel launch on the cuda backend."""
 
     n_query_args = 3
 
-    def candidates(self, bounds, qx, qy):
-        """(Q,) first matching grid partition of each point (the overflow
-        grid when none matches), and (Q,) the overflow grid."""
-        ov = self.overflow
-        inb = Q.point_in_box(qx, qy, bounds[:ov])                 # (Q, G)
-        col = torch.arange(inb.shape[1], device=qx.device)
-        cand = torch.where(inb, col, ov)
-        pid1 = torch.cat([cand, torch.full_like(cand[:, :1], ov)], 1).amin(1)
-        return pid1, torch.full_like(pid1, ov)
-
-    def window_starts(self, parts, pid, qk):
-        """(Q,) probe-window start around each key's learned position in
-        its partition ``pid`` (the lookup stage)."""
-        probe = self.kw["probe"]
-        pos = Q.lower_bound_at(parts, pid, qk, probe=probe)
-        return torch.clamp(pos - probe // 2, 0, self.n_pad - probe)
-
     def __call__(self, parts, bounds, qx, qy, qk):
-        found = None
-        for pid in self.candidates(bounds, qx, qy):
-            start = self.window_starts(parts, pid, qk)            # lookup
-            hit = self.backend.point_scan(parts, pid, start, qk, qx, qy,
-                                          probe=self.kw["probe"])  # scan
-            found = hit if found is None else found | hit          # merge
-        return found.to(torch.int32)
+        return self.backend.point_query(parts, bounds, qx, qy, qk,
+                                        overflow=self.overflow,
+                                        probe=self.kw["probe"])
 
 
 class _RangeCountLocal(_LocalFn):

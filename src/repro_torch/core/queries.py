@@ -1,10 +1,11 @@
 """Local query primitives (paper §4) on torch tensors.
 
 The learned search against a chunk of partitions is the ``spline_search``
-kernel's plain version (``kernels/spline_search.py``); this module holds
-the per-query lookups (the point path's, and the windowed gathers'
-against each query's candidate partitions), the windowed gathers, and
-the global filter's geometry. The ray-casting test is the
+kernel's plain version (``kernels/spline_search.py``), and the point
+path's per-query lookup (``lower_bound_at``) is the point kernel's
+(``kernels/point_probe.py``); this module holds the windowed gathers'
+lookups against each query's candidate partitions, the windowed gathers,
+and the global filter's geometry. The ray-casting test is the
 ``point_in_polygon`` kernel's plain version.
 
 The windowed gathers have no kernel, as in the reference, where they
@@ -26,6 +27,8 @@ from repro_torch._num import fma_f32
 from repro_torch.core import keys as K
 from repro_torch.kernels.point_in_polygon import (  # noqa: F401
     point_in_polygon_plain as point_in_polygon)
+from repro_torch.kernels.point_probe import (  # noqa: F401
+    lower_bound_plain, point_in_box)
 from repro_torch.kernels.spline_search import interpolate
 
 
@@ -35,24 +38,11 @@ def lower_bound_at(parts, pid, qkf, *, probe: int):
     parts: full (P, ...) dict; pid (Q,) int64, qkf (Q,) f32. Each query
     compares against its whole (+inf padded) knot row; the knot rows are
     short, so this beats gathering the radix row. Returns (Q,) int64.
+    The body is the point kernel's plain lookup (``kernels/point_probe``).
     """
-    n_pad = parts["keys_f"].shape[1]
-    m = parts["knot_keys"].shape[1]
-    krow = parts["knot_keys"][pid]                     # (Q, m)
-    prow = parts["knot_pos"][pid]
-    succ = (krow < qkf[:, None]).sum(1, keepdim=True)
-    seg = torch.clamp(succ - 1, 0, m - 2)
-    phat = interpolate(qkf[:, None], torch.gather(krow, 1, seg),
-                       torch.gather(krow, 1, seg + 1),
-                       torch.gather(prow, 1, seg),
-                       torch.gather(prow, 1, seg + 1))[:, 0]
-    start = torch.clamp(torch.round(phat).to(torch.int64) - probe // 2,
-                        0, n_pad - probe)
-    win = parts["keys_f"][pid[:, None],
-                          start[:, None] + torch.arange(probe,
-                                                        device=pid.device)]
-    pos = start + (win < qkf[:, None]).sum(1)
-    return torch.minimum(pos, parts["count"][pid].to(torch.int64))
+    return lower_bound_plain(parts["knot_keys"], parts["knot_pos"],
+                             parts["keys_f"], parts["count"], pid, qkf,
+                             probe=probe)
 
 
 def bounds_on_rows(parts, pid, qk, *, probe: int):
@@ -212,12 +202,6 @@ def rect_overlaps_box(rects, boxes):
                       rects[:, 3:4])
     bxl, byl, bxh, byh = boxes[:, 0], boxes[:, 1], boxes[:, 2], boxes[:, 3]
     return (xl <= bxh) & (xh >= bxl) & (yl <= byh) & (yh >= byl)
-
-
-def point_in_box(qx, qy, boxes):
-    """(Q, P) containment of query points in partition boxes."""
-    return ((qx[:, None] >= boxes[:, 0]) & (qx[:, None] <= boxes[:, 2]) &
-            (qy[:, None] >= boxes[:, 1]) & (qy[:, None] <= boxes[:, 3]))
 
 
 def box_min_dist2(qx, qy, boxes):

@@ -241,24 +241,157 @@ def skewed_intervals(kind, c, nq, n_pad, grid, seed):
     return s, e, active, count
 
 
-def test_gpu_point_probe_matches_plain(index, cuda):
-    _, _, idx = index
-    rng = np.random.default_rng(5)
-    nq, (p_tot, n_pad), probe = 300, idx.x.shape, idx.probe
-    cnt = idx.count.numpy()
-    pid = rng.integers(0, 6, nq).astype(np.int32)
-    pos = (rng.random(nq) * cnt[pid]).astype(np.int64)
-    keys_f = K.keys_to_f32(idx.key).numpy()
-    px, py = idx.x.numpy(), idx.y.numpy()
-    qk, qx, qy = keys_f[pid, pos], px[pid, pos].copy(), py[pid, pos].copy()
-    qx[rng.random(nq) < 0.3] += 1e-3            # misses
-    start = np.clip(pos - probe // 2, 0, n_pad - probe).astype(np.int32)
-    start[0], start[-1] = 0, n_pad - probe      # both ends of the row
-    pid[-1] = p_tot - 1                         # an empty padding row
-    args = _on(cuda, pid, start, qk, qx, qy, keys_f, px, py)
-    got = t_pp.point_probe(*args, probe=probe)
-    assert (got > 1).any()                      # duplicates counted
-    assert torch.equal(got, t_pp.point_probe_plain(*args, probe=probe))
+# -- the point query's fused kernel --------------------------------------
+
+POINT_CASES = ["kdtree_dups", "rtree_overflow", "small_parts"]
+
+
+def point_points(case, fit_fn):
+    """(x, y, partitioner from ``fit_fn``) of each point-query index case
+    (the port's ``fit`` and the JAX package's give the same boxes):
+    taxi points with duplicates and a run of 151 equal points on kdtree
+    boxes that share edges; gaussian points on R-tree leaves, whose
+    overflow grid holds data; 200 points on 12 kdtree partitions, each
+    holding fewer than the probe width."""
+    if case == "kdtree_dups":
+        x, y = ds.make("taxi", 4000, seed=3)
+        dup = np.random.default_rng(0).integers(0, 4000, 500)
+        run = np.full(150, dup[0])
+        ix = np.concatenate([np.arange(4000), dup, run])
+        x, y = x[ix], y[ix]
+        return x, y, fit_fn("kdtree", x, y, 6, seed=0)
+    if case == "rtree_overflow":
+        x, y = ds.make("gaussian", 3000, seed=5)
+        return x, y, fit_fn("rtree", x, y, 9, sample_rate=0.02, seed=1)
+    if case == "small_parts":
+        x, y = ds.make("uniform", 180, seed=6)
+        x, y = np.concatenate([x, x[:20]]), np.concatenate([y, y[:20]])
+        return x, y, fit_fn("kdtree", x, y, 12, seed=0)
+    raise ValueError(case)
+
+
+def point_queries(x, y, bounds, overflow, n_data=96):
+    """Data points (with duplicates), misses one ulp away (a denormal
+    next to 0.0 among them) and at random, points on edges two grid
+    boxes share, points in no grid box, and every grid box's corners
+    (keys below the first knot and above the last)."""
+    rng = np.random.default_rng(7)
+    ix = rng.integers(0, len(x), n_data)
+    data_x, data_y = x[ix], y[ix]
+    miss_x = np.nextafter(data_x[:32], np.float32(np.inf))
+    miss_y = data_y[:32].copy()
+    rand = rng.random((2, 32)).astype(np.float32)
+    g = bounds[:overflow]
+    shared = []
+    for i in range(overflow):
+        for j in range(i + 1, overflow):
+            lo = np.maximum(g[i, :2], g[j, :2])
+            hi = np.minimum(g[i, 2:], g[j, 2:])
+            if (lo <= hi).all():
+                shared.append((lo + hi) / 2)
+    shared = np.asarray(shared[:24], np.float32).reshape(-1, 2)
+    outside = np.asarray([[-0.25, 0.5], [1.5, 1.5], [0.5, -3.0]],
+                         np.float32)
+    corners = np.concatenate([g[:, :2], g[:, 2:], g[:, [0, 3]]])
+    qx = np.concatenate([data_x, miss_x, rand[0], shared[:, 0],
+                         outside[:, 0], corners[:, 0]])
+    qy = np.concatenate([data_y, miss_y, rand[1], shared[:, 1],
+                         outside[:, 1], corners[:, 1]])
+    return qx.astype(np.float32), qy.astype(np.float32)
+
+
+def point_args(ex, qx, qy, dev):
+    """``point_query``'s arguments for executor ``ex``'s index on
+    ``dev``, and its keywords."""
+    parts = ex.parts
+    qxt = torch.as_tensor(np.asarray(qx, np.float32))
+    qyt = torch.as_tensor(np.asarray(qy, np.float32))
+    qk = K.keys_to_f32(K.make_keys(qxt, qyt, ex.spec))
+    args = [ex.bounds, parts["knot_keys"], parts["knot_pos"],
+            parts["keys_f"], parts["x"], parts["y"], parts["count"], qxt,
+            qyt, qk]
+    return ([a.to(dev).contiguous() for a in args],
+            dict(overflow=ex.index.overflow, probe=ex.index.probe))
+
+
+@pytest.fixture(scope="module", params=POINT_CASES)
+def point_case(request):
+    """A port executor (CPU) on each point case's index, and the
+    adversarial queries; kdtree_dups has n_pad at its largest count, so
+    windows clamp at n_pad - probe."""
+    x, y, part = point_points(request.param, fit)
+    idx = build_index(x, y, part, device="cpu")
+    if request.param == "kdtree_dups":
+        idx = build_index(x, y, part, device="cpu",
+                          n_pad=int(idx.count.max()) + 3)
+    ex = SpatialEngine(idx, device="cpu").executor
+    qx, qy = point_queries(x, y, ex.bounds.numpy(), ex.index.overflow)
+    return ex, qx, qy
+
+
+def test_gpu_point_probe_matches_plain(point_case, cuda):
+    """The fused point kernel, twice in a row under sync-debug "error",
+    bitwise its plain version on the card and on the CPU, on the
+    adversarial cases; one launch per call."""
+    ex, qx, qy = point_case
+    args, kw = point_args(ex, qx, qy, cuda)
+    want = t_pp.point_query_plain(*args, **kw)
+    n0 = t_pp.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        a = t_pp.point_query(*args, **kw)
+        b = t_pp.point_query(*args, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert t_pp.launches == n0 + 2
+    assert torch.equal(a, want) and torch.equal(b, want)
+    cpu_args, _ = point_args(ex, qx, qy, "cpu")
+    assert torch.equal(a.cpu(), t_pp.point_query(*cpu_args, **kw))
+    assert bool(want.any()) and not bool(want.all())
+
+
+@pytest.mark.parametrize("nq", [0, 1, 31, 32, 33, 1024, 4096])
+def test_gpu_point_query_batch_sizes(index, cuda, nq):
+    """Batches around the warp and block edges, half data points (with
+    duplicates), the rest misses one ulp away and random points."""
+    x, y, idx = index
+    ex = SpatialEngine(idx, device="cpu").executor
+    rng = np.random.default_rng(nq)
+    ix = rng.integers(0, len(x), nq)
+    qx, qy = x[ix].copy(), y[ix].copy()
+    qx[nq // 2:] = np.nextafter(qx[nq // 2:], np.float32(np.inf))
+    qx[3 * nq // 4:] = rng.random(nq - 3 * nq // 4).astype(np.float32)
+    args, kw = point_args(ex, qx, qy, cuda)
+    n0 = t_pp.launches
+    got = t_pp.point_query(*args, **kw)
+    assert t_pp.launches == n0 + (1 if nq else 0)
+    assert got.shape == (nq,) and got.dtype == torch.int32
+    assert torch.equal(got, t_pp.point_query_plain(*args, **kw))
+    assert bool(got[:nq // 2].all())
+
+
+def test_gpu_point_query_one_launch_per_call(cuda):
+    """The engine's point query on the cuda backend: one launch of the
+    fused kernel and no other kernel per call, bitwise the torch
+    backend's."""
+    x, y = ds.make("taxi", 20000, seed=0)
+    idx = build_index(x, y, fit("kdtree", x, y, 16, seed=0), device=cuda)
+    eng = SpatialEngine(idx, device=cuda)
+    plain = SpatialEngine(idx, EngineConfig(backend="torch"), device=cuda)
+    rng = np.random.default_rng(2)
+    ix = rng.integers(0, len(x), 300)
+    qx = torch.as_tensor(np.concatenate([x[ix], rng.random(100).astype(
+        np.float32)]), device=cuda)
+    qy = torch.as_tensor(np.concatenate([y[ix], rng.random(100).astype(
+        np.float32)]), device=cuda)
+    for _ in range(3):
+        KERN.reset_launch_counts()
+        got = eng.point_query(qx, qy)
+        launched = {n: c for n, c in KERN.launch_counts().items() if c}
+        assert launched == {"point_probe": 1}
+        assert torch.equal(got, plain.point_query(qx, qy))
+        assert bool(got[:300].all())
 
 
 @pytest.mark.parametrize("k", [1, 10, 40, 100])

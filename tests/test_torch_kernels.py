@@ -173,9 +173,9 @@ def test_point_probe_plain_vs_ref_and_pallas(jidx, nq):
     pid, start, qk, qx, qy = _point_inputs(idx, nq, nq)
     keys_f = np.asarray(JK.keys_to_f32(idx.key))
     probe = idx.probe
-    got = t_pp.point_probe(_t(pid), _t(start), _t(qk), _t(qx), _t(qy),
-                           _t(keys_f), _t(idx.x), _t(idx.y),
-                           probe=probe).numpy()
+    got = t_pp.point_probe_plain(_t(pid), _t(start), _t(qk), _t(qx),
+                                 _t(qy), _t(keys_f), _t(idx.x), _t(idx.y),
+                                 probe=probe).numpy()
     lanes = start[:, None] + np.arange(probe)[None, :]
     win = [jnp.asarray(np.asarray(a)[pid[:, None], lanes])
            for a in (keys_f, idx.x, idx.y)]

@@ -1,35 +1,41 @@
 #!/usr/bin/env python3
-"""Time this tree's interval-scan kernels (range_count, circle_count and
-the join's point_in_polygon) against another tree's (a parent commit's),
-in one process on one CUDA card.
+"""Time this tree's point query (the fused point kernel, one launch per
+call) against another tree's (a parent commit's staged point program:
+the candidate filter and learned lookup in PyTorch, then one point_probe
+launch per candidate set), with this tree's range count and exact circle
+program as controls, in one process on one CUDA card.
 
     mkdir -p build/parent && git archive <parent> | tar -x -C build/parent
     python3 tools/ab_parent.py build/parent
 
-The other tree's csrc/range_filter.cu, csrc/circle_filter.cu and
-csrc/point_in_polygon.cu are built from its own csrc directory beside
-this tree's. Their launchers take the same arguments, so swapping the
-loaded libraries under this tree's wrappers changes nothing else. On
-chip_smoke.py's index and queries (taxi, 2^23 points, kdtree with 128
-partitions; 32 polygons for the full join):
+The other tree must hold the staged point program (``core/local_ops.py``
+``_PointLocal`` calling its backend's ``point_scan``), as commit
+57320f9 does. Its ``core/queries.py``, ``core/backends.py``,
+``core/local_ops.py`` and ``kernels/point_probe.py`` are loaded from its
+files under other module names, and its ``csrc/point_probe.cu``,
+``csrc/range_filter.cu`` and ``csrc/circle_filter.cu`` are built beside
+this tree's. In the other tree's turns the executor runs the other
+tree's ``_PointLocal`` on its backend and kernel; the range count and
+the exact circle program run the other tree's two interval-scan
+libraries under this tree's wrappers (the same code in 57320f9, so
+their rows are the control). On chip_smoke.py's index and queries (taxi,
+2^23 points, kdtree with 128 partitions; 1,024 point queries, half of
+them data points):
 
-  - in turns (parent, change, change, parent): each kernel's device time
-    per main-path call, per chunk and per call at the serving shape (the
-    first 16 queries, or 4 polygons, of the same chunks), all from CUDA
-    events with the stream held busy (chip_smoke.stream_ms), the host's
-    time to enqueue a call's launches (chip_smoke.cuda_ms), and the
-    device busy time (a profiler trace) of the 1,024-rect range count,
-    of the exact circle program on 256 circles, of the full join of 32
-    polygons and of a steady serving round at q = 16, which also runs
-    once under torch.cuda.set_sync_debug_mode("error") with host_syncs
-    held;
+  - in turns (parent, change, change, parent): the point call's kernel
+    device time (the other tree's two launches, or this tree's one,
+    from CUDA events with the stream held busy: chip_smoke.stream_ms)
+    and the whole call's device time the same way; the device busy time
+    (a profiler trace) of the point call, of the 1,024-rect range count,
+    of the exact circle program on 256 circles, and of a steady serving
+    round at q = 16, which also runs once under
+    torch.cuda.set_sync_debug_mode("error") with host_syncs held; each
+    call's launches;
   - in PAIRS interleaved pairs, alternating which tree goes first: the
-    wall time (median of a few synchronised calls) of the range count,
-    the exact circle program, the full join, the serving round and its
-    range-count, circle and join requests, and the host's time to
-    enqueue one call's 17 launches of each kernel (no synchronise in the
-    timed region); per metric, each tree's median and quartiles over the
-    pairs and the pairs the change won.
+    wall time (median of a few synchronised calls) of the point call,
+    the range count, the exact circle program, the serving round and
+    its point request; per metric, each tree's median and quartiles
+    over the pairs and the pairs the change won.
 
 Every turn's outputs must equal the first turn's bit for bit. Writes
 chiprun_out/ab_parent.json and prints one line per turn and per metric.
@@ -37,11 +43,11 @@ chiprun_out/ab_parent.json and prints one line per turn and per metric.
 from __future__ import annotations
 
 import ctypes
+import importlib.util
 import json
 import statistics
 import subprocess
 import sys
-import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -49,20 +55,25 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke as CS  # noqa: E402  (puts src/ on the path)
 
-SOURCES = ("range_filter", "circle_filter", "point_in_polygon")
+SOURCES = ("range_filter", "circle_filter", "point_probe")
 ORDER = ("parent", "change", "change", "parent")
 PAIRS = 20
 
 
-def build_other(tree: Path) -> dict:
+def load_other(tree: Path, rel: str, name: str):
+    """The other tree's module ``src/repro_torch/<rel>``, loaded as
+    ``name``; its own imports resolve to this tree's package."""
+    spec = importlib.util.spec_from_file_location(
+        name, tree / "src" / "repro_torch" / rel)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def build_other(tree: Path, sigs: dict) -> dict:
     """Build the other tree's sources, one nvcc each, all at once; load
-    them with this tree's signatures (where the function exists)."""
+    them with ``sigs`` ({source: {function: argtypes}})."""
     from repro_torch.kernels import _build
-    from repro_torch.kernels import circle_filter as CF
-    from repro_torch.kernels import point_in_polygon as PIP
-    from repro_torch.kernels import range_filter as RF
-    sigs = {"range_filter": RF._SIG, "circle_filter": CF._SIG,
-            "point_in_polygon": PIP._SIG}
     out = _build.BUILD_DIR / "parent"
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -80,9 +91,8 @@ def build_other(tree: Path) -> dict:
                                f"{log}")
         lib = ctypes.CDLL(str(out / f"lib{name}.so"))
         for fn, argtypes in sigs[name].items():
-            if hasattr(lib, fn):
-                getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = ctypes.c_int
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
         lib.repro_error_string.argtypes = [ctypes.c_int]
         lib.repro_error_string.restype = ctypes.c_char_p
         libs[name] = lib
@@ -97,89 +107,108 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("ab_parent: no CUDA device", file=sys.stderr)
         return 2
-    from repro_torch import kernels as KERN
     from repro_torch.core import SpatialEngine
-    from repro_torch.core import keys as K
+    from repro_torch.core import local_ops as L
     from repro_torch.kernels import _build
     from repro_torch.kernels import circle_filter as CF
-    from repro_torch.kernels import point_in_polygon as PIP
+    from repro_torch.kernels import point_probe as PP
     from repro_torch.kernels import range_filter as RF
     from repro_torch.serve import SpatialServeSession
 
+    tree = Path(sys.argv[1]).resolve()
+    # the other tree's point program: its queries, kernel wrapper,
+    # backend and local program, each bound to the other's module
+    o_pp = load_other(tree, "kernels/point_probe.py", "other_point_probe")
+    o_q = load_other(tree, "core/queries.py", "other_queries")
+    o_bk = load_other(tree, "core/backends.py", "other_backends")
+    o_bk._pp = o_pp
+    o_l = load_other(tree, "core/local_ops.py", "other_local_ops")
+    o_l.Q = o_q
+
+    class OtherPoint(o_l._PointLocal):
+        """The other tree's _PointLocal on its cuda backend, built where
+        the executor builds this tree's."""
+
+        def __init__(self, index, cfg, backend):
+            del backend
+            super().__init__(index, cfg, o_bk.CudaBackend())
+
     dev = torch.device(CS.DEVICE)
     card = CS.card_line()
-    libs = {"parent": build_other(Path(sys.argv[1]).resolve()),
+    libs = {"parent": build_other(tree, {"range_filter": RF._SIG,
+                                         "circle_filter": CF._SIG,
+                                         "point_probe": o_pp._SIG}),
             "change": {n: _build.load(n, m._SIG)
-                       for n, m in zip(SOURCES, (RF, CF, PIP))}}
+                       for n, m in zip(SOURCES, (RF, CF, PP))}}
+    programs = {"parent": OtherPoint, "change": L._PointLocal}
+    kernels = {"parent": o_pp, "change": PP}
     x, y, part, index, _, _ = CS.full_index(dev)
-    (_, _, rects, _, _, _, cx, cy, cr, polys,
-     ne) = CS.main_inputs(x, y, part)
+    qx, qy, rects, _, _, _, cx, cy, cr, _, _ = CS.main_inputs(x, y, part)
     eng = SpatialEngine(index, device=dev)
     ex = eng.executor
-    rect_t = torch.as_tensor(rects, device=dev)
-    klo, khi = (K.keys_to_f32(v) for v in K.rect_key_range(rect_t, ex.spec))
-    rc_args = CS.count_launch_args(ex, rect_t, klo, khi)
-    crect, cklo, ckhi, ccirc = ex._circle_args((cx, cy, cr))
-    cc_args = CS.count_launch_args(ex, crect, cklo, ckhi, ccirc)
-    jc_args = CS.join_launch_args(ex, polys, ne)
-    calls = {"range_count_1024": lambda: eng.range_count(rects),
+    qxt, qyt = (torch.as_tensor(a, device=dev) for a in (qx, qy))
+    calls = {"point_1024": lambda: eng.point_query(qxt, qyt),
+             "range_count_1024": lambda: eng.range_count(rects),
              "circle_exact_256":
-                 lambda: ex._circle_exact(ex._circle_args((cx, cy, cr))),
-             "join_full_32": lambda: eng.join_count(polys, ne, mode="full")}
+                 lambda: ex._circle_exact(ex._circle_args((cx, cy, cr)))}
     sess = SpatialServeSession(index, device=dev)
-    sess.warmup(CS.serve_round(x, y, part, 0, dev))
     reqs = CS.serve_round(x, y, part, 1, dev)
-    # name -> (wrapper, main-path launches, serving-shape launches)
-    kernels = {
-        "range_count": (RF.range_count, rc_args,
-                        [CS.first_queries(a, CS.SERVE_Q) for a in rc_args]),
-        "circle_count": (CF.circle_count, cc_args,
-                         [CS.first_queries(a, CS.SERVE_Q) for a in cc_args]),
-        "join_count": (PIP.join_count, jc_args,
-                       [CS.first_polygons(a, CS.SERVE_POLYGONS)
-                        for a in jc_args])}
+
+    def use(tree_):
+        for name in SOURCES:
+            _build._libs[name] = libs[tree_][name]
+        L._PointLocal = programs[tree_]
+
+    # each tree's point-kernel launches of one point call, captured
+    launch_args = {}
+    for tree_, mod in kernels.items():
+        use(tree_)
+        name = "point_probe" if tree_ == "parent" else "point_query"
+        wrapper, got = getattr(mod, name), []
+
+        def capture(*a, _w=wrapper, _got=got, **kw):
+            _got.append((a, kw))
+            return _w(*a, **kw)
+
+        setattr(mod, name, capture)
+        calls["point_1024"]()
+        setattr(mod, name, wrapper)
+        launch_args[tree_] = (wrapper, got)
+    use("parent")
+    sess.warmup(CS.serve_round(x, y, part, 0, dev))
 
     def outputs():
         got = [fn() for fn in calls.values()]
-        got += [fn(*a) for fn, args, narrow in kernels.values()
-                for a in args + narrow]
         for o in sess.submit_batch(reqs):
             got += list(o) if isinstance(o, tuple) else [o]
         return got
 
-    def use(tree):
-        for name in SOURCES:
-            _build._libs[name] = libs[tree][name]
-
     def round_():
         return sess.submit_batch(reqs)
 
+    def point_kernels(tree_):
+        wrapper, got = launch_args[tree_]
+        return lambda: [wrapper(*a, **kw) for a, kw in got]
+
     turns, first = [], None
-    for tree in ORDER:
-        use(tree)
+    for tree_ in ORDER:
+        use(tree_)
         got = outputs()
         if first is None:
             first = got
         CS.require(all(torch.equal(a, b) for a, b in zip(got, first)),
-                   f"{tree}: outputs differ from the first turn's")
-        row = {"tree": tree}
-        for kname, (fn, args, narrow) in kernels.items():
-            def sweep(fn=fn, args=args):
-                return [fn(*a) for a in args]
-            row[kname] = {
-                "ms_per_call": CS.stream_ms(sweep, 20),
-                "enqueue_ms_per_call": CS.cuda_ms(sweep, 50),
-                "ms_per_chunk": [CS.stream_ms(lambda fn=fn, a=a: fn(*a), 20)
-                                 for a in args],
-                "serve_shape_ms_per_call": CS.stream_ms(
-                    lambda fn=fn, narrow=narrow: [fn(*a) for a in narrow],
-                    20)}
+                   f"{tree_}: outputs differ from the first turn's")
+        row = {"tree": tree_,
+               "point_kernel_ms_per_call": CS.stream_ms(point_kernels(tree_),
+                                                        20),
+               "point_kernel_launches_per_call": len(launch_args[tree_][1]),
+               "point_call_device_ms": CS.stream_ms(calls["point_1024"], 20)}
         for cname, fn in calls.items():
-            KERN.reset_launch_counts()
-            fn()
-            row[cname] = {"busy_ms": sum(CS.device_profile(fn, 3).values()),
-                          "launches": {n: c for n, c in
-                                       KERN.launch_counts().items() if c}}
+            acts: dict = {}
+            prof, kept = CS.traced(fn, 3, acts)
+            row[cname] = {"busy_ms": sum(prof.values()),
+                          "trace_retention": kept,
+                          "activities_per_call": sum(acts.values())}
         torch.cuda.synchronize()
         syncs = sess.stats()["host_syncs"]
         torch.cuda.set_sync_debug_mode("error")
@@ -188,53 +217,32 @@ def main() -> int:
         finally:
             torch.cuda.set_sync_debug_mode(0)
         CS.require(sess.stats()["host_syncs"] == syncs,
-                   f"{tree}: a steady serving round read the device")
+                   f"{tree_}: a steady serving round read the device")
         row["serve_round"] = {
             "busy_ms": sum(CS.device_profile(round_, 1).values()),
             "host_syncs_added": 0}
         turns.append(row)
-        CS.log(f"[ab] {tree}: " + "; ".join(
-            f"{k} {row[k]['ms_per_call']:.5f} ms/call (enqueue "
-            f"{row[k]['enqueue_ms_per_call']:.5f}, serving shape "
-            f"{row[k]['serve_shape_ms_per_call']:.5f})" for k in kernels)
-            + "; busy " + ", ".join(
-                f"{c} {row[c]['busy_ms']:.3f}"
-                for c in (*calls, "serve_round")))
+        CS.log(f"[ab] {tree_}: point kernels "
+               f"{row['point_kernel_ms_per_call']:.5f} ms/call "
+               f"({row['point_kernel_launches_per_call']} launches), point "
+               f"call device {row['point_call_device_ms']:.5f} ms; busy "
+               + ", ".join(f"{c} {row[c]['busy_ms']:.3f} (activities "
+                           f"{row[c].get('activities_per_call', 0):.1f})"
+                           for c in (*calls, "serve_round")))
 
-    def enqueue_ms(fn, reps):
-        """Median host time to enqueue ``fn``'s launches (the device
-        catches up outside the timed region)."""
-        times = []
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            times.append((time.perf_counter() - t0) * 1e3)
-        torch.cuda.synchronize()
-        return statistics.median(times)
-
-    # host times, in interleaved pairs: (timer, function, calls per
-    # sample); walls end in a synchronise
-    walls = {"range_count_1024": (CS.host_ms, calls["range_count_1024"], 9),
-             "circle_exact_256": (CS.host_ms, calls["circle_exact_256"], 9),
-             "join_full_32": (CS.host_ms, calls["join_full_32"], 9),
-             "serve_round": (CS.host_ms, round_, 3),
-             "serve_request_range_count":
-                 (CS.host_ms, lambda: sess.submit(*reqs[1]), 5),
-             "serve_request_circle_count":
-                 (CS.host_ms, lambda: sess.submit(*reqs[3]), 3),
-             "serve_request_join":
-                 (CS.host_ms, lambda: sess.submit(*reqs[5]), 3),
-             **{f"enqueue_{k}_17_launches":
-                (enqueue_ms, lambda fn=fn, args=args: [fn(*a) for a in args],
-                 21) for k, (fn, args, _) in kernels.items()}}
+    # walls, in interleaved pairs: (function, calls per sample)
+    walls = {"point_1024": (calls["point_1024"], 9),
+             "range_count_1024": (calls["range_count_1024"], 9),
+             "circle_exact_256": (calls["circle_exact_256"], 9),
+             "serve_round": (round_, 3),
+             "serve_request_point": (lambda: sess.submit(*reqs[0]), 9)}
     samples = {w: {"parent": [], "change": []} for w in walls}
     for pair in range(PAIRS):
-        for tree in (("parent", "change") if pair % 2 == 0
-                     else ("change", "parent")):
-            use(tree)
-            for w, (timer, fn, reps) in walls.items():
-                samples[w][tree].append(timer(fn, reps))
+        for tree_ in (("parent", "change") if pair % 2 == 0
+                      else ("change", "parent")):
+            use(tree_)
+            for w, (fn, reps) in walls.items():
+                samples[w][tree_].append(CS.host_ms(fn, reps))
     wall = {}
     for w, got in samples.items():
         q = {t: statistics.quantiles(v, n=4) for t, v in got.items()}
