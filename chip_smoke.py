@@ -45,7 +45,7 @@ result line):
               the default config serving src/repro/launch/serve.py's
               mixed round at q = 16 (point, range count, range query at
               selectivity 1e-5, circle r = 0.02, 10-NN, a join of 4
-              polygons); warmup on round 0, then 8 steady rounds with
+              polygons); warmup on round 0, then 4 steady rounds with
               maintain() after each. Each steady round runs with its
               inputs on the card under
               torch.cuda.set_sync_debug_mode("error"), must leave
@@ -57,11 +57,23 @@ result line):
               what maintain() moved, peak memory; once, a profiler trace
               of a steady round (device busy, idle share, top activities,
               the fallback programs' share), each request's latency, and
-              pruned kNN's fixed-round cost against its early exit; and a
-              64-query range query on the sticky tier must raise
-              NotImplementedError (the bucketed dispatch, ROADMAP item
-              14);
-  7. kernels  each of the seven kernels against its plain version at the
+              pruned kNN's fixed-round cost against its early exit; no
+              round makes a bucketing probe (probe_syncs stays 0);
+  7. wide     serving mode at src/repro/launch/serve.py's default q = 64
+              (at or above tier_bucket_min = 32): a new session warmed on
+              its round 0, then 3 steady rounds, where the range query,
+              circle and kNN requests (64 rows; the join's 8 polygons
+              are narrow) take the tier-bucketed dispatch. Each round
+              runs under torch.cuda.set_sync_debug_mode("warn") with the
+              warnings recorded: host_syncs stays where it was,
+              probe_syncs grows by one per bucketed request, and the
+              sync warnings equal that growth (the one host read of the
+              bucket sizes per bucketed call); every output equals the
+              torch backend's rounds bitwise and the exact programs'
+              answers. Per round: wall ms per round and per request,
+              each fused call's (family, tier, rows padded to a power of
+              two), launches, peak memory; then each request's latency;
+  8. kernels  each of the seven kernels against its plain version at the
               shapes the main path gives it (bitwise; morton on the
               quantized coordinates of the 2^23 build, at its own entry
               point, and also against core/keys.morton_encode), with its
@@ -74,8 +86,9 @@ result line):
               run's inputs (bytes over 3.35 TB/s, or operations over 67
               TFLOP/s for float32 and 16.7 TOP/s for int32, whichever is
               larger). ``launches`` counts every path this script drives
-              (main, serve, morton). spline_search is also held equal to
-              torch.searchsorted (its library call) on every chunk, with
+              (main, serve, wide, morton). spline_search is also held
+              equal to torch.searchsorted (its library call) on every
+              chunk, with
               the floor of as many one-element PyTorch launches beside
               it; knn_topk is also held bitwise and timed at the serving
               fallback's shape (SERVE_Q queries on the same chunks), with
@@ -96,7 +109,13 @@ result line):
               registers, stack and spills, and beside it
               the floor of one launch on the card at its grid: an empty
               kernel (csrc/launch_floor.cu, on no query path) timed the
-              same way.
+              same way;
+  9. denormals the four kernels that read float32 denormals as zero
+              (range_count, circle_count, knn_topk, point_in_polygon) on
+              tests/test_torch_gpu.py's denormal points and queries, each
+              bitwise its plain version on the card, which must equal the
+              plain version on the CPU; the kernels line's max_abs_err of
+              those four is the larger of the main path's and this.
 
 Device busy time and idle share come from torch.profiler traces; each
 trace is checked against the wrappers' launch counts (``traced``): a
@@ -130,7 +149,11 @@ N_POINTS = 1 << 23
 N_PARTS = 128
 SERVE_Q = 16             # src/repro/launch/serve.py's narrow traffic
 SERVE_POLYGONS = max(SERVE_Q // 8, 4)    # its join's polygons
-SERVE_ROUNDS = 8
+SERVE_ROUNDS = 4
+WIDE_Q = 64              # src/repro/launch/serve.py's default --batch
+WIDE_ROUNDS = 3
+# what torch.cuda.set_sync_debug_mode("warn") says at a synchronizing call
+SYNC_WARNING = "called a synchronizing CUDA operation"
 DEVICE = "cuda"          # where the port runs, and the kernel backend
 BACKEND = "cuda"
 REPLACES = {
@@ -194,16 +217,17 @@ def _short(name: str) -> str:
     return name[:80]
 
 
-def device_profile(fn, reps: int, counts=None) -> dict:
+def device_profile(fn, reps: int, counts=None, warm: bool = True) -> dict:
     """{device activity name: device ms per call} over ``reps`` calls
-    (after one warm call), from a torch.profiler (CUPTI) trace; empty
-    when the trace holds no device activity. ``counts``, a dict, gets
-    {name: activities per call}, to show that the trace holds every
-    launch."""
+    (after one warm call, unless ``warm`` is False), from a
+    torch.profiler (CUPTI) trace; empty when the trace holds no device
+    activity. ``counts``, a dict, gets {name: activities per call}, to
+    show that the trace holds every launch."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -231,7 +255,7 @@ CIRCLE_TRACE = "interval_count_kernel<CircleTest>"
 POLYGON_TRACE = "interval_count_kernel<PolygonTest>"
 
 
-def traced(fn, reps: int, counts=None) -> tuple:
+def traced(fn, reps: int, counts=None, warm: bool = True) -> tuple:
     """(device_profile(fn, reps), retention): the share of this port's
     kernel launches during the traced calls (counted by the wrappers)
     that the trace holds, or None when the calls launch none of them.
@@ -241,8 +265,8 @@ def traced(fn, reps: int, counts=None) -> tuple:
     from repro_torch import kernels as KERN
     counts = {} if counts is None else counts
     KERN.reset_launch_counts()
-    prof = device_profile(fn, reps, counts)
-    launched = sum(KERN.launch_counts().values()) * reps / (reps + 1)
+    prof = device_profile(fn, reps, counts, warm)
+    launched = sum(KERN.launch_counts().values()) * reps / (reps + warm)
     held = sum(v * reps for k, v in counts.items()
                if any(o in k for o in OUR_KERNELS))
     return prof, (held / launched if launched else None)
@@ -396,18 +420,17 @@ def range_oracle_ids(x, y, order, xs, rect):
     return np.sort(cand[(y[cand] >= rect[1]) & (y[cand] <= rect[3])])
 
 
-def serve_round(x, y, part, seed, dev):
-    """src/repro/launch/serve.py's make_round at q = SERVE_Q, its inputs
-    on the card."""
+def serve_round(x, y, part, seed, dev, q=SERVE_Q):
+    """src/repro/launch/serve.py's make_round at ``q`` queries (its join
+    max(q // 8, 4) polygons), its inputs on the card."""
     import torch
     from repro_torch.core.plan import (CircleQuery, Knn, PointQuery,
                                        RangeCount, RangeQuery, SpatialJoin)
     from repro_torch.data import spatial as ds
-    q = SERVE_Q
     rng = np.random.default_rng(seed)
     ix = rng.integers(0, len(x), q)
     rects = ds.random_rects(q, 1e-5, part.bounds, seed=seed, centers=(x, y))
-    polys, ne = ds.random_polygons(SERVE_POLYGONS, part.bounds, seed=seed)
+    polys, ne = ds.random_polygons(max(q // 8, 4), part.bounds, seed=seed)
     px, py, pr, rc, pl, pn = (
         torch.as_tensor(np.ascontiguousarray(a), device=dev)
         for a in (x[ix], y[ix], np.full(q, 0.02, np.float32), rects, polys,
@@ -566,6 +589,26 @@ def first_polygons(args, q: int) -> tuple:
     return (*(t.contiguous() for t in cut), count, x, y)
 
 
+def serve_checks(sx, reqs, out, what: str):
+    """A serving round's outputs against the exact programs on executor
+    ``sx``: every data point found, range query counts == range count,
+    circle counts == the exact circle program, kNN d2 == exact kNN, the
+    join == the full join."""
+    import torch
+    from repro_torch.core.plan import Knn, SpatialJoin
+    require(bool(out[0].all()), f"{what}: every data point is found")
+    require(torch.equal(out[2][0], out[1]),
+            f"{what}: range query counts == range count")
+    require(torch.equal(out[3], sx._circle_exact(
+        sx._circle_args(reqs[3][1:]))),
+        f"{what}: circle counts == the exact circle program")
+    d2e, _ = sx.run(Knn(k=10, mode="exact"), *reqs[4][1:])
+    require(torch.equal(out[4][0], d2e), f"{what}: kNN d2 == exact kNN")
+    require(torch.equal(out[5], sx.run(SpatialJoin(mode="full"),
+                                       *reqs[5][1:])),
+            f"{what}: join == the full join")
+
+
 def serve_phase(index, part, x, y, dev) -> tuple:
     """Phase 6: serving mode on ``index`` (see the module docstring).
     Returns (report, {kernel: launches over the steady rounds})."""
@@ -573,8 +616,6 @@ def serve_phase(index, part, x, y, dev) -> tuple:
     from repro_torch import kernels as KERN
     from repro_torch.core import EngineConfig
     from repro_torch.core import local_ops as L
-    from repro_torch.core.plan import Knn, RangeQuery, SpatialJoin
-    from repro_torch.data import spatial as ds
     from repro_torch.serve import SpatialServeSession
 
     sess = SpatialServeSession(index, device=DEVICE)
@@ -595,20 +636,6 @@ def serve_phase(index, part, x, y, dev) -> tuple:
     require(sx._sticky == px_._sticky, "serve: torch backend tiers")
     log(f"[serve] warmup {report['warmup_s']:.1f} s, tiers "
         f"{report['tiers_after_warmup']}")
-
-    def check(reqs, out):
-        """Counts against the exact programs, kNN against exact kNN."""
-        require(bool(out[0].all()), "serve: every data point is found")
-        require(torch.equal(out[2][0], out[1]),
-                "serve: range query counts == range count")
-        require(torch.equal(out[3], sx._circle_exact(
-            sx._circle_args(reqs[3][1:]))),
-            "serve: circle counts == the exact circle program")
-        d2e, _ = sx.run(Knn(k=10, mode="exact"), *reqs[4][1:])
-        require(torch.equal(out[4][0], d2e), "serve: kNN d2 == exact kNN")
-        require(torch.equal(out[5], sx.run(SpatialJoin(mode="full"),
-                                           *reqs[5][1:])),
-                "serve: join == the full join")
 
     launches = {n: 0 for n in KERN.KERNELS}
     report["rounds"] = []
@@ -639,7 +666,7 @@ def serve_phase(index, part, x, y, dev) -> tuple:
         for j, (a, b) in enumerate(zip(out, plain.submit_batch(reqs))):
             require(same(a, b), f"serve round {i}, request {j}: cuda vs "
                     "torch backend")
-        check(reqs, out)
+        serve_checks(sx, reqs, out, f"serve round {i}")
         moved = sess.maintain()
         require(moved == plain.maintain() and sx._sticky == px_._sticky,
                 f"serve round {i}: maintain() differs between backends")
@@ -718,20 +745,193 @@ def serve_phase(index, part, x, y, dev) -> tuple:
         f"{knn['early_exit']['wall_ms']:.3f} ms (device "
         f"{knn['early_exit']['device_busy_ms']:.3f})")
 
-    # a wide batch on the sticky tier is the bucketed dispatch's
-    wide = torch.as_tensor(ds.random_rects(64, 1e-5, part.bounds, seed=99,
-                                           centers=(x, y)), device=dev)
-    try:
-        sess.submit(RangeQuery(), wide)
-        raised = ""
-    except NotImplementedError as e:
-        raised = str(e)
-    require("module item 14" in raised,
-            "serve: a 64-query range query on the sticky tier must raise")
-    log(f"[serve] 64-query range query on the sticky tier raised: {raised}")
+    require(sess.stats()["probe_syncs"] == 0,
+            "serve: a q = 16 round made a bucketing probe")
     report["stats"] = {k: (str(v) if k == "sticky" else v)
                        for k, v in sess.stats().items()}
     return report, launches
+
+
+def wide_serve_phase(index, part, x, y, dev) -> tuple:
+    """Phase 7: serving mode at src/repro/launch/serve.py's default batch
+    (WIDE_Q queries, at or above tier_bucket_min), where each adaptive
+    family with that many rows takes the tier-bucketed dispatch. Returns
+    (report, {kernel: launches over the steady rounds})."""
+    import warnings
+
+    import torch
+    from repro_torch import kernels as KERN
+    from repro_torch.core import EngineConfig
+    from repro_torch.serve import SpatialServeSession
+
+    sess = SpatialServeSession(index, device=DEVICE)
+    plain = SpatialServeSession(index, EngineConfig(backend="torch"),
+                                device=DEVICE)
+    sx, px_ = sess.executor, plain.executor
+    rounds = [serve_round(x, y, part, seed, dev, WIDE_Q)
+              for seed in range(WIDE_ROUNDS + 1)]
+    # the adaptive requests wide enough to be bucketed
+    min_q = sx.cfg.tier_bucket_min
+    bucketed = [i for i in (2, 3, 4, 5) if rounds[0][i][1].shape[0] >= min_q]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sess.warmup(rounds[0])
+    torch.cuda.synchronize()
+    report = {"q": WIDE_Q, "warmup_s": time.perf_counter() - t0,
+              "bucketed_requests": len(bucketed)}
+    plain.warmup(rounds[0])
+    require(sx._sticky == px_._sticky, "wide serve: torch backend tiers")
+    report["tiers_after_warmup"] = {str(k): v for k, v in sx._sticky.items()}
+    log(f"[wide] q = {WIDE_Q}: warmup {report['warmup_s']:.1f} s, tiers "
+        f"{report['tiers_after_warmup']}; {len(bucketed)} requests "
+        "bucketed per round")
+
+    # each fused call of a bucketed request: (family, tier, rows padded
+    # to a power of two)
+    buckets = []
+    fused_chunked = sx._fused_chunked
+
+    def spy(op, tier, bargs, width):
+        buckets.append((str(op.base), list(tier), int(width)))
+        return fused_chunked(op, tier, bargs, width)
+
+    sx._fused_chunked = spy
+    launches = {n: 0 for n in KERN.KERNELS}
+    report["rounds"] = []
+    for i in range(1, WIDE_ROUNDS + 1):
+        reqs = rounds[i]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        syncs, probes = sx.host_syncs, sx.probe_syncs
+        buckets.clear()
+        KERN.reset_launch_counts()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = sess.submit_batch(reqs)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        got = KERN.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        n_sync = sum(SYNC_WARNING in str(w.message) for w in caught)
+        grew = sx.probe_syncs - probes
+        require(sx.host_syncs == syncs,
+                f"wide round {i}: host_syncs moved")
+        require(grew == len(bucketed),
+                f"wide round {i}: probe_syncs grew by {grew}, "
+                f"{len(bucketed)} bucketed requests")
+        require(n_sync == grew, f"wide round {i}: {n_sync} sync warnings "
+                f"for {grew} probe reads")
+        require(all(got[n] > 0 for n in PATH_KERNELS),
+                f"wide round {i}: launches {got}")
+        require(got["point_probe"] == 1,
+                f"wide round {i}: {got['point_probe']} point kernels")
+        for n, c in got.items():
+            launches[n] += c
+        for j, (a, b) in enumerate(zip(out, plain.submit_batch(reqs))):
+            require(same(a, b), f"wide round {i}, request {j}: cuda vs "
+                    "torch backend")
+        serve_checks(sx, reqs, out, f"wide round {i}")
+        moved = sess.maintain()
+        require(moved == plain.maintain() and sx._sticky == px_._sticky,
+                f"wide round {i}: maintain() differs between backends")
+        row = {"round": i, "wall_ms": ms, "wall_ms_per_request":
+               ms / len(reqs), "host_syncs_added": 0,
+               "probe_syncs_added": grew, "sync_warnings": n_sync,
+               "buckets": list(buckets),
+               "launches": {n: c for n, c in got.items() if c},
+               "maintain": {str(k): v for k, v in moved.items()},
+               "max_memory_allocated": peak}
+        report["rounds"].append(row)
+        log(f"[wide] round {i}: {ms:.1f} ms ({ms / len(reqs):.1f} per "
+            f"request), host_syncs +0, probe_syncs +{grew}, sync warnings "
+            f"{n_sync}, buckets (family, tier, rows) {row['buckets']}, "
+            f"launches {row['launches']}, maintain {row['maintain']}, "
+            f"max_memory_allocated {peak}")
+    sx._fused_chunked = fused_chunked
+    reqs = rounds[1]
+    names = ["point", "range_count", "range_query", "circle_count",
+             "knn10", "join"]
+    report["request_ms"] = {
+        n: host_ms(lambda r=r: sess.submit(*r), 3)
+        for n, r in zip(names, reqs)}
+    log("[wide] per request ms: " + ", ".join(
+        f"{n} {t:.3f}" for n, t in report["request_ms"].items()))
+    report["steady_round_ms"] = host_ms(lambda: sess.submit_batch(reqs), 3)
+    log(f"[wide] steady round {report['steady_round_ms']:.3f} ms")
+    report["stats"] = {k: (str(v) if k == "sticky" else v)
+                       for k, v in sess.stats().items()}
+    return report, launches
+
+
+def denormal_phase(dev) -> dict:
+    """Phase 9: the four kernels that read float32 denormals as zero
+    (range_count, circle_count, knn_topk, the join's point_in_polygon)
+    on tests/test_torch_gpu.py's denormal points and queries (every pair
+    active, whole rows), each against its plain version on the card and
+    that against the plain version on the CPU, which the CPU tests hold
+    bitwise to the JAX package. Returns {kernel: {max_abs_err, ...}}."""
+    import torch
+    from repro_torch.core import build_index, fit
+    from repro_torch.core import local_ops as L
+    from repro_torch.kernels import circle_filter as CF
+    from repro_torch.kernels import knn_topk as KNN
+    from repro_torch.kernels import point_in_polygon as PIP
+    from repro_torch.kernels import range_filter as RF
+    sys.path.insert(0, str(ROOT / "tests"))
+    from test_torch_gpu import denormal_points, denormal_queries
+    x, y = denormal_points()
+    idx = L.pad_partitions(build_index(
+        x, y, fit("rtree", x, y, 9, sample_rate=0.05, seed=1),
+        device="cpu"), 8)
+    q = denormal_queries()
+    c, nq = idx.x.shape[0], len(q["cx"])
+    pg = len(q["ne"])
+    s = np.zeros((c, nq), np.int32)
+    e = np.broadcast_to(idx.count.numpy()[:, None], (c, nq)).astype(
+        np.int32)
+    act = np.ones((c, nq), bool)
+    mbr = np.stack([q["cx"] - q["r"], q["cy"] - q["r"], q["cx"] + q["r"],
+                    q["cy"] + q["r"]], -1).astype(np.float32)
+    circ = np.stack([q["cx"], q["cy"], q["r"]], -1)
+    jm = np.concatenate([q["polys"].min(1), q["polys"].max(1)], -1)
+    calls = {
+        "range_count": (RF.range_count, RF.range_count_plain, {},
+                        (q["rects"], s, e, act, idx.count, idx.x, idx.y)),
+        "circle_count": (CF.circle_count, CF.circle_count_plain, {},
+                         (mbr, s, e, circ, act, idx.count, idx.x, idx.y)),
+        "point_in_polygon": (PIP.join_count, PIP.join_count_plain, {},
+                             (q["polys"], q["ne"], jm, s[:, :pg],
+                              e[:, :pg], act[:, :pg], idx.count, idx.x,
+                              idx.y)),
+        "knn_topk": (KNN.knn_topk, KNN.knn_topk_plain, {"k": 6},
+                     (q["qx"], q["qy"], idx.count, idx.x, idx.y))}
+
+    def on(d, args):
+        return [torch.as_tensor(np.asarray(a)).to(d) for a in args]
+
+    out = {}
+    for name, (fn, plain, kw, args) in calls.items():
+        got, want = fn(*on(dev, args), **kw), plain(*on(dev, args), **kw)
+        cpu = plain(*on("cpu", args), **kw)
+        got, want, cpu = (v if isinstance(v, tuple) else (v,)
+                          for v in (got, want, cpu))
+        err = max(float((g.double() - w.double()).abs().max())
+                  for g, w in zip(got, want))
+        require(all(torch.equal(g, w) for g, w in zip(got, want)),
+                f"denormals: {name} vs its plain version")
+        require(all(torch.equal(w.cpu(), h) for w, h in zip(want, cpu)),
+                f"denormals: {name}'s plain version, card vs CPU")
+        out[name] = {"max_abs_err": err, "plain_equal_cpu": True,
+                     "shape": list(got[0].shape)}
+        log(f"[denormals] {name}: max_abs_err {err} against its plain "
+            f"version on {out[name]['shape']}; plain on the card == on the "
+            "CPU")
+    return out
 
 
 def main() -> int:
@@ -927,11 +1127,15 @@ def main() -> int:
     lat, lat_plain = {}, {}
     report["where"] = {}
     for name, (fn, _, _) in main_path.items():
+        # a slow call was warmed by its first call and the bitwise check
         slow = first_ms[name] > 1000
-        lat[name] = host_ms(lambda: fn(eng), 1 if slow else 5)
-        lat_plain[name] = host_ms(lambda: fn(plain), 1 if slow else 3)
+        lat[name] = host_ms(lambda: fn(eng), 1 if slow else 5,
+                            warm=not slow)
+        lat_plain[name] = host_ms(lambda: fn(plain), 1 if slow else 3,
+                                  warm=not slow)
         acts: dict = {}
-        prof, kept = traced(lambda: fn(eng), 1 if slow else 3, acts)
+        prof, kept = traced(lambda: fn(eng), 1 if slow else 3, acts,
+                            warm=not slow)
         busy = sum(prof.values())
         top = sorted(prof.items(), key=lambda kv: -kv[1])[:5]
         report["where"][name] = {"device_busy_ms": busy,
@@ -952,8 +1156,9 @@ def main() -> int:
 
     # the row-chunk budget (EngineConfig.scan_chunk_elems): circle_count
     # at its sticky tier under the default budget and under twice it, on
-    # a second engine whose ladder climbs from the initial tier. The
-    # counts must not change; peak memory and latency do.
+    # a second engine given the same sticky tier (the budget moves no ok
+    # flag, so its own ladder settles there too). The counts must not
+    # change; peak memory and latency do.
     def row_budget(e, budget):
         fn = main_path["circle_count_256"][0]
         tier = e.executor._sticky[("circle", False)]
@@ -967,7 +1172,7 @@ def main() -> int:
         torch.cuda.synchronize()
         mem = torch.cuda.max_memory_allocated()
         ms = host_ms(lambda: fn(e), 1, warm=False)
-        busy = sum(device_profile(lambda: fn(e), 1).values())
+        busy = sum(device_profile(lambda: fn(e), 1, warm=False).values())
         return {"scan_chunk_elems": budget, "tier": tier,
                 "rows_per_chunk": max(1, budget // plane),
                 "max_memory_allocated": mem, "wall_ms": ms,
@@ -975,7 +1180,7 @@ def main() -> int:
 
     wide = SpatialEngine(index, EngineConfig(
         scan_chunk_elems=2 * ex.cfg.scan_chunk_elems), device=DEVICE)
-    main_path["circle_count_256"][0](wide)         # the ladder
+    wide.executor._sticky[("circle", False)] = ex._sticky[("circle", False)]
     report["row_budget"] = [row_budget(eng, ex.cfg.scan_chunk_elems),
                             row_budget(wide, 2 * ex.cfg.scan_chunk_elems)]
     del wide
@@ -993,8 +1198,19 @@ def main() -> int:
     require(all(serve_launches[n] > 0 for n in PATH_KERNELS),
             f"serve launches {serve_launches}")
 
+    phase("wide")
+    # 7. serving mode at the reference's default batch: bucketed
+    report["serve_wide"], wide_launches = wide_serve_phase(index, part, x,
+                                                           y, dev)
+    require(all(wide_launches[n] > 0 for n in PATH_KERNELS),
+            f"wide serve launches {wide_launches}")
+    peaks = {q: max(r["max_memory_allocated"] for r in report[k]["rounds"])
+             for q, k in ((SERVE_Q, "serve"), (WIDE_Q, "serve_wide"))}
+    report["serve_peak_memory_by_q"] = peaks
+    log(f"[wide] peak memory of a steady round by q: {peaks}")
+
     phase("kernels")
-    # 7. each kernel against its plain version on the inputs the main
+    # 8. each kernel against its plain version on the inputs the main
     # path gives it: every launch of one call (one per partition chunk,
     # or one per candidate set) is held bitwise against the plain
     # version, and the times, bytes and operations are those of the
@@ -1013,7 +1229,8 @@ def main() -> int:
     def sweep(fn, arglist, **kws):
         return lambda: [fn(*a, **kws) for a in arglist]
 
-    by_path = {"main": launches, "serve": serve_launches}
+    by_path = {"main": launches, "serve": serve_launches,
+               "serve_wide": wide_launches}
 
     def launch_floor(n, blocks, threads) -> dict:
         """The card's floor per launch: an empty kernel
@@ -1337,6 +1554,15 @@ def main() -> int:
     log(f"[morton] {n_m} points bitwise against its plain version and "
         "core/keys.morton_encode")
 
+    phase("denormals")
+    # 9. the flushed kernels on denormal inputs (comparison launches,
+    # counted on no path)
+    report["denormals"] = denormal_phase(dev)
+    for row in rows:
+        if row["name"] in report["denormals"]:
+            err = report["denormals"][row["name"]]["max_abs_err"]
+            row["denormal_max_abs_err"] = err
+            row["max_abs_err"] = max(row["max_abs_err"], err)
     for row in rows:
         require(row["max_abs_err"] == 0, f"{row['name']} differs from plain")
     require(len(rows) == len(KERN.KERNELS), "a kernel row is missing")

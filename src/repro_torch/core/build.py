@@ -20,7 +20,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch._num import resolve_device
+from repro_torch._num import flush_denormals, resolve_device
 from repro_torch.core import keys as K
 from repro_torch.core import radix as R
 from repro_torch.core import spline as S
@@ -75,6 +75,12 @@ class LearnedSpatialIndex:
         return self.key.device
 
     @property
+    def delta_cap(self) -> int:
+        """Delta-buffer slots per partition. The frozen index has no
+        delta buffers (the mutable index is a later port item), so 0."""
+        return 0
+
+    @property
     def overflow(self) -> int:
         """Partition id of the overflow grid (paper §3.1)."""
         return (self.overflow_pid if self.overflow_pid >= 0
@@ -98,10 +104,13 @@ class LearnedSpatialIndex:
 
 def assign_partitions(x, y, boxes, *, chunk: int = 1 << 20):
     """First-match grid id per point; misses -> G (overflow). O(N*G),
-    in chunks of ``chunk`` points to bound the (chunk, G) mask."""
+    in chunks of ``chunk`` points to bound the (chunk, G) mask. Both
+    sides are compared with float32 denormals read as zero, as XLA:CPU
+    compares them."""
     g = boxes.shape[0]
     col = torch.arange(g, device=x.device)
     out = torch.empty(x.shape[0], dtype=torch.int64, device=x.device)
+    x, y, boxes = (flush_denormals(a) for a in (x, y, boxes))
     xl, yl, xh, yh = boxes[:, 0], boxes[:, 1], boxes[:, 2], boxes[:, 3]
     for i in range(0, x.shape[0], chunk):
         xs = x[i:i + chunk, None]

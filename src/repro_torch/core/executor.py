@@ -21,10 +21,15 @@ SpatialJoin) share one policy (paper §4, DESIGN.md §7), in
   sticky tier and the exact fallback on the device, with no host read;
   its ok flags are stashed, unread, for ``maintain()``, which re-tunes
   the tiers off the hot path (escalation, demotion, back-off).
+* wide serving (``strict=False`` on a sticky tier, at least
+  ``tier_bucket_min`` queries): the tier-bucketed dispatch
+  (``_run_bucketed``, DESIGN.md §13). A need probe ranks every row on
+  the device, one host read brings back the bucket sizes (counted in
+  ``probe_syncs``, not ``host_syncs``), and each bucket runs the fused
+  program at the lowest tier its rows fit, scattered back in request
+  order: bitwise one sticky-tier call.
 
-A wide serving batch that the reference sends to its tier-bucketed
-dispatch raises NotImplementedError (ROADMAP.md module item 14). There
-is no compile cache: PyTorch runs eagerly.
+There is no compile cache: PyTorch runs eagerly.
 """
 from __future__ import annotations
 
@@ -35,12 +40,14 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch._num import resolve_device
+from repro_torch._num import (flush_denormals, mul_f32, resolve_device,
+                              sub_f32)
 from repro_torch.core import keys as K
 from repro_torch.core import local_ops as L
+from repro_torch.core import queries as Q
 from repro_torch.core.backends import resolve_backend
 from repro_torch.core.build import LearnedSpatialIndex
-from repro_torch.core.plan import (PENDING, CircleQuery, EngineConfig, Knn,
+from repro_torch.core.plan import (CircleQuery, EngineConfig, Knn,
                                    PointQuery, QuerySpec, RangeCount,
                                    RangeQuery, SpatialJoin)
 
@@ -60,6 +67,11 @@ class _AdaptiveOp:
     fused: Callable                   # (cap, cand) -> fused program
     demote: Callable                  # (cap, cand) -> lower tier
     post: Callable = lambda r: r      # fused result -> public result
+    # -- the tier-bucketed dispatch (DESIGN.md §13) --------------------
+    probe: Optional[Callable] = None     # cand -> need probe program
+    feasible: Optional[Callable] = None  # (probe, cap, cand) -> (Q,) bool
+    owidth: Optional[Callable] = None    # (cap, cand) -> vid plane width
+    bucketer: Optional[Callable] = None  # (probe, cap, cand) -> (Q,) rank
 
 
 def _f32_const(v, like: torch.Tensor) -> torch.Tensor:
@@ -68,6 +80,22 @@ def _f32_const(v, like: torch.Tensor) -> torch.Tensor:
     on the device: no host-to-device copy on the query path."""
     return torch.full((), float(np.float32(v)), dtype=torch.float32,
                       device=like.device)
+
+
+def _tree(fn, *outs):
+    """``fn`` over the leaves of equal output structures (a tensor, or a
+    tuple of tensors)."""
+    if isinstance(outs[0], tuple):
+        return tuple(fn(*leaves) for leaves in zip(*outs))
+    return fn(*outs)
+
+
+def _pad_rows(args, n: int):
+    """Each (rows, ...) tensor of ``args`` with its row 0 repeated ``n``
+    more times at the end (a real query, so the padding runs the same
+    program)."""
+    return tuple(torch.cat([a, a[:1].expand((n,) + tuple(a.shape[1:]))])
+                 for a in args)
 
 
 class Executor:
@@ -99,6 +127,7 @@ class Executor:
         self._demoted_from = {}   # sticky_key -> tier last demoted FROM
         self._demote_backoff = {}  # sticky_key -> streak multiplier
         self.host_syncs = 0   # counted host reads of ok (_all_ok)
+        self.probe_syncs = 0  # host reads of a bucketed call's sizes
         self.dispatches = 0   # local-program calls
         # serializes run and maintain, so several threads can share one
         # executor (sticky state, stashed ok flags)
@@ -204,8 +233,10 @@ class Executor:
         return moved
 
     def stats(self) -> dict:
-        """Counters: host_syncs, dispatches, backend, sticky tiers."""
+        """Counters: host_syncs, probe_syncs, dispatches, backend, sticky
+        tiers."""
         return {"host_syncs": self.host_syncs,
+                "probe_syncs": self.probe_syncs,
                 "dispatches": self.dispatches,
                 "backend": self.backend.name,
                 "sticky": dict(self._sticky)}
@@ -222,15 +253,11 @@ class Executor:
         self._demoters[op.base] = op.demote
         sticky = self._sticky.get(op.base)
         if sticky is not None and not strict and start is None:
-            qn = pargs[0].shape[0]
-            if self.cfg.tier_buckets and qn >= self.cfg.tier_bucket_min:
-                # every adaptive family of the reference has a probe, so
-                # such a batch takes its bucketed dispatch there
-                raise NotImplementedError(
-                    f"a serving batch of {qn} >= tier_bucket_min "
-                    f"({self.cfg.tier_bucket_min}) on the sticky tier "
-                    f"{sticky} of {op.base} needs {PENDING}; pass "
-                    "strict=True, or EngineConfig(tier_buckets=False)")
+            if (self.cfg.tier_buckets and op.probe is not None
+                    and pargs[0].shape[0] >= self.cfg.tier_bucket_min
+                    and (op.feasible is not None
+                         or op.bucketer is not None)):
+                return self._run_bucketed(op, pargs, sticky)
             # steady state: the fused program, no host read; ok is
             # stashed, unread, for maintain()
             out, ok = self._call(op.fused(*sticky), *pargs)
@@ -249,6 +276,196 @@ class Executor:
                 break
             cap, cand = op.escalate(cap, cand)
         return op.fallback(pargs, res)
+
+    # -- the wide-batch tier-bucketed dispatch (DESIGN.md §13) -----------
+
+    def _ladder_tiers(self, op: _AdaptiveOp, sticky) -> list:
+        """The escalation ladder's tiers from the initial one up to the
+        sticky tier, ascending; a sticky tier off the ladder gives the
+        one sticky bucket (correctness never depends on the ladder)."""
+        tiers = [op.initial]
+        cur = op.initial
+        while cur != sticky:
+            nxt = op.escalate(*cur)
+            if nxt == cur or len(tiers) > 64:
+                return [sticky]
+            cur = nxt
+            tiers.append(cur)
+        return tiers
+
+    def _feasible_rect(self, materialize: bool) -> Callable:
+        """The rect families' rule on the (Q, 3) need probe [ncand, need,
+        needsum]: a feasible row is ok at the tier (its candidates are
+        complete, every learned window fits cap, and, materializing, the
+        keep width drops no id), so it gives the sticky tier's result
+        there (up to the -1 padding ``_norm_width`` adds)."""
+        n_pad = self.index.n_pad
+        p_total = self.index.num_partitions
+        d_cap = self.index.delta_cap
+
+        def feasible(probe, cap, cand):
+            cap_e = min(cap, n_pad)
+            cand_e = min(cand, p_total)
+            ok = (probe[:, 0] <= cand_e) & (probe[:, 1] <= cap_e)
+            if materialize:
+                ok = ok & ((probe[:, 2] + cand_e * d_cap)
+                           <= max(cap_e * 8, 256))
+            return ok
+
+        return feasible
+
+    def _owidth_rect(self) -> Callable:
+        """The rect programs' materialized vid plane width at a tier:
+        ``local_ops._keep_window``'s keep bound, so a light bucket pads
+        to the sticky tier's width bitwise."""
+        n_pad = self.index.n_pad
+        p_total = self.index.num_partitions
+        d_cap = self.index.delta_cap
+
+        def owidth(cap, cand):          # one device: one partition shard
+            cap_e = min(cap, n_pad)
+            cand_e = min(cand, p_total)
+            return min(cand_e * (4 * cap_e + d_cap), max(cap_e * 8, 256))
+
+        return owidth
+
+    def _knn_bucketer(self, k: int) -> Callable:
+        """Rank kNN rows by their predicted resolving round on the
+        (Q, J, 3) need probe [need, tot, nin], on the device: rows whose
+        candidate mass reaches 2k within the probed rounds (and whose
+        window fits the sticky cap and cand) rank 0 (round 0 or 1) or 1;
+        the rest rank 2, the hard bucket. Every rank runs at the sticky
+        tier: the ranks split padded widths, never values."""
+        n_pad = self.index.n_pad
+        cand = min(self.cfg.knn_cand, self.index.num_partitions)
+        j_max = L._KnnNeedLocal.J
+
+        def bucketer(probe, cap, _cand):
+            cap_e = min(cap, n_pad)
+            need, tot, nin = probe[..., 0], probe[..., 1], probe[..., 2]
+            enough = tot >= 2 * k                       # (Q, J)
+            # argmax: the first round with enough mass
+            jest = torch.where(enough.any(1),
+                               enough.to(torch.int32).argmax(1), j_max)
+            jc = torch.clamp(jest, max=j_max - 1)[:, None]
+            hard = ((jest >= j_max) | (need.gather(1, jc)[:, 0] > cap_e)
+                    | (nin.gather(1, jc)[:, 0] > cand))
+            return torch.where(hard, 2, torch.where(jest <= 1, 0, 1))
+
+        return bucketer
+
+    def _norm_width(self, op: _AdaptiveOp, out, tier, sticky):
+        """-1-pad a light bucket's materialized vid plane to the sticky
+        tier's width (both are -1 past the kept ids, so the padded plane
+        is the sticky run's bit for bit)."""
+        if op.owidth is None or tier == sticky:
+            return out
+        pad = op.owidth(*sticky) - out[1].shape[1]
+        if pad <= 0:
+            return out
+        vids = torch.nn.functional.pad(out[1], (0, pad), value=-1)
+        return (out[0], vids) + tuple(out[2:])
+
+    def _row_chunk(self, tier, width: int) -> int:
+        """Most rows per fused call at ``tier``: rows x (cap * cand)
+        stays within ``row_chunk_elems``, a power of two (it tiles the
+        power-of-two buckets, so every chunk has one shape) of at least
+        256 rows."""
+        per_row = max(1, int(tier[0]) * int(tier[1]))
+        cw = max(1, self.cfg.row_chunk_elems // per_row)
+        cw = max(256, 1 << (cw.bit_length() - 1))
+        return min(width, cw)
+
+    def _fused_chunked(self, op: _AdaptiveOp, tier, bargs, width: int):
+        """``bargs`` (width rows) through the tier's fused program in
+        ``_row_chunk``-row slices, (out, ok) concatenated. Each output row
+        is a function of its row and the tier, so the result is one
+        call's. A short tail chunk is padded with its own row 0 (a real
+        query) to the chunk width and un-padded."""
+        cw = self._row_chunk(tier, width)
+        fn = op.fused(*tier)
+        if cw >= width:
+            return self._call(fn, *bargs)
+        outs, oks = [], []
+        for s in range(0, width, cw):
+            cargs = tuple(a[s:s + cw] for a in bargs)
+            tail = cw - cargs[0].shape[0]
+            if tail > 0:
+                cargs = _pad_rows(cargs, tail)
+            out, ok = self._call(fn, *cargs)
+            if tail > 0:
+                out, ok = _tree(lambda a: a[:-tail], out), ok[:-tail]
+            outs.append(out)
+            oks.append(ok)
+        return (_tree(lambda *a: torch.cat(a), *outs), torch.cat(oks))
+
+    def _run_bucketed(self, op: _AdaptiveOp, pargs, sticky):
+        """The wide-batch tier-bucketed dispatch (DESIGN.md §13).
+
+        The need probe ranks every row on the device: rect-family rows
+        at the lowest ladder tier where the probe guarantees a fit (if
+        they fit at the sticky tier too; otherwise a hard bucket at the
+        sticky tier, where a serial call would run them), kNN rows by
+        predicted resolving round, all at the sticky tier. One host read
+        brings back the bucket sizes (``probe_syncs``, not
+        ``host_syncs``: the zero-sync contract concerns the ok flags).
+        Each bucket's rows, in request order, are padded to a power of
+        two with its own row 0 and run through the fused program of its
+        tier; the outputs scatter back by the inverse permutation. Each
+        output row depends only on (row, tier), so the result is one
+        sticky-tier call's, bit for bit."""
+        qn = pargs[0].shape[0]
+        cand_p = (self.cfg.knn_cand if op.bucketer is not None
+                  else sticky[1])
+        probe = self._call(op.probe(cand_p), *pargs)
+        if op.bucketer is not None:
+            rank = op.bucketer(probe, *sticky)
+            tier_of = [sticky] * 3
+        else:
+            tier_of = self._ladder_tiers(op, sticky)
+            nb = len(tier_of)
+            rank = torch.full((qn,), nb - 1, dtype=torch.int64,
+                              device=probe.device)
+            for i in reversed(range(nb - 1)):
+                rank = torch.where(op.feasible(probe, *tier_of[i]), i, rank)
+            # rows not guaranteed at the sticky tier: a hard bucket there,
+            # so the exact fallback fires on it alone
+            rank = torch.where(op.feasible(probe, *sticky), rank, nb)
+            tier_of = tier_of + [sticky]
+        sizes = torch.zeros(len(tier_of), dtype=torch.int64,
+                            device=rank.device)
+        sizes.scatter_add_(0, rank, torch.ones_like(rank))
+        sizes = sizes.tolist()          # the one host read of the call
+        self.probe_syncs += 1
+        present = [rk for rk, n in enumerate(sizes) if n]
+        if len(present) == 1 and tier_of[present[0]] == sticky:
+            # one bucket at the sticky tier: still row-chunked
+            out, ok = self._fused_chunked(op, sticky, pargs, qn)
+            self._pending[op.base] = (sticky, ok)
+            return op.post(out)
+        # rows grouped by rank, each group in request order
+        perm = torch.sort(rank, stable=True).indices
+        outs, oks, lo = [], [], 0
+        for rk in present:
+            bl = sizes[rk]
+            sel = perm[lo:lo + bl]
+            lo += bl
+            tier = tier_of[rk]
+            plen = 1 << (bl - 1).bit_length()
+            bargs = tuple(a.index_select(0, sel) for a in pargs)
+            if plen > bl:
+                bargs = _pad_rows(bargs, plen - bl)
+            out, ok = self._fused_chunked(op, tier, bargs, plen)
+            if plen > bl:
+                out, ok = _tree(lambda a: a[:bl], out), ok[:bl]
+            outs.append(self._norm_width(op, out, tier, sticky))
+            oks.append(ok)
+        inv = torch.empty_like(perm)
+        inv[perm] = torch.arange(qn, device=perm.device)
+        merged = _tree(lambda *a: torch.cat(a).index_select(0, inv), *outs)
+        ok_all = torch.cat(oks).index_select(0, inv)
+        self._pending[op.base] = (sticky, ok_all)
+        return op.post(merged)
 
     def _set_sticky(self, base, variant):
         old = self._sticky.get(base)
@@ -322,7 +539,11 @@ class Executor:
             escalate=self._escalate_both, maxed=self._maxed_both,
             sticky_on_maxed=True, fallback=None, fused=fused,
             demote=self._ladder_demote((cfg.range_cap, cfg.range_cand),
-                                       self._escalate_both))
+                                       self._escalate_both),
+            probe=lambda c: L._WindowNeedLocal(idx, cfg, bk, c,
+                                               lambda *q: q[0], 3),
+            feasible=self._feasible_rect(True),
+            owidth=self._owidth_rect())
 
     def _run_range(self, spec: RangeQuery, args, strict):
         rects = self._f32(args[0]).reshape(-1, 4)
@@ -339,7 +560,7 @@ class Executor:
         """(rects, klo, khi, circ) of (cx, cy, r): the circles' MBRs and
         their key ranges, and the (Q, 3) circles."""
         cx, cy, r = (self._f32(a) for a in args)
-        rects = torch.stack([cx - r, cy - r, cx + r, cy + r], -1)
+        rects = Q.circle_mbrs(cx, cy, r)
         klo, khi = self._rect_keys(rects)
         return rects, klo, khi, torch.stack([cx, cy, r], -1)
 
@@ -387,7 +608,11 @@ class Executor:
             escalate=self._escalate_both, maxed=self._maxed_both,
             sticky_on_maxed=False, fallback=fallback, fused=fused,
             demote=self._ladder_demote((cfg.circle_cap, cfg.circle_cand),
-                                       self._escalate_both))
+                                       self._escalate_both),
+            probe=lambda c: L._WindowNeedLocal(idx, cfg, bk, c,
+                                               lambda *q: q[0], 4),
+            feasible=self._feasible_rect(materialize),
+            owidth=self._owidth_rect() if materialize else None)
 
     def _run_circle(self, spec: CircleQuery, args, strict):
         op = self._op_circle(spec.sticky_key(), spec.materialize)
@@ -398,17 +623,21 @@ class Executor:
         with the local density of each query's nearest partition), in
         the reference's dtypes and order: the global estimate in float64
         on the host, the rest in float32, the box distance unfused (the
-        reference runs it eagerly, outside any compiled program)."""
+        reference runs it eagerly, outside any compiled program). XLA's
+        eager ops read denormals as zero and flush tiny results too."""
         r0g = float(np.sqrt(max(k, 1) / (np.pi * self.density)))
         zero = _f32_const(0.0, qx)
-        b = self.bounds
+        b = flush_denormals(self.bounds)
         dx = torch.maximum(torch.maximum(b[:, 0] - qx[:, None],
                                          qx[:, None] - b[:, 2]), zero)
         dy = torch.maximum(torch.maximum(b[:, 1] - qy[:, None],
                                          qy[:, None] - b[:, 3]), zero)
-        pid0 = torch.argmin(dx * dx + dy * dy, dim=1)   # first minimum
+        # the differences are only squared, and a sum of two flushed
+        # squares is 0 or at least 2^-126: no flush needed there
+        pid0 = torch.argmin(mul_f32(dx, dx) + mul_f32(dy, dy), dim=1)
         b0 = b[pid0]
-        area0 = torch.maximum((b0[:, 2] - b0[:, 0]) * (b0[:, 3] - b0[:, 1]),
+        area0 = torch.maximum(mul_f32(sub_f32(b0[:, 2], b0[:, 0]),
+                                      sub_f32(b0[:, 3], b0[:, 1])),
                               _f32_const(1e-30, qx))
         d0 = torch.maximum(self.index.count[pid0] / area0,
                            _f32_const(1e-30, qx))
@@ -466,7 +695,9 @@ class Executor:
             maxed=lambda cap, cd: cap >= idx.n_pad,
             sticky_on_maxed=False, fallback=fallback, fused=fused,
             post=lambda r: (-r[0], r[1]),
-            demote=lambda cap, cd: (max(cap // 4, cfg.knn_cap), cd))
+            demote=lambda cap, cd: (max(cap // 4, cfg.knn_cap), cd),
+            probe=lambda c: L._KnnNeedLocal(idx, cfg, bk, c),
+            bucketer=self._knn_bucketer(k))
 
     def _run_knn(self, spec: Knn, args, strict):
         qx, qy = self._f32(args[0]), self._f32(args[1])
@@ -502,7 +733,11 @@ class Executor:
             sticky_on_maxed=False,
             fallback=lambda pargs, res: self._join_full(pargs), fused=fused,
             demote=self._ladder_demote((cfg.join_cap, cfg.join_cand),
-                                       self._escalate_both))
+                                       self._escalate_both),
+            probe=lambda c: L._WindowNeedLocal(idx, cfg, bk, c,
+                                               lambda *q: q[2][:, :4], 3,
+                                               z_depth=3),
+            feasible=self._feasible_rect(False))
 
     def _join_args(self, args):
         """(polys, n_edges, mbr_k) of (polys, n_edges): mbr_k (PG, 6) holds

@@ -20,7 +20,9 @@ query row alone, so a call whose (Q, C, S, cap) planes would pass
 
 Serving mode's programs (``_CondFusedLocal``, ``_KnnLadderLocal``) run a
 windowed program and its exact fallback with no host read, choosing the
-output on the device (``_select``).
+output on the device (``_select``). The need probes (``_WindowNeedLocal``,
+``_KnnNeedLocal``) size a wide serving batch's rows for the executor's
+tier-bucketed dispatch; like the windowed gathers they have no kernel.
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch._num import fma_f32, stable_topk
+from repro_torch._num import dist2_f32, mul_f32, stable_topk
 from repro_torch.core import keys as K
 from repro_torch.core import queries as Q
 from repro_torch.core.build import LearnedSpatialIndex
@@ -428,10 +430,11 @@ class _KnnPrunedLocal(_LocalFn):
         _, vids, ok, wx, wy = Q.range_window_at(
             parts, boxes, local, active, rects, self.spec, cap=self.cap,
             **self.kw)
+        # only squared: no flush needed (_num.dist2_f32)
         dx = wx - qx[:, None, None]
         dy = wy - qy[:, None, None]
-        d2 = fma_f32(dx, dx, dy * dy)              # XLA:CPU's contraction
-        inc = (vids >= 0) & (d2 <= (r * r)[:, None, None])
+        d2 = dist2_f32(dx, dy)                     # XLA:CPU's contraction
+        inc = (vids >= 0) & (d2 <= mul_f32(r, r)[:, None, None])
         negd = torch.where(inc, -d2, NEG).reshape(qn, -1)
         wv = torch.where(inc, vids, -1).reshape(qn, -1)
         return (negd, wv, inc.sum((1, 2), dtype=torch.int32),
@@ -479,8 +482,8 @@ class _KnnPrunedLocal(_LocalFn):
             return bn, torch.gather(wv, 1, ix), cnt, okl
 
         def gather_round(r):
-            rects = torch.stack([qx - r, qy - r, qx + r, qy + r], -1)
-            rr = (r * r)[:, None]
+            rects = Q.circle_mbrs(qx, qy, r)
+            rr = mul_f32(r, r)[:, None]
             active = cand_d2 <= rr
             # coverage: every partition within r must be a candidate
             covered = (boxd2 <= rr).sum(1, dtype=torch.int32) <= cand
@@ -562,6 +565,74 @@ class _JoinFullLocal(_LocalFn):
             cnt = bk.join_scan(ch, polys, n_edges, mbrs, s, e, active=act)
             acc += cnt.sum(0, dtype=torch.int32)               # merge
         return acc
+
+
+class _WindowNeedLocal(_LocalFn):
+    """The rect families' need probe (DESIGN.md §13): per query, the
+    number of overlapping partitions and the learned-interval demand of
+    its windowed gather, with no window gather and no refine. The
+    executor reads it once per wide batch to give each row the lowest
+    tier it fits.
+
+    Returns (Q, 3) int32 [ncand, need, needsum]: ncand the overlapping
+    partitions (a tier fits when ncand <= cand), need the widest
+    subinterval over the candidates (fits when need <= cap), needsum the
+    summed widths (bounds the materialized plane for the keep width)."""
+
+    def __init__(self, index, cfg, backend, cand, rect_of,
+                 n_query_args: int, z_depth: int = 2):
+        super().__init__(index, cfg, backend)
+        self.cand = cand
+        self.rect_of = rect_of
+        self.n_query_args = n_query_args
+        self.z_depth = z_depth
+
+    def __call__(self, parts, bounds, *q):
+        rects = self.rect_of(*q)
+        overlap = Q.rect_overlaps_box(rects, bounds)
+        ncand = overlap.sum(1, dtype=torch.int32)
+        pids, valid, _ = _top_candidates(overlap, self.cand)
+        width, total = Q.window_need_at(
+            parts, bounds[pids], pids, valid, rects, self.spec,
+            z_depth=self.z_depth, **self.kw)
+        return torch.stack([ncand, width.amax(1),
+                            total.sum(1, dtype=torch.int32)], 1)
+
+
+class _KnnNeedLocal(_LocalFn):
+    """The kNN need probe (DESIGN.md §13): for the J = 2 radii r0 * 2^j,
+    per query [need, tot, nin]: the widest window demanded, the summed
+    candidate mass, and the partitions within the radius. The executor
+    predicts each row's resolving round from the first j whose mass
+    reaches 2k; every kNN bucket still runs at the sticky tier, so the
+    prediction moves cost, never values. Returns (Q, J, 3) int32."""
+
+    n_query_args = 3
+    J = 2
+
+    def __init__(self, index, cfg, backend, cand):
+        super().__init__(index, cfg, backend)
+        self.cand = cand
+
+    def __call__(self, parts, bounds, qx, qy, r0):
+        boxd2 = Q.box_min_dist2(qx, qy, bounds)             # (Q, P)
+        # the cand nearest partitions, ties to the lowest index
+        negd2, order = stable_topk(-boxd2, min(self.cand, boxd2.shape[1]))
+        cand_d2 = -negd2
+        boxes = bounds[order]
+        cols = []
+        for j in range(self.J):
+            r = r0 * float(2 ** j)
+            rects = Q.circle_mbrs(qx, qy, r)
+            rr = mul_f32(r, r)[:, None]
+            width, total = Q.window_need_at(
+                parts, boxes, order, cand_d2 <= rr, rects, self.spec,
+                **self.kw)
+            nin = (boxd2 <= rr).sum(1, dtype=torch.int32)
+            cols.append(torch.stack([width.amax(1),
+                                     total.sum(1, dtype=torch.int32), nin],
+                                    1))
+        return torch.stack(cols, 1)
 
 
 def _select(pred, a, b):

@@ -9,7 +9,9 @@ adaptive specs (RangeQuery, CircleQuery, pruned Knn, windowed
 SpatialJoin) run the strict escalation loop over a (cap, cand) window
 tier, or, once a tier is sticky and ``strict=False``, the fused serving
 program; ``sticky_key()`` names the tier state an executor keeps per
-spec family. The wide-batch bucketed dispatch is not ported yet.
+spec family. A wide non-strict batch on a sticky tier takes the
+tier-bucketed dispatch (``tier_buckets``, ``tier_bucket_min``,
+``row_chunk_elems``; DESIGN.md §13).
 """
 from __future__ import annotations
 
@@ -17,11 +19,6 @@ import dataclasses
 from typing import Optional, Tuple
 
 BACKENDS = ("auto", "torch", "cuda")
-
-# what a wide strict=False batch on a sticky tier waits for when
-# tier_buckets is on (ROADMAP.md, "Modules to port")
-PENDING = ("the wide-batch tier-bucketed dispatch (ROADMAP.md module "
-           "item 14)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,9 +42,11 @@ class EngineConfig:
                                      # chunked kNN top-k and circle
                                      # compaction merges engage
     tier_buckets: bool = True    # a wide non-strict batch on a sticky
-                                 # tier takes the bucketed dispatch
-                                 # (not ported: it raises)
+                                 # tier: one need probe, then each row
+                                 # at the lowest tier it is feasible at
     tier_bucket_min: int = 32    # min batch width before bucketing
+    row_chunk_elems: int = 1 << 19  # bucketed dispatch: rows x (cap *
+                                    # cand) per fused call
     demote_after: int = 3        # consecutive clean maintain() checks
                                  # before a sticky tier steps back down
 

@@ -17,13 +17,24 @@ Bitwise notes: the interpolation is the kernel module's FMA-matched
 and ``bounds_on_rows`` truncates where the reference truncates; the
 circle distance is ``fma(dx, dx, dy*dy)`` (XLA:CPU's contraction,
 measured in tests/test_torch_hazards.py); float-to-int casts happen
-only on clamped, in-range values.
+only on clamped, in-range values. XLA:CPU reads float32 denormals as
+zero and flushes tiny results (``_num``): every coordinate compared or
+computed here is flushed, the rects and boxes once, each gathered window
+plane once, and every difference, product and distance by ``_num``'s
+ops (a difference that is only squared needs none: ``_num.dist2_f32``).
+The key step (``keys.quantize``) needs no flush: a value below
+2^-126 times the quantization scale (at most 2^bits / 1e-30) stays below
+2^-14, so it floors and clamps to the same key either way, and a
+denormal bound changes ``v - lo`` only below the rounding of ``v`` unless
+the bounds span less than about 2^-90 (tests/test_torch_denormals.py
+measures it).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch._num import fma_f32
+from repro_torch._num import (add_f32, dist2_f32, flush_denormals, mul_f32,
+                              sub_f32)
 from repro_torch.core import keys as K
 from repro_torch.kernels.point_in_polygon import (  # noqa: F401
     point_in_polygon_plain as point_in_polygon)
@@ -82,6 +93,7 @@ def _window_intervals(parts, boxes, pid, valid, rects, spec, *, cap: int,
     act_s (Q, C, S))."""
     qn, c = pid.shape
     n_pad = parts["keys_f"].shape[1]
+    rects, boxes = flush_denormals(rects), flush_denormals(boxes)
     rect_e = rects[:, None, :].expand(qn, c, 4)
     xl = torch.maximum(rect_e[..., 0], boxes[..., 0])
     yl = torch.maximum(rect_e[..., 1], boxes[..., 1])
@@ -111,19 +123,40 @@ def _window_intervals(parts, boxes, pid, valid, rects, spec, *, cap: int,
 
 def _gather_mask(parts, pid, rect_e, s, e, st, act_s, cap: int):
     """Window gather of every (query, candidate, subinterval): the
-    (Q, C, S, cap) planes wx, wy, the window's partition (Q, C, S, 1)
-    and the in-[s, e), below-count, in-rect, active mask."""
+    (Q, C, S, cap) planes wx, wy (flushed, as XLA:CPU reads them), the
+    window's partition (Q, C, S, 1) and the in-[s, e), below-count,
+    in-rect, active mask. ``rect_e`` is already flushed."""
     p4 = pid[..., None, None]
     posn = st[..., None] + torch.arange(cap, dtype=torch.int32,
                                         device=pid.device)
     cols = posn.to(torch.int64)
-    wx, wy = parts["x"][p4, cols], parts["y"][p4, cols]
+    wx = flush_denormals(parts["x"][p4, cols])
+    wy = flush_denormals(parts["y"][p4, cols])
     r = rect_e[:, :, None, :, None]                   # (Q, C, 1, 4, 1)
     mask = ((posn >= s[..., None]) & (posn < e[..., None]) &
             (posn < parts["count"][p4]) &
             (wx >= r[..., 0, :]) & (wx <= r[..., 2, :]) &
             (wy >= r[..., 1, :]) & (wy <= r[..., 3, :]) & act_s[..., None])
     return wx, wy, p4, cols, mask
+
+
+def window_need_at(parts, boxes, pid, valid, rects, spec, *,
+                   radix_bits: int, probe: int, z_depth: int = 2):
+    """Per-(query, candidate) learned-interval demand, no window gather:
+    the need probe behind the executor's tier-bucketed dispatch
+    (DESIGN.md §13). It runs the windowed gathers' own
+    ``_window_intervals`` (the same clip, z-decomposition and learned
+    bounds, so a predicted fit is a fit), with ``cap`` pinned to 1: the
+    interval widths do not depend on it.
+
+    Returns (width (Q, C) int32, the widest active subinterval; total
+    (Q, C) int32, the active subintervals' summed widths)."""
+    del radix_bits
+    _, s, e, _, _, act_s = _window_intervals(
+        parts, boxes, pid, valid, rects, spec, cap=1, probe=probe,
+        z_depth=z_depth)
+    w = torch.where(act_s, e - s, 0)
+    return w.amax(-1), w.sum(-1, dtype=torch.int32)
 
 
 def range_window_at(parts, boxes, pid, valid, rects, spec, *, cap: int,
@@ -163,10 +196,10 @@ def circle_window_at(parts, boxes, pid, valid, rects, circ, spec, *,
     wx, wy, p4, cols, mask = _gather_mask(parts, pid, rect_e, s, e, st,
                                           act_s, cap)
     cc = circ[:, None, None, :, None]                 # (Q, 1, 1, 3, 1)
-    dx = wx - cc[..., 0, :]
+    dx = wx - cc[..., 0, :]               # only squared: no flush needed
     dy = wy - cc[..., 1, :]
     r = cc[..., 2, :]
-    mask = mask & (fma_f32(dx, dx, dy * dy) <= r * r)
+    mask = mask & (dist2_f32(dx, dy) <= mul_f32(r, r))
     cnts = mask.sum((-2, -1), dtype=torch.int32)
     if not materialize:
         return cnts, None, ok
@@ -176,7 +209,8 @@ def circle_window_at(parts, boxes, pid, valid, rects, circ, spec, *,
 
 def clip_rect_to_box(rects, box):
     """Intersect (Q, 4) rects with one partition box (4,); an empty
-    intersection is an inverted rect."""
+    intersection is an inverted rect. Both are read flushed."""
+    rects, box = flush_denormals(rects), flush_denormals(box)
     return torch.stack([torch.maximum(rects[:, 0], box[0]),
                         torch.maximum(rects[:, 1], box[1]),
                         torch.minimum(rects[:, 2], box[2]),
@@ -196,8 +230,18 @@ def clipped_key_range(rects, box, spec):
 # geometry helpers (global filter phase)
 # ---------------------------------------------------------------------------
 
+def circle_mbrs(cx, cy, r):
+    """(Q, 4) MBRs [cx - r, cy - r, cx + r, cy + r] of (Q,) circles, as
+    XLA:CPU computes them: inputs read flushed, results flushed."""
+    cx, cy, r = (flush_denormals(a) for a in (cx, cy, r))
+    return torch.stack([sub_f32(cx, r), sub_f32(cy, r), add_f32(cx, r),
+                        add_f32(cy, r)], -1)
+
+
 def rect_overlaps_box(rects, boxes):
-    """(Q, P) — axis-aligned overlap test (global filter phase)."""
+    """(Q, P) — axis-aligned overlap test (global filter phase), both
+    sides read flushed."""
+    rects, boxes = flush_denormals(rects), flush_denormals(boxes)
     xl, yl, xh, yh = (rects[:, 0:1], rects[:, 1:2], rects[:, 2:3],
                       rects[:, 3:4])
     bxl, byl, bxh, byh = boxes[:, 0], boxes[:, 1], boxes[:, 2], boxes[:, 3]
@@ -205,10 +249,12 @@ def rect_overlaps_box(rects, boxes):
 
 
 def box_min_dist2(qx, qy, boxes):
-    """(Q, P) squared min distance from points to boxes (kNN pruning)."""
+    """(Q, P) squared min distance from points to boxes (kNN pruning),
+    in the fused form XLA:CPU gives it inside a program, flushed (the
+    clamped differences are only squared: ``_num.dist2_f32``)."""
     zero = torch.zeros((), dtype=qx.dtype, device=qx.device)
     dx = torch.maximum(torch.maximum(boxes[:, 0] - qx[:, None],
                                      qx[:, None] - boxes[:, 2]), zero)
     dy = torch.maximum(torch.maximum(boxes[:, 1] - qy[:, None],
                                      qy[:, None] - boxes[:, 3]), zero)
-    return fma_f32(dx, dx, dy * dy)
+    return dist2_f32(dx, dy)

@@ -12,13 +12,18 @@ scanned position).
 
 Bitwise note: XLA:CPU contracts the reference's ``dx*dx + dy*dy`` into
 ``fma(dx, dx, dy*dy)`` (tests/test_torch_hazards.py measures it), so
-the plain version uses ``fma_f32`` and the kernel ``__fmaf_rn``.
+the plain version uses ``fma_f32`` and the kernel ``__fmaf_rn``. It
+reads float32 denormals as zero and flushes tiny results: the MBR test
+compares flushed coordinates (``range_mask``), and the distance flushes
+``dy*dy``, the FMA and ``r*r`` (``_num.dist2_f32``, ``mul_f32``; the
+kernel's ``daz``, ``dist2_ftz``, ``mul_ftz``). The differences need no
+flush: they are only squared (``_num.dist2_f32``).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch._num import fma_f32
+from repro_torch._num import dist2_f32, mul_f32
 from repro_torch.kernels._args import I, P, on_cpu, ptr, stream
 from repro_torch.kernels.range_filter import range_mask
 
@@ -29,11 +34,12 @@ _SIG = {"circle_count_launch": [P, P, P, P, P, P, P, P, I, I, I, P, P]}
 
 def in_circle(x, y, circ):
     """(C, Q, n_pad) bool — point within its circle: fma(dx, dx, dy*dy)
-    <= r*r, the reference's rounding. x, y (C, n_pad); circ (Q, 3)."""
+    <= r*r, the reference's rounding and flushes. x, y (C, n_pad); circ
+    (Q, 3)."""
     dx = x[:, None, :] - circ[None, :, 0, None]
     dy = y[:, None, :] - circ[None, :, 1, None]
-    r = circ[None, :, 2, None]
-    return fma_f32(dx, dx, dy * dy) <= r * r
+    r = circ[None, :, 2, None]            # a denormal r squares to 0
+    return dist2_f32(dx, dy) <= mul_f32(r, r)
 
 
 def circle_count_plain(rects, s, e, circ, active, count, x, y):

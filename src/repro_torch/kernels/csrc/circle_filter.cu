@@ -13,7 +13,11 @@
 //
 // The distance is fmaf(dx, dx, dy*dy) <= r*r: XLA:CPU contracts the
 // reference's dx*dx + dy*dy to that FMA. Every step is an explicitly
-// rounded intrinsic, so nvcc cannot contract it another way.
+// rounded intrinsic, so nvcc cannot contract it another way. XLA:CPU
+// reads float32 denormals as zero and flushes tiny results: the MBR test
+// compares values read through daz, and dy*dy, the FMA and r*r are
+// flushed (dist2_ftz, mul_ftz in common.cuh); dx and dy are only
+// squared, so they need no flush.
 //
 // Bound: bytes — 8 bytes of coordinates per position in the intervals,
 // against about ten operations each.
@@ -27,21 +31,21 @@ struct CircleTest {
   float xl, yl, xh, yh, cx, cy, r2;
 
   __device__ __forceinline__ void load(int q) {
-    xl = __ldg(rects + 4 * q);
-    yl = __ldg(rects + 4 * q + 1);
-    xh = __ldg(rects + 4 * q + 2);
-    yh = __ldg(rects + 4 * q + 3);
+    xl = daz(__ldg(rects + 4 * q));
+    yl = daz(__ldg(rects + 4 * q + 1));
+    xh = daz(__ldg(rects + 4 * q + 2));
+    yh = daz(__ldg(rects + 4 * q + 3));
     cx = __ldg(circ + 3 * q);
     cy = __ldg(circ + 3 * q + 1);
-    const float r = __ldg(circ + 3 * q + 2);
-    r2 = __fmul_rn(r, r);
+    const float r = __ldg(circ + 3 * q + 2);  // a denormal r squares to 0
+    r2 = mul_ftz(r, r);
   }
 
   __device__ __forceinline__ bool operator()(float vx, float vy) const {
+    vx = daz(vx);
+    vy = daz(vy);
     if (!(vx >= xl && vx <= xh && vy >= yl && vy <= yh)) return false;
-    const float dx = __fsub_rn(vx, cx);
-    const float dy = __fsub_rn(vy, cy);
-    return __fmaf_rn(dx, dx, __fmul_rn(dy, dy)) <= r2;
+    return dist2_ftz(__fsub_rn(vx, cx), __fsub_rn(vy, cy)) <= r2;
   }
 };
 

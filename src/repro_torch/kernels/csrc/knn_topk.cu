@@ -61,7 +61,13 @@
 //
 // The distance is fmaf(dx, dx, dy*dy), the form XLA:CPU contracts
 // dx*dx + dy*dy to; every step is an explicit intrinsic so nvcc cannot
-// contract it differently.
+// contract it differently. XLA:CPU reads float32 denormals as zero and
+// flushes tiny results: dy*dy and the distance (also the value returned)
+// are flushed as dist2_ftz (common.cuh) flushes them. Where every dy*dy
+// of a point exceeds 2^-126 neither flush can act, so the scan computes
+// the plain FMA and recomputes with dist2_ftz only for a point where one
+// does not (a branch per point, not per pair); the coordinates and their
+// differences are only squared, so they need no flush.
 #include <math_constants.h>
 
 #include <algorithm>
@@ -254,14 +260,22 @@ __global__ void __launch_bounds__(kThreads) knn_topk_kernel(
       ny = s_y[next];
     }
     float dd[QW];
-    bool any = false;
+    bool any = false, small = false;
 #pragma unroll
     for (int i = 0; i < QW; ++i) {
       const float dx = __fsub_rn(vx, ax[i]);
       const float dy = __fsub_rn(vy, ay[i]);
-      dd[i] = __fmaf_rn(dx, dx, __fmul_rn(dy, dy));
-      any |= valid && dd[i] <= kd[i];
+      const float yy = __fmul_rn(dy, dy);
+      dd[i] = __fmaf_rn(dx, dx, yy);
+      small |= yy <= kLeastNormal;
     }
+    if (small) {  // rare: a dy*dy at most 2^-126, where the flush may act
+#pragma unroll
+      for (int i = 0; i < QW; ++i)
+        dd[i] = dist2_ftz(__fsub_rn(vx, ax[i]), __fsub_rn(vy, ay[i]));
+    }
+#pragma unroll
+    for (int i = 0; i < QW; ++i) any |= valid && dd[i] <= kd[i];
     if (__any_sync(kFullMask, any)) {
       const int pos = p_begin + slot;
 #pragma unroll

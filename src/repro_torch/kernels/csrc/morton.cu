@@ -10,7 +10,8 @@
 //
 // The TPU kernel worked on (8, 128) uint32 tiles of a padded (rows, 128)
 // array. Here it is an elementwise grid-stride pass over the flat
-// arrays; the ragged edge is masked, so nothing is padded.
+// arrays; the ragged edge is masked, so nothing is padded. The inputs are
+// integers, so there is no float32 denormal to flush (common.cuh daz).
 //
 // Bound: bytes. 24 bytes per point (two int64 in, one int64 out) and
 // about 25 integer operations: at 2^23 points 0.060 ms over 3.35 TB/s.

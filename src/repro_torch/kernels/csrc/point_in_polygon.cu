@@ -19,6 +19,10 @@
 //   t   = (py - y1) / (y2 == y1 ? 1e-30 : y2 - y1)   (IEEE division)
 //   xin = fmaf(t, x2 - x1, x1)                       (XLA:CPU's FMA)
 // in explicitly rounded intrinsics, so nvcc cannot contract otherwise.
+// XLA:CPU reads float32 denormals as zero and flushes tiny results: the
+// point, the MBR and the vertices are read through daz, and the
+// differences, t and xin computed with sub_ftz, div_ftz and fma_ftz
+// (common.cuh).
 // An edge whose y-span misses py is skipped: it cannot cross. One thread
 // takes a point's edges in order, so the parity is the reference's.
 //
@@ -56,25 +60,33 @@ struct PolygonTest {
   __device__ __forceinline__ void load(int g) {
     vert = polys + static_cast<size_t>(g) * e_max;
     ne = __ldg(n_edges + g);
-    xl = __ldg(mbrs + 4 * g);
-    yl = __ldg(mbrs + 4 * g + 1);
-    xh = __ldg(mbrs + 4 * g + 2);
-    yh = __ldg(mbrs + 4 * g + 3);
+    xl = daz(__ldg(mbrs + 4 * g));
+    yl = daz(__ldg(mbrs + 4 * g + 1));
+    xh = daz(__ldg(mbrs + 4 * g + 2));
+    yh = daz(__ldg(mbrs + 4 * g + 3));
+  }
+
+  // vertex i of the polygon, as XLA:CPU reads it
+  __device__ __forceinline__ float2 vertex(int i) const {
+    const float2 v = __ldg(vert + i);
+    return make_float2(daz(v.x), daz(v.y));
   }
 
   __device__ __forceinline__ bool operator()(float vx, float vy) const {
+    vx = daz(vx);
+    vy = daz(vy);
     if (!(vx >= xl && vx <= xh && vy >= yl && vy <= yh)) return false;
     const int n_loop = min(ne, e_max);
     bool parity = false;
-    float2 v1 = n_loop > 0 ? __ldg(vert) : make_float2(0.f, 0.f);
+    float2 v1 = n_loop > 0 ? vertex(0) : make_float2(0.f, 0.f);
     for (int i = 0; i < n_loop; ++i) {
       // nxt == i + 1 on every edge but the last, so v2 is the next v1
       const int nxt = i + 1 >= ne ? 0 : min(i + 1, e_max - 1);
-      const float2 v2 = __ldg(vert + nxt);
+      const float2 v2 = vertex(nxt);
       if ((v1.y > vy) != (v2.y > vy)) {
-        const float den = v2.y == v1.y ? 1e-30f : __fsub_rn(v2.y, v1.y);
-        const float t = __fdiv_rn(__fsub_rn(vy, v1.y), den);
-        const float xin = __fmaf_rn(t, __fsub_rn(v2.x, v1.x), v1.x);
+        const float den = v2.y == v1.y ? 1e-30f : sub_ftz(v2.y, v1.y);
+        const float t = div_ftz(sub_ftz(vy, v1.y), den);
+        const float xin = fma_ftz(t, sub_ftz(v2.x, v1.x), v1.x);
         parity ^= vx < xin;
       }
       v1 = v2;

@@ -29,8 +29,9 @@
 // not); fminf/fmaxf clamp values that are never NaN (knot rows pad with
 // a finite 3.4e38). XLA:CPU reads float32 denormals as zero, so the box
 // test and the equality probe flush the coordinates on both sides
-// (daz); keys are integer-valued, and the lookup's one denormal (t below
-// 2^-126 against a padded knot) cannot move a rounded position.
+// (common.cuh daz); keys are integer-valued, and the lookup's one
+// denormal (t below 2^-126 against a padded knot) cannot move a rounded
+// position.
 //
 // Bound: latency. Each query is a chain of dependent reads (box -> knot
 // row -> lookup window -> probe window); the bytes (the queries, the
@@ -48,12 +49,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr float kLeastNormal = 1.17549435e-38f;  // 2^-126
-
-// a coordinate as XLA:CPU compares it: denormals are zero
-__device__ __forceinline__ float daz(float v) {
-  return fabsf(v) < kLeastNormal ? 0.0f : v;
-}
 
 // every lane holds the total
 __device__ __forceinline__ int warp_total(int v) {

@@ -14,6 +14,10 @@
 // The scan is interval_scan.cuh's: the positions of the chunk's
 // intervals spread evenly over a fixed grid, one launch per chunk.
 //
+// XLA:CPU reads float32 denormals as zero, so both sides of each compare
+// are read through daz (common.cuh): the rect once per query, the point
+// per position.
+//
 // Bound: bytes — 8 bytes of coordinates per position in the intervals,
 // four compares each.
 #include "interval_scan.cuh"
@@ -25,13 +29,15 @@ struct RectTest {
   float xl, yl, xh, yh;
 
   __device__ __forceinline__ void load(int q) {
-    xl = __ldg(rects + 4 * q);
-    yl = __ldg(rects + 4 * q + 1);
-    xh = __ldg(rects + 4 * q + 2);
-    yh = __ldg(rects + 4 * q + 3);
+    xl = daz(__ldg(rects + 4 * q));
+    yl = daz(__ldg(rects + 4 * q + 1));
+    xh = daz(__ldg(rects + 4 * q + 2));
+    yh = daz(__ldg(rects + 4 * q + 3));
   }
 
   __device__ __forceinline__ bool operator()(float vx, float vy) const {
+    vx = daz(vx);
+    vy = daz(vy);
     return vx >= xl && vx <= xh && vy >= yl && vy <= yh;
   }
 };

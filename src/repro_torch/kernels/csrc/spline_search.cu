@@ -38,6 +38,10 @@
 // to (__fmaf_rn), every other operation is an explicitly rounded
 // single-precision intrinsic (no contraction left to the compiler), and
 // the rounding is rintf (half to even, as jnp.round), not roundf.
+// XLA:CPU reads float32 denormals as zero (common.cuh daz/ftz), but no
+// flush is needed here: keys and knots are integer-valued, the result is
+// an integer position, and the one denormal (t below 2^-126 against a
+// padded knot) cannot move a rounded position.
 #include "common.cuh"
 
 namespace {

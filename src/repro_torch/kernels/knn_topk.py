@@ -18,6 +18,14 @@ the kernel instance's occupancy, nq, the number of partitions and
 block of each (query block, partition) merges the slices' lists by
 (d^2, position) in the same launch, so the result is the plain
 version's bit for bit wherever the slice borders fall.
+
+Bitwise notes: the distance is ``fma(dx, dx, dy*dy)``, XLA:CPU's
+contraction; XLA:CPU reads float32 denormals as zero and flushes tiny
+results, so ``dy*dy`` and the distance (which is also the value
+returned) are flushed (``_num.dist2_f32``; ``dist2_ftz`` in the
+kernel). The coordinates and their differences need no flush: they are
+only squared. Two candidates at d^2 = 0 and 1e-40 are then a tie,
+broken by the lower position, as in the reference.
 """
 from __future__ import annotations
 
@@ -25,7 +33,7 @@ import ctypes
 
 import torch
 
-from repro_torch._num import fma_f32, stable_topk
+from repro_torch._num import dist2_f32, stable_topk
 from repro_torch.kernels._args import I, P, on_cpu, ptr, stream
 
 launches = 0        # kernel launches (not plain-version calls)
@@ -44,7 +52,7 @@ def knn_topk_plain(qx, qy, count, x, y, *, k: int):
     n_pad = x.shape[1]
     dx = x[:, None, :] - qx[None, :, None]                 # (C, Q, n)
     dy = y[:, None, :] - qy[None, :, None]
-    d2 = fma_f32(dx, dx, dy * dy)         # XLA:CPU's contraction
+    d2 = dist2_f32(dx, dy)                # XLA:CPU's contraction
     del dx, dy
     valid = torch.arange(n_pad, device=x.device)[None, :] < count[:, None]
     d2 = torch.where(valid[:, None, :], d2, torch.full(

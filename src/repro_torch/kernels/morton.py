@@ -13,7 +13,8 @@ the reference's ``astype(uint32)`` keeps them, and the key is masked to
 
 As in the reference, the index build does not call this kernel: its key
 step is ``core/keys.morton_encode``, plain int64 PyTorch. This is the
-kernel at its own entry point.
+kernel at its own entry point. Its inputs are integers, so XLA:CPU's
+float32 denormal flush (``_num``) has nothing to act on here.
 """
 from __future__ import annotations
 

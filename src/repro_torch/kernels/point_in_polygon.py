@@ -20,14 +20,18 @@ in the MBR) or bytes (8 per scanned position), whichever is larger.
 Bitwise notes: XLA:CPU contracts the crossing ``x1 + t*(x2 - x1)`` into
 ``fma(t, x2 - x1, x1)`` (tests/test_torch_hazards.py measures it); the
 division is an IEEE division with the reference's 1e-30 guard when
-``y1 == y2``.
+``y1 == y2``. XLA:CPU reads float32 denormals as zero and flushes tiny
+results: the plain version flushes the point, the vertices, the
+differences, ``t`` and ``xin`` (``_num``'s ops), and the kernel calls
+``daz``/``ftz`` at the same steps.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch._num import fma_f32
+from repro_torch._num import (div_f32, flush_denormals, fma_f32,
+                              sub_f32)
 from repro_torch.kernels._args import I, P, on_cpu, ptr, stream
 from repro_torch.kernels.range_filter import range_mask
 
@@ -46,6 +50,7 @@ def point_in_polygon_plain(px, py, poly, n_edges):
     padding edges (i >= n_edges) never cross. The flags equal
     ``kernels/ref.py:point_in_polygon`` of the reference."""
     e_max = poly.shape[-2]
+    px, py, poly = (flush_denormals(v) for v in (px, py, poly))
     ne = n_edges.to(torch.int64)[..., None]                   # (..., 1)
     tiny = torch.full((), _TINY, dtype=torch.float32, device=px.device)
     parity = torch.zeros(torch.broadcast_shapes(px.shape, ne.shape),
@@ -59,8 +64,9 @@ def point_in_polygon_plain(px, py, poly, n_edges):
             *nxt.shape[:-1], 1, 2))
         x2, y2 = p2[..., 0], p2[..., 1]
         cond = (y1 > py) != (y2 > py)
-        t = (py - y1) / torch.where(y2 == y1, tiny, y2 - y1)
-        xin = fma_f32(t, x2 - x1, x1)          # XLA:CPU's contraction
+        t = div_f32(sub_f32(py, y1),
+                    torch.where(y2 == y1, tiny, sub_f32(y2, y1)))
+        xin = fma_f32(t, sub_f32(x2, x1), x1)  # XLA:CPU's contraction
         parity ^= cond & (px < xin) & (i < ne)
     return parity
 

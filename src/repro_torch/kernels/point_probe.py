@@ -20,15 +20,15 @@ FMA XLA:CPU contracts it to); ``torch.round`` rounds half to even like
 ``jnp.round`` (the kernel's ``rintf``); float-to-int casts happen only
 on values in range. XLA:CPU treats float32 denormals as zero (it finds
 1e-45 == 0.0), so every coordinate compare here (box test, equality
-probe) flushes both sides first (``flush_denormals``). Keys are
+probe) flushes both sides first (``_num.flush_denormals``). Keys are
 integer-valued, and the lookup's only denormal (``t`` below 2^-126,
 against a padded knot) cannot move a rounded position.
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 
+from repro_torch._num import flush_denormals
 from repro_torch.kernels._args import I, P, on_cpu, ptr, stream
 from repro_torch.kernels.spline_search import interpolate
 
@@ -36,14 +36,6 @@ launches = 0        # kernel launches (not plain-version calls)
 
 _SIG = {"point_query_launch": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I,
                                I, P, P]}
-
-_LEAST_NORMAL = float(np.finfo(np.float32).tiny)    # 2^-126
-
-
-def flush_denormals(v):
-    """``v`` with float32 denormals set to zero, as XLA:CPU reads them."""
-    return torch.where(v.abs() < _LEAST_NORMAL, torch.zeros_like(v), v)
-
 
 def point_in_box(qx, qy, boxes):
     """(Q, P) containment of query points in boxes [xlo, ylo, xhi, yhi],

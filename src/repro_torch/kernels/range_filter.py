@@ -8,6 +8,10 @@ covers a chunk of partitions: the positions of its active
 [s, min(e, count)) intervals are spread evenly over a grid fixed by the
 card's SM count (``grid``), so the longest interval no longer sets the
 launch's time. Bound: bytes (8 per scanned position).
+
+Bitwise note: XLA:CPU reads float32 denormals as zero, so the rect test
+compares both sides flushed (``_num.flush_denormals``; ``daz`` in the
+kernel).
 """
 from __future__ import annotations
 
@@ -15,6 +19,7 @@ import ctypes
 
 import torch
 
+from repro_torch._num import flush_denormals
 from repro_torch.kernels._args import I, P, on_cpu, ptr, stream
 
 launches = 0        # kernel launches (not plain-version calls)
@@ -31,8 +36,9 @@ def range_mask(rects, s, e, count, x, y, active=None):
     posn = torch.arange(n_pad, dtype=torch.int32, device=x.device)
     valid = posn[None, :] < count[:, None]                     # (C, n)
     inpos = (posn >= s[..., None]) & (posn < e[..., None])    # (C, Q, n)
-    px, py = x[:, None, :], y[:, None, :]
-    r = rects[None, :, :, None]                                # (1, Q, 4, 1)
+    f = flush_denormals
+    px, py = f(x)[:, None, :], f(y)[:, None, :]
+    r = f(rects)[None, :, :, None]                             # (1, Q, 4, 1)
     inrect = ((px >= r[:, :, 0]) & (px <= r[:, :, 2]) &
               (py >= r[:, :, 1]) & (py <= r[:, :, 3]))
     m = valid[:, None, :] & inpos & inrect

@@ -22,7 +22,10 @@ the index builds it (padding 3e38 past the count).
 Bitwise notes: the interpolation ``p0 + t*(p1 - p0)`` is the FMA that
 XLA:CPU contracts it to (``fma_f32``); ``torch.round`` rounds half to
 even like ``jnp.round``; float-to-int casts happen only on clamped,
-in-range values.
+in-range values. XLA:CPU reads float32 denormals as zero (``_num``), but
+no flush is needed here: keys and knots are integer-valued and the
+result is an integer position; the only denormal, ``t`` below 2^-126
+against a padded knot, cannot move a rounded or truncated position.
 """
 from __future__ import annotations
 

@@ -51,5 +51,6 @@ class SpatialServeSession:
         return self.executor.maintain()
 
     def stats(self) -> dict:
-        """Executor counters: host_syncs, dispatches, backend, sticky."""
+        """Executor counters: host_syncs, probe_syncs (one host read per
+        bucketed wide call), dispatches, backend, sticky."""
         return self.executor.stats()

@@ -277,26 +277,46 @@ def test_strict_false_on_a_sticky_tier_matches_jax(golden_index,
 
 
 @FAMILIES
-def test_strict_false_on_a_sticky_tier_raises(golden_index, spec, args):
+def test_strict_false_wide_batch_on_a_sticky_tier_is_bucketed(
+        golden_index, jax_golden_index, spec, args):
     """A serving batch of >= tier_bucket_min (32) queries on a sticky
-    tier takes the reference's tier-bucketed dispatch, which is not
-    ported: it raises, naming ROADMAP item 14. Narrower batches, strict
-    calls and tier_buckets=False are served."""
+    tier takes the tier-bucketed dispatch: bitwise the JAX Executor's
+    run of the same batch, host_syncs +0 and probe_syncs +1 on both.
+    Narrower batches skip the probe; strict calls and tier_buckets=False
+    are served as before, with no probe."""
+    from repro import core as J
+
     idx = golden_index[0]
     wide = _family_data(golden_index, spec, 32)
     assert len(wide) == args
-    ex = Executor(idx, device="cpu")
-    ex.run(spec, *wide, strict=True)                # a sticky tier
+    jspec = getattr(J, type(spec).__name__)(**{
+        f.name: getattr(spec, f.name)
+        for f in spec.__dataclass_fields__.values()})
+    ex, jex = Executor(idx, device="cpu"), J.Executor(jax_golden_index)
+
+    def both(data, **kw):
+        got, want = ex.run(spec, *data, **kw), jex.run(jspec, *data, **kw)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for g, w in zip(got, want, strict=True):
+            assert np.asarray(w).tobytes() == g.numpy().tobytes()
+        for name in ("host_syncs", "probe_syncs", "dispatches"):
+            assert getattr(ex, name) == getattr(jex, name), name
+        assert ex._sticky == jex._sticky
+
+    both(wide, strict=True)                         # a sticky tier
     assert spec.sticky_key() in ex._sticky
-    with pytest.raises(NotImplementedError, match="module item 14"):
-        ex.run(spec, *wide)
-    ex.run(spec, *(a[:31] for a in wide))           # narrower: served
-    ex.run(spec, *wide, strict=True)                # strict still runs
+    syncs, probes = ex.host_syncs, ex.probe_syncs
+    both(wide)                                      # bucketed
+    assert ex.host_syncs == syncs and ex.probe_syncs == probes + 1
+    both(tuple(a[:31] for a in wide))               # narrower: no probe
+    assert ex.host_syncs == syncs and ex.probe_syncs == probes + 1
+    both(wide, strict=True)                         # strict still runs
     off = Executor(idx, EngineConfig(tier_buckets=False), device="cpu")
     off.run(spec, *wide, strict=True)
     syncs = off.host_syncs
     off.run(spec, *wide)                            # served, no sync
-    assert off.host_syncs == syncs
+    assert off.host_syncs == syncs and off.probe_syncs == 0
 
 
 def test_strict_loop_escalates_then_sticks(golden_index, golden):

@@ -747,3 +747,150 @@ def test_gpu_steady_serving_round_makes_no_sync(cuda):
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
         assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_gpu_wide_serving_round_is_bucketed(cuda):
+    """A steady serving round at src/repro/launch/serve.py's default
+    q = 64 on a small index, inputs on the card: the range query, circle
+    and kNN requests (64 rows) take the bucketed dispatch. Under
+    torch.cuda.set_sync_debug_mode("warn") the round raises exactly one
+    sync warning per bucketed request (its one read of the bucket
+    sizes), probe_syncs grows by as many, host_syncs stays, and every
+    output is bitwise the torch backend's."""
+    import warnings
+    x, y = ds.make("taxi", 20000, seed=0)
+    part = fit("kdtree", x, y, 16, seed=0)
+    idx = build_index(x, y, part, device=cuda)
+    sess = SpatialServeSession(idx, device=cuda)
+    plain = SpatialServeSession(idx, EngineConfig(backend="torch"),
+                                device=cuda)
+    for s in (sess, plain):
+        s.warmup(_serve_round(x, y, part.bounds, 64, 0, cuda))
+    rnd = _serve_round(x, y, part.bounds, 64, 1, cuda)
+    torch.cuda.synchronize()
+    st = sess.stats()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = sess.submit_batch(rnd)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    n_sync = sum("called a synchronizing CUDA operation" in str(w.message)
+                 for w in caught)
+    grew = sess.stats()["probe_syncs"] - st["probe_syncs"]
+    assert grew == 3 and n_sync == grew
+    assert sess.stats()["host_syncs"] == st["host_syncs"]
+    for got, want in zip(out, plain.submit_batch(rnd)):
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert plain.stats()["probe_syncs"] == sess.stats()["probe_syncs"]
+
+
+# -- float32 denormals (read as zero, as XLA:CPU reads them) ---------------
+
+_TINY = np.float32(2.0 ** -126)
+_SPECIAL = np.asarray([0.0, 1e-45, -1e-45, 1e-39, -1e-39, _TINY,
+                       1.25 * _TINY, 1.5 * _TINY, 2 * _TINY, -1.25 * _TINY],
+                      np.float32)
+
+
+def denormal_points():
+    """Gaussian 3,000 points (120 at x = 0.0), the 100 pairs of the
+    special values (0.0, +-1e-45, +-1e-39, and normal values near 2^-126
+    whose differences are denormal), each special value beside a few
+    normal coordinates, and points at a distance from (0.45, 0.0) whose
+    square is denormal."""
+    x, y = ds.make("gaussian", 3000, seed=5)
+    gx, gy = np.meshgrid(_SPECIAL, _SPECIAL)
+    nrm = np.asarray([0.05, 0.3, 0.31, 0.6], np.float32)
+    sx, sn = np.meshgrid(_SPECIAL, nrm)
+    # at x = 0.45, offsets in y whose squares are denormal or at the
+    # flush's edge (2^-63 squares to 2^-126)
+    h = np.float32(2.0 ** -63)
+    off = np.asarray([1e-20, -1e-20, 3e-20, h, np.nextafter(h, np.float32(0)),
+                      -np.nextafter(h, np.float32(1))], np.float32)
+    x = np.concatenate([x, gx.ravel(), sx.ravel(), sn.ravel(),
+                        np.full(off.shape, 0.45, np.float32)])
+    y = np.concatenate([y, gy.ravel(), sn.ravel(), sx.ravel(), off])
+    return x.astype(np.float32), y.astype(np.float32)
+
+
+def denormal_queries():
+    """A query of each family on the special values: rect edges, circle
+    centres and radii, kNN points, polygon vertices and edges."""
+    t, f = float(_TINY), np.float32
+    d, dd = 1e-45, 1e-39
+    rects = np.asarray([
+        [d, 0.0, 0.02, 0.35], [-dd, -dd, d, d], [d, d, 1.5 * t, 1.5 * t],
+        [1.25 * t, -dd, 0.3, dd], [-d, 0.1, 0.0, 0.9], [t, t, 2 * t, 2 * t],
+        [-1.25 * t, -1.25 * t, -d, -d], [0.0, 0.0, dd, 0.5],
+        [1.5 * t, 0.0, 0.06, 1.25 * t], [-dd, 0.29, 0.31, 0.32],
+        [0.1, 0.1, 0.3, 0.3], [d, d, d, d]], f)
+    cx = np.asarray([d, 1.5 * t, 0.0, d, -dd, t, 2 * t, 0.05, 1.25 * t,
+                     0.3, -d, 0.45], f)
+    cy = np.asarray([d, 1.25 * t, 0.3, 0.3, 0.0, 0.0, 2 * t, 0.05, d,
+                     dd, 0.31, 0.0], f)
+    r = np.asarray([dd, 0.25 * t, 0.01, 0.02, 1.5 * t, d, t, 0.1, 2 * t,
+                    0.01, 0.3, 2e-20], f)
+    qx = np.asarray([d, 0.0, 1.5 * t, -dd, dd, t, 0.3, 1.25 * t, -d,
+                     0.05, 2 * t, 0.45], f)
+    qy = np.asarray([d, 0.0, 1.5 * t, 0.3, 0.31, 2 * t, 0.3, -d, 0.6,
+                     dd, 0.0, 0.0], f)
+    polys = np.zeros((6, 5, 2), f)
+    ne = np.asarray([3, 4, 4, 3, 5, 4], np.int32)
+    polys[0, :3] = [[-dd, -dd], [0.2, d], [d, 0.2]]
+    polys[1, :4] = [[d, d], [0.1, d], [0.1, 0.1], [d, 0.1]]
+    polys[2, :4] = [[t, t], [2 * t, t], [2 * t, 2 * t], [1.25 * t, 2 * t]]
+    polys[3, :3] = [[d, 0.3], [0.05, 0.25], [0.05, 0.4]]
+    polys[4, :5] = [[-dd, 0.0], [0.0, -dd], [0.31, 0.0], [0.31, 0.6],
+                    [-d, 0.6]]
+    polys[5, :4] = [[-1.25 * t, -1.25 * t], [0.3, -d], [0.3, 0.3],
+                    [dd, 0.3]]
+    return {"rects": rects, "cx": cx, "cy": cy, "r": r, "qx": qx,
+            "qy": qy, "polys": polys, "ne": ne}
+
+
+@pytest.fixture(scope="module")
+def denormal_index():
+    x, y = denormal_points()
+    idx = build_index(x, y, fit("rtree", x, y, 9, sample_rate=0.05, seed=1),
+                      device="cpu")
+    return x, y, L.pad_partitions(idx, 8)
+
+
+def test_gpu_kernels_on_denormals(denormal_index, cuda):
+    """range_count, circle_count, knn_topk and join_count on the
+    denormal points and queries (every pair active, whole rows), each
+    bitwise its plain version, and the plain version bitwise the CPU's."""
+    _, _, idx = denormal_index
+    q = denormal_queries()
+    c, nq = idx.x.shape[0], len(q["cx"])
+    s = np.zeros((c, nq), np.int32)
+    e = np.broadcast_to(idx.count.numpy()[:, None], (c, nq)).astype(np.int32)
+    act = np.ones((c, nq), bool)
+    mbr = np.stack([q["cx"] - q["r"], q["cy"] - q["r"], q["cx"] + q["r"],
+                    q["cy"] + q["r"]], -1).astype(np.float32)
+    circ = np.stack([q["cx"], q["cy"], q["r"]], -1)
+    pg = len(q["ne"])
+    jm = np.concatenate([q["polys"].min(1), q["polys"].max(1)], -1)
+    calls = [
+        (t_rf.range_count, t_rf.range_count_plain,
+         (q["rects"], s, e, act, idx.count, idx.x, idx.y)),
+        (t_cf.circle_count, t_cf.circle_count_plain,
+         (mbr, s, e, circ, act, idx.count, idx.x, idx.y)),
+        (t_pip.join_count, t_pip.join_count_plain,
+         (q["polys"], q["ne"], jm, s[:, :pg], e[:, :pg], act[:, :pg],
+          idx.count, idx.x, idx.y))]
+    for fn, plain, args in calls:
+        got = fn(*_on(cuda, *args))
+        want = plain(*_on(cuda, *args))
+        assert torch.equal(got, want), fn.__name__
+        assert torch.equal(want.cpu(), plain(*_on("cpu", *args)))
+    args = (q["qx"], q["qy"], idx.count, idx.x, idx.y)
+    got = t_knn.knn_topk(*_on(cuda, *args), k=6)
+    want = t_knn.knn_topk_plain(*_on(cuda, *args), k=6)
+    cpu = t_knn.knn_topk_plain(*_on("cpu", *args), k=6)
+    for g, w, h in zip(got, want, cpu):
+        assert torch.equal(g, w) and torch.equal(w.cpu(), h)

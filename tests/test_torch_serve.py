@@ -12,7 +12,7 @@ Ported from the reference's tests/test_plan.py (zero-sync steady state,
 the fused fallback on overflow, maintain() escalation, facade and plan
 API sharing one tier) and tests/test_compaction.py (demotion and its
 back-off), plus the pruned kNN's fixed-round serving form and a mixed
-serving round at q = 16 (default config) and q = 64 (tier_buckets off).
+serving round at q = 16 and at q = 64 (bucketed, and tier_buckets off).
 """
 import os
 import sys
@@ -67,6 +67,7 @@ class Pair:
     def check_state(self, what=""):
         j, t = self.j, self.t
         assert j.host_syncs == t.host_syncs, what
+        assert j.probe_syncs == t.probe_syncs, what
         assert j.dispatches == t.dispatches, what
         assert j._sticky == t._sticky, what
         for name in STATE:
@@ -361,13 +362,18 @@ def mixed_round(x, y, bounds, q, seed, pkg):
             (pkg.Knn(k=10), x[ix], y[ix]), (pkg.SpatialJoin(), polys, ne)]
 
 
-@pytest.mark.parametrize("q,cfg", [(16, {}), (64, {"tier_buckets": False})],
-                         ids=["q16_default", "q64_no_buckets"])
+@pytest.mark.parametrize("q,cfg", [(16, {}), (64, {"tier_buckets": False}),
+                                   (64, {})],
+                         ids=["q16_default", "q64_no_buckets",
+                              "q64_bucketed"])
 def test_mixed_serving_rounds(taxi, q, cfg):
     """Warm-up, then steady rounds with maintain() after each, as
     src/repro/launch/serve.py runs them: every output bitwise,
     host_syncs +0 on every steady round, and the same maintain()
-    results and tiers."""
+    results and tiers. At q = 64 with tier_buckets on (the reference's
+    default batch) the range query, circle and kNN calls are bucketed
+    (the join's q // 8 = 8 polygons are not): probe_syncs grows by three
+    per round, as the JAX session's."""
     x, y, bounds, jidx, tidx = taxi
     js = JSession(jidx, config=J.EngineConfig(**cfg))
     ts = TSession(tidx, config=T.EngineConfig(**cfg), device="cpu")
@@ -379,32 +385,47 @@ def test_mixed_serving_rounds(taxi, q, cfg):
                                          ("knn", 10), ("join",)}
     for rnd in range(1, 4):
         syncs = ts.stats()["host_syncs"]
+        probes = ts.stats()["probe_syncs"]
         jo = js.submit_batch(mixed_round(x, y, bounds, q, rnd, J))
         to = ts.submit_batch(mixed_round(x, y, bounds, q, rnd, T))
         for a, b in zip(jo, to):
             assert_same(a, b, f"round {rnd}")
         p.check_state(f"round {rnd}")
         assert ts.stats()["host_syncs"] == syncs
+        bucketed = q >= 32 and cfg.get("tier_buckets", True)
+        assert ts.stats()["probe_syncs"] == probes + (3 if bucketed else 0)
+        assert js.stats()["probe_syncs"] == ts.stats()["probe_syncs"]
         assert js.maintain() == ts.maintain()
         p.check_state(f"maintain {rnd}")
     st = ts.stats()
     assert st["backend"] == "torch" and st["sticky"] == dict(p.j._sticky)
 
 
-def test_wide_serving_batch_raises_item_14(taxi):
+def test_wide_serving_batch_is_bucketed(taxi):
     """With tier_buckets on, a batch of >= tier_bucket_min queries on a
-    sticky tier is the bucketed dispatch's in the reference: the port
-    raises, and serves it with tier_buckets off."""
-    x, y, bounds, _, tidx = taxi
+    sticky tier takes the bucketed dispatch: bitwise the JAX session's,
+    host_syncs +0 and probe_syncs +1 on both; a narrower batch makes no
+    probe, and a strict call still runs."""
+    x, y, bounds, jidx, tidx = taxi
     rects = ds.random_rects(32, 1e-5, bounds, seed=3, centers=(x, y))
-    ts = TSession(tidx, device="cpu")
+    js, ts = JSession(jidx), TSession(tidx, device="cpu")
+    p = Pair(js.executor, ts.executor)
+    js.warmup([(J.RangeQuery(), rects[:8])])
     ts.warmup([(T.RangeQuery(), rects[:8])])
-    syncs = ts.stats()["host_syncs"]
-    with pytest.raises(NotImplementedError, match="module item 14"):
-        ts.submit(T.RangeQuery(), rects)
-    ts.submit(T.RangeQuery(), rects[:31])       # narrower: served
+    p.check_state("warmup")
+    syncs, probes = ts.stats()["host_syncs"], ts.stats()["probe_syncs"]
+    assert_same(js.submit(J.RangeQuery(), rects),
+                ts.submit(T.RangeQuery(), rects), "wide")
+    p.check_state("wide")
     assert ts.stats()["host_syncs"] == syncs
-    ts.submit(T.RangeQuery(), rects, strict=True)   # strict still runs
+    assert ts.stats()["probe_syncs"] == probes + 1
+    assert js.stats()["probe_syncs"] == ts.stats()["probe_syncs"]
+    assert_same(js.submit(J.RangeQuery(), rects[:31]),
+                ts.submit(T.RangeQuery(), rects[:31]), "narrow")
+    assert ts.stats()["probe_syncs"] == probes + 1
+    assert_same(js.submit(J.RangeQuery(), rects, strict=True),
+                ts.submit(T.RangeQuery(), rects, strict=True), "strict")
+    p.check_state("strict")
 
 
 def test_steady_round_makes_no_host_read(taxi, monkeypatch):

@@ -1,52 +1,44 @@
 #!/usr/bin/env python3
-"""Time this tree's point query (the fused point kernel, one launch per
-call) against another tree's (a parent commit's staged point program:
-the candidate filter and learned lookup in PyTorch, then one point_probe
-launch per candidate set), with this tree's range count and exact circle
-program as controls, in one process on one CUDA card.
+"""Time this tree's port against another tree's (a parent commit's) in
+one process on one CUDA card: the four kernels that read float32
+denormals as zero (range_count, circle_count, knn_topk and the join's
+point_in_polygon) at their main-path shapes, and a steady serving round
+at q = 16.
 
     mkdir -p build/parent && git archive <parent> | tar -x -C build/parent
     python3 tools/ab_parent.py build/parent
 
-The other tree must hold the staged point program (``core/local_ops.py``
-``_PointLocal`` calling its backend's ``point_scan``), as commit
-57320f9 does. Its ``core/queries.py``, ``core/backends.py``,
-``core/local_ops.py`` and ``kernels/point_probe.py`` are loaded from its
-files under other module names, and its ``csrc/point_probe.cu``,
-``csrc/range_filter.cu`` and ``csrc/circle_filter.cu`` are built beside
-this tree's. In the other tree's turns the executor runs the other
-tree's ``_PointLocal`` on its backend and kernel; the range count and
-the exact circle program run the other tree's two interval-scan
-libraries under this tree's wrappers (the same code in 57320f9, so
-their rows are the control). On chip_smoke.py's index and queries (taxi,
-2^23 points, kdtree with 128 partitions; 1,024 point queries, half of
-them data points):
+The other tree's whole package is imported from its files beside this
+tree's: its modules are held apart from this tree's, and each turn puts
+one tree's modules in ``sys.modules``, so every import inside a call
+(the kernel wrappers import ``_build`` when they first launch) resolves
+to that tree. Each tree builds its own kernels from its own sources into
+its own ``build/`` directory. The index (chip_smoke.py's: taxi, 2^23
+points, kdtree with 128 partitions) is built once, by this tree, and
+served by both; each tree has its own serving session, warmed on the
+same round. A serving batch of q = 64 is this tree's alone (the parent
+raises there), so it has no A/B here; chip_smoke.py measures it.
 
-  - in turns (parent, change, change, parent): the point call's kernel
-    device time (the other tree's two launches, or this tree's one,
-    from CUDA events with the stream held busy: chip_smoke.stream_ms)
-    and the whole call's device time the same way; the device busy time
-    (a profiler trace) of the point call, of the 1,024-rect range count,
-    of the exact circle program on 256 circles, and of a steady serving
-    round at q = 16, which also runs once under
-    torch.cuda.set_sync_debug_mode("error") with host_syncs held; each
-    call's launches;
+  - in turns (parent, change, change, parent): each kernel's device time
+    per main-path call (its launches over every partition chunk of the
+    1,024-rect range count, the 256-circle exact circle program, the
+    256-query exact 10-NN and the 32-polygon full join; CUDA events with
+    the stream held busy: chip_smoke.stream_ms), and the steady round's
+    device busy time (a profiler trace), the round also run once under
+    torch.cuda.set_sync_debug_mode("error") with host_syncs held;
   - in PAIRS interleaved pairs, alternating which tree goes first: the
-    wall time (median of a few synchronised calls) of the point call,
-    the range count, the exact circle program, the serving round and
-    its point request; per metric, each tree's median and quartiles
-    over the pairs and the pairs the change won.
+    round's wall time (median of 3 synchronised rounds); per tree the
+    median and quartiles over the pairs, and the pairs the change won.
 
-Every turn's outputs must equal the first turn's bit for bit. Writes
-chiprun_out/ab_parent.json and prints one line per turn and per metric.
+Every turn's outputs (each kernel's, each request's) must equal the first
+turn's bit for bit. Writes chiprun_out/ab_parent.json and prints one line
+per turn and per metric.
 """
 from __future__ import annotations
 
-import ctypes
-import importlib.util
+import importlib
 import json
 import statistics
-import subprocess
 import sys
 from pathlib import Path
 
@@ -55,48 +47,40 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke as CS  # noqa: E402  (puts src/ on the path)
 
-SOURCES = ("range_filter", "circle_filter", "point_probe")
+PKG = "repro_torch"
 ORDER = ("parent", "change", "change", "parent")
 PAIRS = 20
+KERNELS = ("range_count", "circle_count", "knn_topk", "point_in_polygon")
 
 
-def load_other(tree: Path, rel: str, name: str):
-    """The other tree's module ``src/repro_torch/<rel>``, loaded as
-    ``name``; its own imports resolve to this tree's package."""
-    spec = importlib.util.spec_from_file_location(
-        name, tree / "src" / "repro_torch" / rel)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+def _own() -> dict:
+    return {k: m for k, m in sys.modules.items()
+            if k == PKG or k.startswith(PKG + ".")}
 
 
-def build_other(tree: Path, sigs: dict) -> dict:
-    """Build the other tree's sources, one nvcc each, all at once; load
-    them with ``sigs`` ({source: {function: argtypes}})."""
-    from repro_torch.kernels import _build
-    out = _build.BUILD_DIR / "parent"
-    out.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name in SOURCES:
-        src = tree / "src" / "repro_torch" / "kernels" / "csrc" / f"{name}.cu"
-        procs[name] = subprocess.Popen(
-            [_build.nvcc(), *_build.NVCC_FLAGS, "-o",
-             str(out / f"lib{name}.so"), str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    libs = {}
-    for name, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed for the other tree's {name}:\n"
-                               f"{log}")
-        lib = ctypes.CDLL(str(out / f"lib{name}.so"))
-        for fn, argtypes in sigs[name].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        lib.repro_error_string.argtypes = [ctypes.c_int]
-        lib.repro_error_string.restype = ctypes.c_char_p
-        libs[name] = lib
-    return libs
+def use(mods: dict) -> None:
+    """Put one tree's modules in ``sys.modules`` in place of the other's."""
+    for k in list(_own()):
+        del sys.modules[k]
+    sys.modules.update(mods)
+
+
+def load_tree(src: Path) -> dict:
+    """The package ``repro_torch`` of ``src`` (a tree's ``src/``), imported
+    beside this tree's, which stays in ``sys.modules``. Returns its
+    modules."""
+    mine = _own()
+    use({})
+    sys.path.insert(0, str(src))
+    try:
+        for name in ("core", "serve", "kernels", "kernels._build",
+                     "data.spatial"):
+            importlib.import_module(f"{PKG}.{name}")
+        theirs = _own()
+    finally:
+        sys.path.remove(str(src))
+        use(mine)
+    return theirs
 
 
 def main() -> int:
@@ -107,160 +91,121 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("ab_parent: no CUDA device", file=sys.stderr)
         return 2
-    from repro_torch.core import SpatialEngine
-    from repro_torch.core import local_ops as L
-    from repro_torch.kernels import _build
-    from repro_torch.kernels import circle_filter as CF
-    from repro_torch.kernels import point_probe as PP
-    from repro_torch.kernels import range_filter as RF
-    from repro_torch.serve import SpatialServeSession
+    from repro_torch.core import keys as K
 
     tree = Path(sys.argv[1]).resolve()
-    # the other tree's point program: its queries, kernel wrapper,
-    # backend and local program, each bound to the other's module
-    o_pp = load_other(tree, "kernels/point_probe.py", "other_point_probe")
-    o_q = load_other(tree, "core/queries.py", "other_queries")
-    o_bk = load_other(tree, "core/backends.py", "other_backends")
-    o_bk._pp = o_pp
-    o_l = load_other(tree, "core/local_ops.py", "other_local_ops")
-    o_l.Q = o_q
-
-    class OtherPoint(o_l._PointLocal):
-        """The other tree's _PointLocal on its cuda backend, built where
-        the executor builds this tree's."""
-
-        def __init__(self, index, cfg, backend):
-            del backend
-            super().__init__(index, cfg, o_bk.CudaBackend())
-
     dev = torch.device(CS.DEVICE)
     card = CS.card_line()
-    libs = {"parent": build_other(tree, {"range_filter": RF._SIG,
-                                         "circle_filter": CF._SIG,
-                                         "point_probe": o_pp._SIG}),
-            "change": {n: _build.load(n, m._SIG)
-                       for n, m in zip(SOURCES, (RF, CF, PP))}}
-    programs = {"parent": OtherPoint, "change": L._PointLocal}
-    kernels = {"parent": o_pp, "change": PP}
+    mods = {"change": None, "parent": load_tree(tree / "src")}
+    import repro_torch.core  # noqa: F401  (this tree's, imported whole)
+    import repro_torch.kernels._build  # noqa: F401
+    import repro_torch.serve  # noqa: F401
+    mods["change"] = _own()
+    for name in ("parent", "change"):
+        use(mods[name])
+        built = mods[name][f"{PKG}.kernels._build"].build_all()
+        CS.log(f"[ab] {name}: built {sorted(built)}")
+    use(mods["change"])
+
+    # the index and the main path's launch arguments, from this tree
     x, y, part, index, _, _ = CS.full_index(dev)
-    qx, qy, rects, _, _, _, cx, cy, cr, _, _ = CS.main_inputs(x, y, part)
-    eng = SpatialEngine(index, device=dev)
-    ex = eng.executor
-    qxt, qyt = (torch.as_tensor(a, device=dev) for a in (qx, qy))
-    calls = {"point_1024": lambda: eng.point_query(qxt, qyt),
-             "range_count_1024": lambda: eng.range_count(rects),
-             "circle_exact_256":
-                 lambda: ex._circle_exact(ex._circle_args((cx, cy, cr)))}
-    sess = SpatialServeSession(index, device=dev)
-    reqs = CS.serve_round(x, y, part, 1, dev)
+    (_, _, rects, kx, ky, _, cx, cy, cr, polys,
+     ne) = CS.main_inputs(x, y, part)
+    ex = mods["change"][f"{PKG}.core"].Executor(index, device=dev)
+    rect_t = torch.as_tensor(rects, device=dev)
+    klo, khi = (K.keys_to_f32(v) for v in K.rect_key_range(rect_t, ex.spec))
+    crect, cklo, ckhi, ccirc = ex._circle_args((cx, cy, cr))
+    kxt, kyt = (torch.as_tensor(a, device=dev) for a in (kx, ky))
+    launch_args = {
+        "range_count": CS.count_launch_args(ex, rect_t, klo, khi),
+        "circle_count": CS.count_launch_args(ex, crect, cklo, ckhi, ccirc),
+        "knn_topk": [(kxt, kyt, ch["count"], ch["x"], ch["y"])
+                     for _, ch in mods["change"][
+                         f"{PKG}.core.local_ops"]._chunks(
+                             ex.parts, ex.cfg.part_chunk)],
+        "point_in_polygon": CS.join_launch_args(ex, polys, ne)}
+    wrapper = {"range_count": ("range_filter", "range_count", {}),
+               "circle_count": ("circle_filter", "circle_count", {}),
+               "knn_topk": ("knn_topk", "knn_topk", {"k": 10}),
+               "point_in_polygon": ("point_in_polygon", "join_count", {})}
 
-    def use(tree_):
-        for name in SOURCES:
-            _build._libs[name] = libs[tree_][name]
-        L._PointLocal = programs[tree_]
+    def kernel_call(name, tree_):
+        mod, fn, kw = wrapper[name]
+        f = getattr(mods[tree_][f"{PKG}.kernels.{mod}"], fn)
+        return lambda: [f(*a, **kw) for a in launch_args[name]]
 
-    # each tree's point-kernel launches of one point call, captured
-    launch_args = {}
-    for tree_, mod in kernels.items():
-        use(tree_)
-        name = "point_probe" if tree_ == "parent" else "point_query"
-        wrapper, got = getattr(mod, name), []
+    sessions, rounds = {}, {}
+    for tree_ in ("parent", "change"):
+        use(mods[tree_])
+        sessions[tree_] = mods[tree_][f"{PKG}.serve"].SpatialServeSession(
+            index, device=dev)
+        sessions[tree_].warmup(CS.serve_round(x, y, part, 0, dev))
+        rounds[tree_] = CS.serve_round(x, y, part, 1, dev)
 
-        def capture(*a, _w=wrapper, _got=got, **kw):
-            _got.append((a, kw))
-            return _w(*a, **kw)
-
-        setattr(mod, name, capture)
-        calls["point_1024"]()
-        setattr(mod, name, wrapper)
-        launch_args[tree_] = (wrapper, got)
-    use("parent")
-    sess.warmup(CS.serve_round(x, y, part, 0, dev))
-
-    def outputs():
-        got = [fn() for fn in calls.values()]
-        for o in sess.submit_batch(reqs):
+    def flat(out):
+        got = []
+        for o in out:
             got += list(o) if isinstance(o, tuple) else [o]
         return got
 
-    def round_():
-        return sess.submit_batch(reqs)
-
-    def point_kernels(tree_):
-        wrapper, got = launch_args[tree_]
-        return lambda: [wrapper(*a, **kw) for a, kw in got]
-
     turns, first = [], None
     for tree_ in ORDER:
-        use(tree_)
-        got = outputs()
+        use(mods[tree_])
+        sess, reqs = sessions[tree_], rounds[tree_]
+        got = []
+        for name in KERNELS:
+            for o in kernel_call(name, tree_)():
+                got += list(o) if isinstance(o, tuple) else [o]
+        got += flat(sess.submit_batch(reqs))
         if first is None:
             first = got
-        CS.require(all(torch.equal(a, b) for a, b in zip(got, first)),
-                   f"{tree_}: outputs differ from the first turn's")
-        row = {"tree": tree_,
-               "point_kernel_ms_per_call": CS.stream_ms(point_kernels(tree_),
-                                                        20),
-               "point_kernel_launches_per_call": len(launch_args[tree_][1]),
-               "point_call_device_ms": CS.stream_ms(calls["point_1024"], 20)}
-        for cname, fn in calls.items():
-            acts: dict = {}
-            prof, kept = CS.traced(fn, 3, acts)
-            row[cname] = {"busy_ms": sum(prof.values()),
-                          "trace_retention": kept,
-                          "activities_per_call": sum(acts.values())}
+        CS.require(len(got) == len(first) and all(
+            torch.equal(a, b) for a, b in zip(got, first)),
+            f"{tree_}: outputs differ from the first turn's")
+        row = {"tree": tree_, "kernel_ms_per_call": {
+            name: CS.stream_ms(kernel_call(name, tree_), 20)
+            for name in KERNELS}}
         torch.cuda.synchronize()
         syncs = sess.stats()["host_syncs"]
         torch.cuda.set_sync_debug_mode("error")
         try:
-            round_()
+            sess.submit_batch(reqs)
         finally:
             torch.cuda.set_sync_debug_mode(0)
         CS.require(sess.stats()["host_syncs"] == syncs,
                    f"{tree_}: a steady serving round read the device")
-        row["serve_round"] = {
-            "busy_ms": sum(CS.device_profile(round_, 1).values()),
-            "host_syncs_added": 0}
+        row["serve_round_busy_ms"] = sum(CS.device_profile(
+            lambda: sess.submit_batch(reqs), 1).values())
         turns.append(row)
-        CS.log(f"[ab] {tree_}: point kernels "
-               f"{row['point_kernel_ms_per_call']:.5f} ms/call "
-               f"({row['point_kernel_launches_per_call']} launches), point "
-               f"call device {row['point_call_device_ms']:.5f} ms; busy "
-               + ", ".join(f"{c} {row[c]['busy_ms']:.3f} (activities "
-                           f"{row[c].get('activities_per_call', 0):.1f})"
-                           for c in (*calls, "serve_round")))
+        CS.log(f"[ab] {tree_}: ms per call " + ", ".join(
+            f"{n} {t:.5f}" for n, t in row["kernel_ms_per_call"].items())
+            + f"; serving round busy {row['serve_round_busy_ms']:.3f} ms")
 
-    # walls, in interleaved pairs: (function, calls per sample)
-    walls = {"point_1024": (calls["point_1024"], 9),
-             "range_count_1024": (calls["range_count_1024"], 9),
-             "circle_exact_256": (calls["circle_exact_256"], 9),
-             "serve_round": (round_, 3),
-             "serve_request_point": (lambda: sess.submit(*reqs[0]), 9)}
-    samples = {w: {"parent": [], "change": []} for w in walls}
+    samples = {"parent": [], "change": []}
     for pair in range(PAIRS):
         for tree_ in (("parent", "change") if pair % 2 == 0
                       else ("change", "parent")):
-            use(tree_)
-            for w, (fn, reps) in walls.items():
-                samples[w][tree_].append(CS.host_ms(fn, reps))
-    wall = {}
-    for w, got in samples.items():
-        q = {t: statistics.quantiles(v, n=4) for t, v in got.items()}
-        won = sum(c < p for p, c in zip(got["parent"], got["change"]))
-        wall[w] = {"samples": got, "change_won": won, "pairs": PAIRS,
-                   **{f"{t}_median": statistics.median(v)
-                      for t, v in got.items()},
-                   **{f"{t}_quartiles": [q[t][0], q[t][2]] for t in q}}
-        CS.log(f"[ab] wall {w}: parent median {wall[w]['parent_median']:.3f}"
-               f" ms (quartiles {q['parent'][0]:.3f}-{q['parent'][2]:.3f}),"
-               f" change {wall[w]['change_median']:.3f} ms (quartiles "
-               f"{q['change'][0]:.3f}-{q['change'][2]:.3f}); change "
-               f"faster in {won} of {PAIRS} pairs")
+            use(mods[tree_])
+            sess, reqs = sessions[tree_], rounds[tree_]
+            samples[tree_].append(CS.host_ms(
+                lambda: sess.submit_batch(reqs), 3))
+    use(mods["change"])
+    q = {t: statistics.quantiles(v, n=4) for t, v in samples.items()}
+    won = sum(c < p for p, c in zip(samples["parent"], samples["change"]))
+    wall = {"samples": samples, "change_won": won, "pairs": PAIRS,
+            **{f"{t}_median": statistics.median(v)
+               for t, v in samples.items()},
+            **{f"{t}_quartiles": [q[t][0], q[t][2]] for t in q}}
+    CS.log(f"[ab] wall serve_round q = {CS.SERVE_Q}: parent median "
+           f"{wall['parent_median']:.3f} ms (quartiles {q['parent'][0]:.3f}"
+           f"-{q['parent'][2]:.3f}), change {wall['change_median']:.3f} ms "
+           f"(quartiles {q['change'][0]:.3f}-{q['change'][2]:.3f}); change "
+           f"faster in {won} of {PAIRS} pairs")
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "ab_parent.json").write_text(json.dumps(
-        {"card": card, "order": ORDER, "turns": turns, "wall": wall},
-        indent=1))
+        {"card": card, "order": ORDER, "turns": turns,
+         "wall": {"serve_round": wall}}, indent=1))
     CS.log(card)
     return 0
 
