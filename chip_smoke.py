@@ -73,7 +73,37 @@ result line):
               answers. Per round: wall ms per round and per request,
               each fused call's (family, tier, rows padded to a power of
               two), launches, peak memory; then each request's latency;
-  8. kernels  each of the seven kernels against its plain version at the
+  8. updates  the update path on the same index through the engine
+              (EngineConfig defaults): 8,192 inserts from the taxi
+              generator (seed 1) and the two denormal points (1e-45, 0.5)
+              and (-1e-45, 0.25); one delete batch of 3,072 originals,
+              1,024 still-buffered inserts and (0.0, 0.25) (which removes
+              the buffered (-1e-45, 0.25): a delete reads denormals as
+              zero); then every call of phase 5 on the mutated index
+              (the strict loop starting from phase 5's tiers), launch
+              counts set to 0 just before and read just after (every
+              query kernel must launch), each bitwise the torch backend
+              on the card; the six query kernels against their plain
+              versions at the main path's shapes on the mutated planes
+              (tombstones inside count); Refit(), every call again and
+              the kernels again on the re-fit index; a fresh build_index
+              of the surviving points (vid=, n_pad= the re-fit index's):
+              its data planes equal the re-fit ones, and every call
+              before and after the re-fit equals it (counts, kNN d2 and
+              id order bitwise, materialized ids as sets; kNN rows
+              differing only in tie order before the re-fit are
+              counted); then a delete at (0.0, 0.5) removes the merged
+              (1e-45, 0.5) from the main plane. Insert, delete and re-fit
+              ms, partitions touched, delta_cap, each call's ms before
+              and after the re-fit beside the frozen index's, the calls'
+              peak memory. Then a serving session (q = 16,
+              delta_occupancy 1e-4, phase 6's tiers) warmed on a round,
+              an insert of 1,024 points, two steady rounds under
+              sync-debug "error" (host_syncs +0, every query kernel
+              launched, outputs held against the exact programs),
+              maintain() between them running the re-fit the insert
+              scheduled (pending_refit empties);
+  9. kernels  each of the seven kernels against its plain version at the
               shapes the main path gives it (bitwise; morton on the
               quantized coordinates of the 2^23 build, at its own entry
               point, and also against core/keys.morton_encode), with its
@@ -86,7 +116,7 @@ result line):
               run's inputs (bytes over 3.35 TB/s, or operations over 67
               TFLOP/s for float32 and 16.7 TOP/s for int32, whichever is
               larger). ``launches`` counts every path this script drives
-              (main, serve, wide, morton). spline_search is also held
+              (main, serve, wide, updates, morton). spline_search is also held
               equal to torch.searchsorted (its library call) on every
               chunk, with
               the floor of as many one-element PyTorch launches beside
@@ -110,7 +140,7 @@ result line):
               the floor of one launch on the card at its grid: an empty
               kernel (csrc/launch_floor.cu, on no query path) timed the
               same way;
-  9. denormals the four kernels that read float32 denormals as zero
+ 10. denormals the four kernels that read float32 denormals as zero
               (range_count, circle_count, knn_topk, point_in_polygon) on
               tests/test_torch_gpu.py's denormal points and queries, each
               bitwise its plain version on the card, which must equal the
@@ -152,6 +182,13 @@ SERVE_POLYGONS = max(SERVE_Q // 8, 4)    # its join's polygons
 SERVE_ROUNDS = 4
 WIDE_Q = 64              # src/repro/launch/serve.py's default --batch
 WIDE_ROUNDS = 3
+# the update phase: inserts from the taxi generator (another seed), and
+# deletes of originals and of still-buffered inserts
+UPD_INSERTS = 8192
+UPD_DELETES = 3072
+UPD_BUFFERED = 1024
+UPD_SERVE_INSERTS = 1024     # between two serving rounds
+UPD_SERVE_OCCUPANCY = 1e-4   # low enough that this insert schedules re-fits
 # what torch.cuda.set_sync_debug_mode("warn") says at a synchronizing call
 SYNC_WARNING = "called a synchronizing CUDA operation"
 DEVICE = "cuda"          # where the port runs, and the kernel backend
@@ -217,15 +254,20 @@ def _short(name: str) -> str:
     return name[:80]
 
 
+# seconds spent in device_profile, the profiler's own cost included
+PROFILE_S = [0.0]
+
+
 def device_profile(fn, reps: int, counts=None, warm: bool = True) -> dict:
     """{device activity name: device ms per call} over ``reps`` calls
     (after one warm call, unless ``warm`` is False), from a
-    torch.profiler (CUPTI) trace; empty when the trace holds no device
-    activity. ``counts``, a dict, gets {name: activities per call}, to
-    show that the trace holds every launch."""
+    torch.profiler (CUPTI) trace's raw activities; empty when the trace
+    holds no device activity. ``counts``, a dict, gets {name: activities
+    per call}, to show that the trace holds every launch."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    t_in = time.perf_counter()
     if warm:
         fn()
     torch.cuda.synchronize()
@@ -235,12 +277,15 @@ def device_profile(fn, reps: int, counts=None, warm: bool = True) -> dict:
             fn()
         torch.cuda.synchronize()
     out: dict = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            key = _short(e.name)
-            out[key] = out.get(key, 0.0) + e.time_range.elapsed_us() / 1e3
+    # the trace's raw activities: building prof.events()' tree of
+    # FunctionEvents takes minutes for a trace of 10^5 activities
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and not e.is_user_annotation():
+            key = _short(e.name())
+            out[key] = out.get(key, 0.0) + e.duration_ns() / 1e6
             if counts is not None:
                 counts[key] = counts.get(key, 0) + 1 / reps
+    PROFILE_S[0] += time.perf_counter() - t_in
     return {k: v / reps for k, v in out.items()}
 
 
@@ -611,7 +656,8 @@ def serve_checks(sx, reqs, out, what: str):
 
 def serve_phase(index, part, x, y, dev) -> tuple:
     """Phase 6: serving mode on ``index`` (see the module docstring).
-    Returns (report, {kernel: launches over the steady rounds})."""
+    Returns (report, {kernel: launches over the steady rounds}, the
+    sticky tiers after warmup)."""
     import torch
     from repro_torch import kernels as KERN
     from repro_torch.core import EngineConfig
@@ -630,6 +676,7 @@ def serve_phase(index, part, x, y, dev) -> tuple:
     torch.cuda.synchronize()
     report = {"q": SERVE_Q, "warmup_s": time.perf_counter() - t0}
     plain.warmup(rounds[0])
+    warm_tiers = dict(sx._sticky)
     report["tiers_after_warmup"] = {str(k): v for k, v in sx._sticky.items()}
     require(set(sx._sticky) == {("range",), ("circle", False), ("knn", 10),
                                 ("join",)}, f"serve: sticky {sx._sticky}")
@@ -749,7 +796,7 @@ def serve_phase(index, part, x, y, dev) -> tuple:
             "serve: a q = 16 round made a bucketing probe")
     report["stats"] = {k: (str(v) if k == "sticky" else v)
                        for k, v in sess.stats().items()}
-    return report, launches
+    return report, launches, warm_tiers
 
 
 def wide_serve_phase(index, part, x, y, dev) -> tuple:
@@ -868,8 +915,252 @@ def wide_serve_phase(index, part, x, y, dev) -> tuple:
     return report, launches
 
 
+def same_as_fresh(a, b, materialized: bool) -> tuple:
+    """A mutated index's result ``a`` against a fresh build's ``b``:
+    counts (and flags), kNN distances and id order bitwise; materialized
+    ids equal as sets (the two indexes' window widths differ by the delta
+    plane). Returns (equal, kNN rows whose ids differ only in the order
+    of equal distances); such a row is no fault (a buffered insert
+    follows the main plane before a re-fit), and is counted."""
+    import torch
+    a = a if isinstance(a, tuple) else (a,)
+    b = b if isinstance(b, tuple) else (b,)
+    if materialized:
+        if not torch.equal(a[0], b[0]):
+            return False, 0
+        sa = [{v for v in row if v >= 0} for row in a[1].tolist()]
+        sb = [{v for v in row if v >= 0} for row in b[1].tolist()]
+        return sa == sb, 0
+    if len(a) == 2 and a[0].dtype == torch.float32:      # kNN (d2, vid)
+        if not torch.equal(a[0], b[0]):
+            return False, 0
+        if torch.equal(a[1], b[1]):
+            return True, 0
+        # ids as (d2, id) pairs sorted per row: equal up to tie order
+        ka = torch.sort(a[1].to(torch.int64) + (a[0].view(torch.int32)
+                        .to(torch.int64) << 32), 1).values
+        kb = torch.sort(b[1].to(torch.int64) + (b[0].view(torch.int32)
+                        .to(torch.int64) << 32), 1).values
+        rows = int((a[1] != b[1]).any(1).sum())
+        return bool(torch.equal(ka, kb)), rows
+    return all(torch.equal(u, v) for u, v in zip(a, b)), 0
+
+
+def update_phase(index, part, x, y, dev, main_path, main_args, sticky,
+                 serve_tiers, frozen_ms, card) -> tuple:
+    """Phase 8: the update path on the full index (see the module
+    docstring). Returns (report, {kernel: launches of the driven
+    families and serving rounds}, {kernel: max_abs_err of the kernels
+    against their plain versions on the mutated and the re-fit index})."""
+    import torch
+    from repro_torch import kernels as KERN
+    from repro_torch.core import (EngineConfig, PointQuery, Refit,
+                                  SpatialEngine, build_index)
+    from repro_torch.data import spatial as ds
+    from repro_torch.serve import SpatialServeSession
+    sys.path.insert(0, str(ROOT / "tests"))
+    from test_torch_gpu import (check_kernel_cases, kernel_cases,
+                                update_batches)
+
+    u = update_batches(x, y, UPD_INSERTS, UPD_DELETES, UPD_BUFFERED, seed=1)
+    eng = SpatialEngine(index, device=DEVICE)
+    plain = SpatialEngine(index, EngineConfig(backend="torch"),
+                          device=DEVICE)
+    ex = eng.executor
+    for e in (eng, plain):
+        # the strict loop starts from the frozen index's tiers
+        e.executor._sticky.update(sticky)
+    report = {"card": card, "inserts": len(u["ins"][0]),
+              "deletes": len(u["dele"][0]), "removed": u["removed"]}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    vids = eng.insert(*u["ins"])
+    torch.cuda.synchronize()
+    report["insert_ms"] = (time.perf_counter() - t0) * 1e3
+    require(vids.tolist() == list(range(len(x), len(x) + len(vids))),
+            "updates: insert vids")
+    report["delta_cap"] = ex.index.delta_cap
+    report["partitions_with_inserts"] = int((ex.index.delta_count > 0).sum())
+    t0 = time.perf_counter()
+    removed = eng.delete(*u["dele"])
+    torch.cuda.synchronize()
+    report["delete_ms"] = (time.perf_counter() - t0) * 1e3
+    require(removed == u["removed"], f"updates: removed {removed}, "
+            f"expected {u['removed']}")
+    report["partitions_with_tombstones"] = int((ex.index.dead > 0).sum())
+    require(plain.insert(*u["ins"]).tolist() == vids.tolist() and
+            plain.delete(*u["dele"]) == removed, "updates: torch backend")
+    log(f"[updates] {card}: insert {report['inserts']} points "
+        f"{report['insert_ms']:.1f} ms (delta_cap {report['delta_cap']}, "
+        f"{report['partitions_with_inserts']} partitions), delete "
+        f"{report['deletes']} coordinates {report['delete_ms']:.1f} ms "
+        f"(removed {removed}, {report['partitions_with_tombstones']} "
+        "partitions)")
+
+    def families(tag, against_plain):
+        """Every family of the main path on the mutated engine, launch
+        counts set to 0 just before and read just after; each call's
+        wall (a call under a second: the median of three more, as the
+        frozen index's were timed) and the calls' peak memory; then,
+        ``against_plain``, each bitwise the torch backend's."""
+        out, wall = {}, {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        KERN.reset_launch_counts()
+        for name, (fn, _, _) in main_path.items():
+            t0 = time.perf_counter()
+            out[name] = fn(eng)
+            torch.cuda.synchronize()
+            wall[name] = (time.perf_counter() - t0) * 1e3
+        got = KERN.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        require(all(got[n] > 0 for n in PATH_KERNELS),
+                f"updates {tag}: launches {got}")
+        for name, (fn, _, _) in main_path.items():
+            if wall[name] < 1000:
+                wall[name] = host_ms(lambda: fn(eng), 3, warm=False)
+            if against_plain:
+                require(same(out[name], fn(plain)),
+                        f"updates {tag}: {name} cuda vs torch backend")
+        log(f"[updates] {card}: {tag}, ms (frozen index in brackets): " +
+            ", ".join(f"{n} {wall[n]:.1f} ({frozen_ms[n]:.1f})"
+                      for n in wall) + f"; max_memory_allocated {peak}")
+        return out, wall, got, peak
+
+    pre, report["pre_refit_ms"], pre_launch, peak = families(
+        "before the re-fit", True)
+    err = check_kernel_cases(kernel_cases(ex, *main_args))
+    shape0 = (ex.index.n_pad, ex.index.probe, ex.index.knot_keys.shape[1])
+    t0 = time.perf_counter()
+    touched = eng.run(Refit())
+    torch.cuda.synchronize()
+    report["refit_ms"] = (time.perf_counter() - t0) * 1e3
+    require(plain.run(Refit()) == touched, "updates: re-fit partitions")
+    report.update(refit_partitions=len(touched), n_pad=[shape0[0],
+                  ex.index.n_pad], probe=[shape0[1], ex.index.probe],
+                  knot_width=[shape0[2], ex.index.knot_keys.shape[1]],
+                  delta_cap_after_refit=ex.index.delta_cap,
+                  epoch=ex.index.epoch, shape_epoch=ex.index.shape_epoch)
+    log(f"[updates] {card}: re-fit {len(touched)} partitions "
+        f"{report['refit_ms']:.1f} ms; n_pad {report['n_pad']}, probe "
+        f"{report['probe']}, knot width {report['knot_width']}, delta_cap "
+        f"{ex.index.delta_cap}, epoch {ex.index.epoch}, shape_epoch "
+        f"{ex.index.shape_epoch}")
+    post, report["post_refit_ms"], post_launch, peak2 = families(
+        "after the re-fit", False)
+    report["max_memory_allocated"] = max(peak, peak2)
+    err2 = check_kernel_cases(kernel_cases(ex, *main_args))
+    report["kernel_max_abs_err"] = {n: max(err[n], err2[n]) for n in err}
+    log(f"[updates] six kernels bitwise their plain versions on the "
+        f"mutated and the re-fit index: {report['kernel_max_abs_err']}")
+
+    # a fresh build of the surviving points, at the re-fit index's n_pad
+    sx, sy, svid = u["surv"]
+    t0 = time.perf_counter()
+    fresh = SpatialEngine(build_index(sx, sy, part, vid=svid,
+                                      n_pad=ex.index.n_pad, device=DEVICE),
+                          device=DEVICE)
+    torch.cuda.synchronize()
+    report["fresh_build_s"] = time.perf_counter() - t0
+    fresh.executor._sticky.update(sticky)
+    for n in ("key", "x", "y", "vid", "count"):
+        require(torch.equal(getattr(ex.index, n),
+                            getattr(fresh.executor.index, n)),
+                f"updates: re-fit {n} plane vs a fresh build")
+    ties = {}
+    for name, (fn, _, _) in main_path.items():
+        want = fn(fresh)
+        mat = name in ("range_query_256", "circle_query_256")
+        for tag, got in (("before", pre), ("after", post)):
+            ok, rows = same_as_fresh(got[name], want, mat)
+            require(ok, f"updates: {name} {tag} the re-fit vs a fresh build")
+            if rows:
+                ties[f"{name} {tag}"] = rows
+    require(not any(k.endswith("after") for k in ties),
+            f"updates: kNN id order after the re-fit {ties}")
+    report["knn_rows_reordered_in_ties"] = ties
+    log("[updates] every family before and after the re-fit == a fresh "
+        "build of the surviving points (counts, kNN d2 and id order "
+        "bitwise, materialized ids as sets); kNN rows differing only in "
+        f"tie order before the re-fit: {ties or 0}; re-fit planes == the "
+        f"fresh build's; fresh build {report['fresh_build_s']:.1f} s")
+    # the denormal delete on the main plane, now that the re-fit merged
+    # (1e-45, 0.5) into it: a delete at x = 0.0 removes it
+    pq = (np.float32([1e-45]), np.float32([0.5]))
+    for e in (eng, plain):
+        require(e.run(PointQuery(), *pq).tolist() == [True] and
+                e.delete(np.float32([0.0]), np.float32([0.5])) == 1 and
+                e.run(PointQuery(), *pq).tolist() == [False],
+                "updates: the denormal delete on the main plane")
+    del eng, plain, fresh
+    launches = {n: pre_launch[n] + post_launch[n] for n in pre_launch}
+
+    # serving: an insert between rounds, a re-fit scheduled by it
+    sess = SpatialServeSession(index, EngineConfig(
+        delta_occupancy=UPD_SERVE_OCCUPANCY), device=DEVICE)
+    sx_ = sess.executor
+    sx_._sticky.update(serve_tiers)
+    rounds = [serve_round(x, y, part, seed, dev) for seed in range(3)]
+    sess.warmup(rounds[0])
+    bx, by = ds.make("taxi", UPD_SERVE_INSERTS, seed=7)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sess.insert(bx, by)
+    torch.cuda.synchronize()
+    srv = {"insert_ms": (time.perf_counter() - t0) * 1e3,
+           "pending_refit": len(sess.stats()["pending_refit"])}
+    require(srv["pending_refit"] > 0, "updates: no re-fit scheduled")
+    srv["rounds"] = []
+    for i in (1, 2):
+        torch.cuda.synchronize()
+        syncs = sx_.host_syncs
+        KERN.reset_launch_counts()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = sess.submit_batch(rounds[i])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        got = KERN.launch_counts()
+        require(sx_.host_syncs == syncs, f"updates: serving round {i} "
+                "after an insert moved host_syncs")
+        require(all(got[n] > 0 for n in PATH_KERNELS),
+                f"updates: serving round {i} launches {got}")
+        for n, c in got.items():
+            launches[n] += c
+        serve_checks(sx_, rounds[i], out, f"updates serving round {i}")
+        row = {"round": i, "wall_ms": ms, "host_syncs_added": 0}
+        if i == 1:
+            t0 = time.perf_counter()
+            moved = sess.maintain()
+            torch.cuda.synchronize()
+            row["maintain_ms"] = (time.perf_counter() - t0) * 1e3
+            row["maintain_refit_partitions"] = len(moved.get("refit", []))
+            require(moved.get("refit") and
+                    not sess.stats()["pending_refit"],
+                    f"updates: maintain() ran no re-fit ({moved})")
+        srv["rounds"].append(row)
+        log(f"[updates] {card}: serving round {i} at q = {SERVE_Q} after "
+            f"an insert of {UPD_SERVE_INSERTS}: {ms:.1f} ms, host_syncs +0 "
+            "(sync-debug \"error\")" + (
+                f"; maintain() re-fit {row['maintain_refit_partitions']} "
+                f"partitions in {row['maintain_ms']:.1f} ms, pending_refit "
+                "empty" if i == 1 else ""))
+    srv["stats"] = {k: (str(v) if k == "sticky" else v)
+                    for k, v in sess.stats().items()}
+    report["serving"] = srv
+    del sess
+    torch.cuda.empty_cache()
+    log(f"[updates] {card}: max_memory_allocated of the driven calls "
+        f"{report['max_memory_allocated']}")
+    return report, launches, report["kernel_max_abs_err"]
+
+
 def denormal_phase(dev) -> dict:
-    """Phase 9: the four kernels that read float32 denormals as zero
+    """Phase 10: the four kernels that read float32 denormals as zero
     (range_count, circle_count, knn_topk, the join's point_in_polygon)
     on tests/test_torch_gpu.py's denormal points and queries (every pair
     active, whole rows), each against its plain version on the card and
@@ -959,7 +1250,8 @@ def main() -> int:
     t_start = time.perf_counter()
 
     def phase(name):
-        log(f"[phase] {name} at {time.perf_counter() - t_start:.1f} s")
+        log(f"[phase] {name} at {time.perf_counter() - t_start:.1f} s "
+            f"(in device_profile so far: {PROFILE_S[0]:.1f} s)")
     report = {}
 
     # 1. device
@@ -1079,7 +1371,7 @@ def main() -> int:
             f"point_1024 launched {path_launches['point_1024']}")
     launches = KERN.launch_counts()
     log(f"[main] launches {launches}")
-    # every kernel but morton, whose only entry point is its own (phase 7)
+    # every kernel but morton, whose only entry point is its own (phase 9)
     require(all(launches[n] > 0 for n in PATH_KERNELS),
             f"a kernel of the main path never launched: {launches}")
     report.update(first_call_ms=first_ms, max_memory_allocated_per_call=peak,
@@ -1194,7 +1486,8 @@ def main() -> int:
 
     phase("serve")
     # 6. serving mode on the same index
-    report["serve"], serve_launches = serve_phase(index, part, x, y, dev)
+    report["serve"], serve_launches, serve_tiers = serve_phase(index, part,
+                                                              x, y, dev)
     require(all(serve_launches[n] > 0 for n in PATH_KERNELS),
             f"serve launches {serve_launches}")
 
@@ -1209,8 +1502,17 @@ def main() -> int:
     report["serve_peak_memory_by_q"] = peaks
     log(f"[wide] peak memory of a steady round by q: {peaks}")
 
+    phase("updates")
+    # 8. the update path on the full index
+    report["updates"], upd_launches, upd_err = update_phase(
+        index, part, x, y, dev, main_path,
+        (rects, qx, qy, kx, ky, (cx, cy, cr), polys, ne), dict(ex._sticky),
+        serve_tiers, lat, card)
+    require(all(upd_launches[n] > 0 for n in PATH_KERNELS),
+            f"update launches {upd_launches}")
+
     phase("kernels")
-    # 8. each kernel against its plain version on the inputs the main
+    # 9. each kernel against its plain version on the inputs the main
     # path gives it: every launch of one call (one per partition chunk,
     # or one per candidate set) is held bitwise against the plain
     # version, and the times, bytes and operations are those of the
@@ -1230,7 +1532,7 @@ def main() -> int:
         return lambda: [fn(*a, **kws) for a in arglist]
 
     by_path = {"main": launches, "serve": serve_launches,
-               "serve_wide": wide_launches}
+               "serve_wide": wide_launches, "updates": upd_launches}
 
     def launch_floor(n, blocks, threads) -> dict:
         """The card's floor per launch: an empty kernel
@@ -1554,8 +1856,14 @@ def main() -> int:
     log(f"[morton] {n_m} points bitwise against its plain version and "
         "core/keys.morton_encode")
 
+    for row in rows:
+        if row["name"] in upd_err:
+            row["update_max_abs_err"] = upd_err[row["name"]]
+            row["max_abs_err"] = max(row["max_abs_err"],
+                                     upd_err[row["name"]])
+
     phase("denormals")
-    # 9. the flushed kernels on denormal inputs (comparison launches,
+    # 10. the flushed kernels on denormal inputs (comparison launches,
     # counted on no path)
     report["denormals"] = denormal_phase(dev)
     for row in rows:

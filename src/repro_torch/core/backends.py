@@ -24,6 +24,12 @@ their grid.
 
 The windowed programs' gathers (``core/queries.py``) are plain PyTorch
 under both backends, as the reference keeps them on the XLA gather path.
+So is the delta stage (``delta_live``, ``delta_scan``,
+``delta_join_scan``, ``delta_knn_scan``: the live delta-buffer probes of
+DESIGN.md §11): the buffers hold at most ``d_cap`` points per
+partition, so a full masked scan is the whole plan, no Pallas kernel
+computes it in the reference (its PallasBackend inherits the XLA
+stages), and CudaBackend inherits TorchBackend's.
 
 ``resolve_backend("auto", device)`` picks cuda on a CUDA device and torch
 on the CPU. ``torch`` on a CUDA device is allowed: it is how a kernel is
@@ -33,7 +39,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch._num import stable_topk
+from repro_torch._num import dist2_f32, flush_denormals, mul_f32, stable_topk
 from repro_torch.core.plan import BACKENDS
 from repro_torch.kernels import circle_filter as _cf
 from repro_torch.kernels import knn_topk as _knn
@@ -136,6 +142,64 @@ class TorchBackend:
         cv = torch.cat([carry_v, chunk_v], dim=1)
         bn, ix = stable_topk(cn, k)
         return bn, torch.gather(cv, 1, ix)
+
+    # -- delta stage (plain PyTorch on both backends) ----------------------
+
+    def delta_live(self, ch):
+        """(C, d_cap) live-slot mask of a chunk's delta buffers (the
+        per-row form of ``queries.gather_delta``'s rule: change both
+        together)."""
+        slot = torch.arange(ch["dvid"].shape[1], dtype=torch.int32,
+                            device=ch["dvid"].device)
+        return (slot < ch["dcount"][:, None]) & (ch["dvid"] >= 0)
+
+    def _delta_in_rect(self, ch, rects, active):
+        """(C, Q, d_cap) live buffered points inside each rect (compares
+        with denormals read as zero), for active (C, Q) pairs."""
+        fx = flush_denormals(ch["dx"])[:, None, :]
+        fy = flush_denormals(ch["dy"])[:, None, :]
+        r = flush_denormals(rects)[None, :, :, None]         # (1, Q, 4, 1)
+        m = (self.delta_live(ch)[:, None, :] &
+             (fx >= r[..., 0, :]) & (fx <= r[..., 2, :]) &
+             (fy >= r[..., 1, :]) & (fy <= r[..., 3, :]))
+        if active is not None:
+            m = m & active[..., None]
+        return m
+
+    def delta_scan(self, ch, rects, circ=None, active=None):
+        """(C, Q) int32 live buffered points in each rect (and circle:
+        ``fma(dx, dx, dy*dy) <= r*r``, flushed, as the circle scan)."""
+        m = self._delta_in_rect(ch, rects, active)
+        if circ is not None:
+            # the differences are only squared: no flush needed
+            dx = ch["dx"][:, None, :] - circ[None, :, 0, None]
+            dy = ch["dy"][:, None, :] - circ[None, :, 1, None]
+            r = circ[None, :, 2, None]
+            m = m & (dist2_f32(dx, dy) <= mul_f32(r, r))
+        return m.sum(-1, dtype=torch.int32)
+
+    def delta_join_scan(self, ch, polys, n_edges, mbrs, active=None):
+        """(C, PG) int32 live buffered points inside each polygon's MBR
+        and the polygon (ray casting)."""
+        m = self._delta_in_rect(ch, mbrs, active)              # (C, PG, d)
+        c, d_cap = ch["dx"].shape
+        pg = polys.shape[0]
+        inside = _pip.point_in_polygon_plain(
+            ch["dx"].reshape(1, -1).expand(pg, -1),
+            ch["dy"].reshape(1, -1).expand(pg, -1), polys, n_edges)
+        inside = inside.reshape(pg, c, d_cap).transpose(0, 1)
+        return (m & inside).sum(-1, dtype=torch.int32)
+
+    def delta_knn_scan(self, ch, qx, qy):
+        """Buffered kNN candidates: (neg_d2, vid), (C, Q, d_cap) each, in
+        slot order; dead and empty slots hold (-3e38, -1). The program
+        merges them after the chunk's main-plane candidates."""
+        live = self.delta_live(ch)[:, None, :]
+        dx = ch["dx"][:, None, :] - qx[None, :, None]
+        dy = ch["dy"][:, None, :] - qy[None, :, None]
+        neg = torch.where(live, -dist2_f32(dx, dy), _knn.NEG)
+        vid = torch.where(live, ch["dvid"][:, None, :], -1)
+        return neg, vid.expand(neg.shape)
 
 
 class CudaBackend(TorchBackend):

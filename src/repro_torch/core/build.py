@@ -11,6 +11,10 @@ Pipeline (all shapes fixed once the host has sized them):
 
 Steps 1-3 run on the index's device; step 4 copies the key plane to the
 host and the fitted model back.
+
+The index also carries the mutable state of DESIGN.md §11: per-partition
+delta buffers for inserts and tombstone bookkeeping for deletes, which
+``core/mutate.py`` fills and compacts.
 """
 from __future__ import annotations
 
@@ -31,13 +35,33 @@ PAD_COORD = 3.0e38
 # leaves of the index, in the reference's order
 LEAVES = ("key", "x", "y", "vid", "count", "knot_keys", "knot_pos",
           "n_knots", "radix_table", "radix_kmin", "radix_scale",
-          "part_bounds", "max_run")
+          "part_bounds", "delta_key", "delta_x", "delta_y", "delta_vid",
+          "delta_count", "dead", "max_run", "refit_gen")
+# the optional ones: an index built elsewhere may lack them
+OPTIONAL_LEAVES = ("delta_key", "delta_x", "delta_y", "delta_vid",
+                   "delta_count", "dead", "max_run", "refit_gen")
 
 
 @dataclasses.dataclass
 class LearnedSpatialIndex:
-    """Per-partition learned index tensors + static metadata (frozen: no
-    delta buffers; the mutable index is a later port item)."""
+    """Per-partition learned index tensors + static metadata.
+
+    The state splits into the GEOMETRY (the sorted data plane and the
+    learned model, rebuilt only by ``build_index`` and
+    ``mutate.refit_partitions``) and a per-partition DELTA BUFFER that
+    absorbs batched inserts and deletes between re-fits (DESIGN.md §11):
+
+      - a delete keeps the sorted ``key`` row (the spline stays valid)
+        and tombstones the slot: coordinates ``PAD_COORD``, vid -1, so
+        every coordinate-refine scan, plain or kernel, excludes it;
+      - an insert appends to its partition's delta slots, which every
+        query probes beside the learned window;
+      - ``mutate.refit_partitions`` merges the delta, drops tombstones
+        and re-fits the touched partitions only.
+
+    ``epoch`` counts applied mutations; ``shape_epoch`` bumps where a
+    static shape changes (delta capacity, n_pad, knot width, probe).
+    """
 
     # --- data plane: (P, n_pad), sorted by key within row ---
     key: torch.Tensor          # int64, sentinel-padded
@@ -54,12 +78,22 @@ class LearnedSpatialIndex:
     radix_scale: torch.Tensor  # (P,) f32
     # --- global index: (P, 4) partition boxes ---
     part_bounds: torch.Tensor  # f32
-    max_run: Optional[torch.Tensor] = None   # (P,) int32 longest dup run
+    # --- mutable state: delta buffer + tombstone/refit bookkeeping ---
+    delta_key: Optional[torch.Tensor] = None    # (P, d_cap) int64
+    delta_x: Optional[torch.Tensor] = None      # (P, d_cap) f32
+    delta_y: Optional[torch.Tensor] = None      # (P, d_cap) f32
+    delta_vid: Optional[torch.Tensor] = None    # (P, d_cap) int32, -1 dead
+    delta_count: Optional[torch.Tensor] = None  # (P,) int32 used slots
+    dead: Optional[torch.Tensor] = None         # (P,) int32 tombstoned rows
+    max_run: Optional[torch.Tensor] = None      # (P,) int32 longest dup run
+    refit_gen: Optional[torch.Tensor] = None    # (P,) int32 refit counter
     # --- static ---
     eps: int = 32
     radix_bits: int = 10
     probe: int = 64
     key_spec: K.KeySpec = dataclasses.field(default_factory=K.KeySpec)
+    epoch: int = 0
+    shape_epoch: int = 0
     overflow_pid: int = -1
 
     @property
@@ -76,9 +110,8 @@ class LearnedSpatialIndex:
 
     @property
     def delta_cap(self) -> int:
-        """Delta-buffer slots per partition. The frozen index has no
-        delta buffers (the mutable index is a later port item), so 0."""
-        return 0
+        """Delta-buffer slots per partition (0 = no buffer)."""
+        return 0 if self.delta_key is None else self.delta_key.shape[1]
 
     @property
     def overflow(self) -> int:
@@ -94,7 +127,9 @@ class LearnedSpatialIndex:
         return dataclasses.replace(self, **moved)
 
     def size_bytes(self) -> dict:
-        """Index-only footprint (the paper's 'lightweight' claim)."""
+        """Index-only footprint (the paper's 'lightweight' claim): the
+        learned model and the global boxes, as the reference counts it
+        (the data plane and the delta buffer are data, not index)."""
         model = sum(getattr(self, f).numel() * 4 for f in
                     ("knot_keys", "knot_pos", "radix_table", "n_knots",
                      "radix_kmin", "radix_scale"))
@@ -146,13 +181,16 @@ def fit_partitions(key_g: np.ndarray, counts: np.ndarray, *, eps: int,
 def build_index(x, y, partitioner: Partitioner, *,
                 key_spec: Optional[K.KeySpec] = None, eps: int = 32,
                 radix_bits: int = 10, m_pad: Optional[int] = None,
-                n_pad: Optional[int] = None, vid=None,
+                n_pad: Optional[int] = None, vid=None, delta_cap: int = 0,
                 device="cuda") -> LearnedSpatialIndex:
     """Build the learned index of points (x, y) on ``device``.
 
     Host-level sizing (n_pad / m_pad / probe window) is data-dependent
     and becomes static in the returned index. ``vid`` optionally
-    overrides the per-point ids (default: position in the input).
+    overrides the per-point ids (default: position in the input): with
+    it a fresh build of a mutated index's surviving points is that
+    index's bitwise twin. ``delta_cap`` pre-allocates the per-partition
+    insert slots (the executor grows them on demand).
     """
     dev = resolve_device(device)
     x = torch.as_tensor(np.asarray(x, np.float32), device=dev)
@@ -212,6 +250,9 @@ def build_index(x, y, partitioner: Partitioner, *,
     def dev_t(a):
         return torch.as_tensor(np.ascontiguousarray(a), device=dev)
 
+    def zeros(shape, fill, dtype):
+        return torch.full(shape, fill, dtype=dtype, device=dev)
+
     return LearnedSpatialIndex(
         key=key_g, x=x_g, y=y_g, vid=vid_g,
         count=counts.to(torch.int32),
@@ -222,7 +263,15 @@ def build_index(x, y, partitioner: Partitioner, *,
         radix_kmin=dev_t(fit["radix_kmin"]),
         radix_scale=dev_t(fit["radix_scale"]),
         part_bounds=dev_t(partitioner.partition_bounds()),
+        delta_key=zeros((p_total, delta_cap), key_spec.sentinel,
+                        torch.int64),
+        delta_x=zeros((p_total, delta_cap), PAD_COORD, torch.float32),
+        delta_y=zeros((p_total, delta_cap), PAD_COORD, torch.float32),
+        delta_vid=zeros((p_total, delta_cap), -1, torch.int32),
+        delta_count=zeros((p_total,), 0, torch.int32),
+        dead=zeros((p_total,), 0, torch.int32),
         max_run=dev_t(fit["max_run"]),
+        refit_gen=zeros((p_total,), 0, torch.int32),
         eps=eps, radix_bits=radix_bits, probe=probe, key_spec=key_spec,
         overflow_pid=p_total - 1,
     )

@@ -8,6 +8,9 @@
     inside = eng.circle_count(cx, cy, r)
     d2, vid = eng.knn(qx, qy, 10)                 # pruned; or mode="exact"
     per_poly = eng.join_count(polys, n_edges)     # or mode="full"
+    vids = eng.insert(xs, ys)                     # into the delta buffers
+    removed = eng.delete(xs[:5], ys[:5])          # tombstones
+    eng.refit()                                   # compact + re-fit
 
 The adaptive methods run the strict escalation loop (``strict=True``),
 as the reference's facade does; ``run`` and ``run_batch`` default to
@@ -20,9 +23,9 @@ from typing import Optional
 
 from repro_torch.core.build import LearnedSpatialIndex
 from repro_torch.core.executor import Executor
-from repro_torch.core.plan import (CircleQuery, EngineConfig, Knn,
-                                   PointQuery, RangeCount, RangeQuery,
-                                   SpatialJoin)
+from repro_torch.core.plan import (CircleQuery, DeleteBatch, EngineConfig,
+                                   InsertBatch, Knn, PointQuery, RangeCount,
+                                   RangeQuery, SpatialJoin)
 
 
 class SpatialEngine:
@@ -86,3 +89,25 @@ class SpatialEngine:
         padded vertex lists; n_edges (PG,) int32."""
         return self.executor.run(SpatialJoin(mode=mode), polys, n_edges,
                                  strict=True)
+
+    # -- mutations (epoch-versioned mutable index, DESIGN.md §11) --------
+
+    @property
+    def epoch(self) -> int:
+        """Mutation epoch of the resident index."""
+        return self.executor.index.epoch
+
+    def insert(self, xs, ys):
+        """Batched insert into the per-partition delta buffers. Returns
+        the assigned point ids (B,)."""
+        return self.executor.run(InsertBatch(), xs, ys)
+
+    def delete(self, xs, ys) -> int:
+        """Batched delete by coordinate (tombstones every live copy).
+        Returns the number of removed points."""
+        return self.executor.run(DeleteBatch(), xs, ys)
+
+    def refit(self, touched=None):
+        """Compaction + spline re-fit of ``touched`` (default: every
+        dirty) partitions. Returns the partition ids re-fit."""
+        return self.executor.refit(touched)

@@ -29,7 +29,18 @@ SpatialJoin) share one policy (paper §4, DESIGN.md §7), in
   program at the lowest tier its rows fit, scattered back in request
   order: bitwise one sticky-tier call.
 
-There is no compile cache: PyTorch runs eagerly.
+Update specs (InsertBatch, DeleteBatch, Refit; DESIGN.md §11) mutate
+the resident index through the same ``run``: inserts append to the
+partitions' delta buffers, deletes tombstone in place, and a re-fit
+compacts the touched partitions (``core/mutate.py``). They are
+host-driven and may read the host; a query after them still makes no
+host read on the serving path. An update whose partition's delta
+occupancy passes ``EngineConfig.delta_occupancy`` schedules a re-fit,
+which ``maintain()`` runs off the hot path.
+
+There is no compile cache: PyTorch runs eagerly, so ``shape_epoch`` is
+tracked (it bumps where the reference's executables would be evicted)
+but nothing is evicted.
 """
 from __future__ import annotations
 
@@ -44,12 +55,14 @@ from repro_torch._num import (flush_denormals, mul_f32, resolve_device,
                               sub_f32)
 from repro_torch.core import keys as K
 from repro_torch.core import local_ops as L
+from repro_torch.core import mutate as M
 from repro_torch.core import queries as Q
 from repro_torch.core.backends import resolve_backend
 from repro_torch.core.build import LearnedSpatialIndex
-from repro_torch.core.plan import (CircleQuery, EngineConfig, Knn,
-                                   PointQuery, QuerySpec, RangeCount,
-                                   RangeQuery, SpatialJoin)
+from repro_torch.core.plan import (CircleQuery, DeleteBatch, EngineConfig,
+                                   InsertBatch, Knn, PointQuery, QuerySpec,
+                                   RangeCount, RangeQuery, Refit,
+                                   SpatialJoin)
 
 
 @dataclasses.dataclass
@@ -115,8 +128,15 @@ class Executor:
         self.spec = index.key_spec
         b = index.key_spec.bounds
         self.area = max((b[2] - b[0]) * (b[3] - b[1]), 1e-30)
-        self.n_total = int(index.count.sum())
-        self.density = max(self.n_total / self.area, 1e-30)
+        self._recount()
+        # -- mutable-index state (DESIGN.md §11) -------------------------
+        nxt = int(index.vid.max())
+        if index.delta_vid is not None and index.delta_cap:
+            nxt = max(nxt, int(index.delta_vid.max()))
+        self.next_vid = nxt + 1
+        self._refit_pending = set()  # partition ids awaiting compaction
+        self.updates = 0      # applied insert/delete batches
+        self.refits = 0       # refit_partitions invocations
         self._sticky = {}     # sticky_key -> last successful (cap, cand)
         self._initial = {}    # sticky_key -> initial (cap, cand), as the
                               # reference keeps it
@@ -128,9 +148,10 @@ class Executor:
         self._demote_backoff = {}  # sticky_key -> streak multiplier
         self.host_syncs = 0   # counted host reads of ok (_all_ok)
         self.probe_syncs = 0  # host reads of a bucketed call's sizes
-        self.dispatches = 0   # local-program calls
-        # serializes run and maintain, so several threads can share one
-        # executor (sticky state, stashed ok flags)
+        self.dispatches = 0   # local-program and update-program calls
+        # serializes run, maintain and refit, so several threads can
+        # share one executor (sticky state, stashed ok flags, the index);
+        # reentrant because run(Refit) and maintain() call refit()
         self._lock = threading.RLock()
 
     def _f32(self, a) -> torch.Tensor:
@@ -165,6 +186,12 @@ class Executor:
             raise TypeError(f"{type(spec).__name__} takes {spec.n_args} "
                             f"data arguments, got {len(args)}")
         with self._lock:
+            if isinstance(spec, InsertBatch):
+                return self._run_insert(args)
+            if isinstance(spec, DeleteBatch):
+                return self._run_delete(args)
+            if isinstance(spec, Refit):
+                return self.refit()
             if isinstance(spec, PointQuery):
                 return self._run_point(args)
             if isinstance(spec, RangeCount):
@@ -194,8 +221,11 @@ class Executor:
         that the next overflow undoes (the escalation lands on the tier
         it left) doubles that family's required clean streak. Counts
         stay exact either way: an overflowed serving call already took
-        the exact fallback on the device. Returns {sticky_key: new
-        (cap, cand)} for the tiers that moved. Thread-safe."""
+        the exact fallback on the device. Then the deferred compaction:
+        the partitions whose delta occupancy an update pushed past
+        ``EngineConfig.delta_occupancy`` are re-fit (reported under
+        "refit"). Returns {sticky_key: new (cap, cand)} for the tiers
+        that moved. Thread-safe."""
         with self._lock:
             return self._maintain_locked()
 
@@ -230,16 +260,190 @@ class Executor:
                         self._demote_backoff.get(base, 1) * 2
                 self._set_sticky(base, new)
                 moved[base] = new
+        # deferred compaction + re-fit, scheduled by updates whose delta
+        # occupancy crossed the threshold, run here off the hot path
+        if self._refit_pending:
+            done = self.refit(sorted(self._refit_pending))
+            if done:
+                moved["refit"] = done
         return moved
 
     def stats(self) -> dict:
         """Counters: host_syncs, probe_syncs, dispatches, backend, sticky
-        tiers."""
+        tiers, the index's epoch and shape_epoch, applied updates and
+        re-fits, and the partitions with a re-fit pending."""
         return {"host_syncs": self.host_syncs,
                 "probe_syncs": self.probe_syncs,
                 "dispatches": self.dispatches,
                 "backend": self.backend.name,
-                "sticky": dict(self._sticky)}
+                "sticky": dict(self._sticky),
+                "epoch": self.index.epoch,
+                "shape_epoch": self.index.shape_epoch,
+                "updates": self.updates,
+                "refits": self.refits,
+                "pending_refit": sorted(self._refit_pending)}
+
+    @property
+    def epoch(self) -> int:
+        """Mutation epoch of the resident index: a read dispatched after
+        a write sees an epoch at least the write's."""
+        return self.index.epoch
+
+    def maintenance_due(self) -> bool:
+        """Deferred maintain() work waiting: stashed ok flags of serving
+        calls, or occupancy-scheduled re-fits."""
+        return bool(self._pending) or bool(self._refit_pending)
+
+    # -- the mutable index (DESIGN.md §11) ---------------------------------
+
+    def _recount(self):
+        """Refresh the live-point total and density (the kNN radius's
+        global estimate): built points less tombstones plus live
+        buffered inserts."""
+        idx = self.index
+        n = int(idx.count.sum())
+        if idx.dead is not None:
+            n -= int(idx.dead.sum())
+        if idx.delta_vid is not None and idx.delta_cap:
+            n += int((idx.delta_vid >= 0).sum())
+        self.n_total = n
+        self.density = max(n / self.area, 1e-30)
+
+    def _install_index(self, new_index, leaves=None):
+        """Swap in a mutated index: refresh the partition tensors (only
+        ``leaves`` when given and the leaf set is unchanged: inserts
+        never move the sorted data plane) and the boxes, and recount."""
+        self.index = new_index
+        names = L.part_leaf_names(new_index)
+        if leaves is None or names != set(self.parts):
+            leaves = names
+        parts = dict(self.parts)
+        parts.update(L.part_arrays(new_index, leaves=leaves))
+        self.parts = {k: parts[k] for k in names}
+        self.bounds = new_index.part_bounds
+        self._recount()
+
+    def _note_occupancy(self, touched):
+        """Schedule the deferred re-fit of the touched partitions whose
+        delta occupancy crossed the threshold (run by maintain())."""
+        occ = M.delta_occupancy(self.index)
+        for p in np.asarray(touched).tolist():
+            if occ[p] > self.cfg.delta_occupancy:
+                self._refit_pending.add(int(p))
+
+    def _with_delta_state(self):
+        """The index, given delta bookkeeping if it was built without."""
+        if self.index.delta_count is None:
+            self._install_index(M.with_delta_capacity(self.index, 0,
+                                                      floor=0))
+        return self.index
+
+    def _run_insert(self, args):
+        """InsertBatch: append to the target partitions' delta buffers.
+        Returns the assigned vids (B,) int32, numpy. Host-driven like
+        build_index: the capacity check reads the host."""
+        xs, ys = self._f32(args[0]), self._f32(args[1])
+        b = int(xs.shape[0])
+        if b == 0:
+            return np.zeros((0,), np.int32)
+        idx = self._with_delta_state()
+        pid = M.assign_insert(idx, xs, ys)
+        # out-of-domain inserts land in the overflow grid; widen its box
+        # so the global filter (rect, circle, kNN and join candidates)
+        # sees them, not only the point probe, which always reads the
+        # overflow grid. Keys still clip to key_spec.bounds; the refine
+        # compares the stored coordinates, so answers stay exact. The
+        # extremes are taken over the flushed coordinates, as XLA:CPU
+        # compares them (a -1e-45 among others reads as -0.0).
+        ob = idx.part_bounds[idx.overflow].cpu().numpy()
+        fx, fy = flush_denormals(xs), flush_denormals(ys)
+        nb = [min(ob[0], float(fx.min())), min(ob[1], float(fy.min())),
+              max(ob[2], float(fx.max())), max(ob[3], float(fy.max()))]
+        if nb != ob.tolist():
+            pb = idx.part_bounds.clone()
+            pb[idx.overflow] = torch.as_tensor(np.asarray(nb, np.float32),
+                                               device=self.device)
+            idx = dataclasses.replace(idx, part_bounds=pb)
+            self._install_index(idx, leaves=())
+        need = idx.delta_count.cpu().numpy() + np.bincount(
+            pid.cpu().numpy(), minlength=idx.num_partitions)
+        if int(need.max()) > idx.delta_cap:
+            idx = M.with_delta_capacity(idx, int(need.max()),
+                                        floor=self.cfg.delta_cap)
+            self._install_index(idx)     # a new leaf set: full refresh
+        key = K.make_keys(xs, ys, self.spec)
+        vids = torch.arange(self.next_vid, self.next_vid + b,
+                            dtype=torch.int32, device=self.device)
+        self.dispatches += 1   # the update program, as the reference counts
+        dk, dx, dy, dv, dc = M.scatter_inserts(
+            idx.delta_key, idx.delta_x, idx.delta_y, idx.delta_vid,
+            idx.delta_count, pid, key, xs, ys, vids)
+        idx = dataclasses.replace(
+            idx, delta_key=dk, delta_x=dx, delta_y=dy, delta_vid=dv,
+            delta_count=dc, epoch=idx.epoch + 1)
+        self.next_vid += b
+        self.updates += 1
+        self._install_index(idx, leaves=("dx", "dy", "dvid", "dcount"))
+        self._note_occupancy(np.unique(pid.cpu().numpy()))
+        return np.arange(self.next_vid - b, self.next_vid, dtype=np.int32)
+
+    def _run_delete(self, args):
+        """DeleteBatch: tombstone every live copy of each (x, y) in its
+        two candidate partitions (main plane and delta). Returns the
+        number of removed points."""
+        xs, ys = self._f32(args[0]), self._f32(args[1])
+        b = int(xs.shape[0])
+        if b == 0:
+            return 0
+        idx = self._with_delta_state()
+        pid1 = M.assign_insert(idx, xs, ys)
+        pid2 = torch.full_like(pid1, idx.overflow)
+        self.dispatches += 1
+        nx, ny, nv, dx, dy, dv, dead2, removed = M.apply_deletes(
+            idx.x, idx.y, idx.vid, idx.count, idx.delta_x, idx.delta_y,
+            idx.delta_vid, idx.delta_count, idx.dead, xs, ys, pid1, pid2)
+        idx = dataclasses.replace(
+            idx, x=nx, y=ny, vid=nv, delta_x=dx, delta_y=dy,
+            delta_vid=dv, dead=dead2, epoch=idx.epoch + 1)
+        self.updates += 1
+        leaves = ("x", "y", "vid")
+        if idx.delta_cap:
+            leaves = leaves + ("dx", "dy", "dvid")
+        self._install_index(idx, leaves=leaves)
+        self._note_occupancy(np.unique(np.append(pid1.cpu().numpy(),
+                                                 idx.overflow)))
+        return int(removed)
+
+    def refit(self, touched=None):
+        """Compaction + per-partition spline re-fit
+        (``mutate.refit_partitions``): merge the delta buffers, drop
+        tombstones and re-fit ONLY the given partitions (default: every
+        dirty one). Returns the list of partition ids re-fit.
+        Thread-safe."""
+        with self._lock:
+            return self._refit_locked(touched)
+
+    def _refit_locked(self, touched=None):
+        idx = self.index
+        if idx.delta_count is None:
+            return []
+        if touched is None:
+            touched = M.dirty_partitions(idx)
+        touched = np.unique(np.asarray(touched, np.int32))
+        if touched.size == 0:
+            return []
+        new = M.refit_partitions(idx, touched)
+        self.refits += 1
+        self._refit_pending.difference_update(int(t) for t in touched)
+        self._install_index(new)         # the data plane moved: refresh
+        # shed a burst-grown delta buffer once fully compacted (the 2x
+        # floor hysteresis rate-limits grow/shrink ping-pong)
+        idx2 = self.index
+        if (idx2.delta_cap > 2 * max(self.cfg.delta_cap, 1)
+                and M.dirty_partitions(idx2).size == 0):
+            self._install_index(
+                M.shrink_delta_capacity(idx2, self.cfg.delta_cap))
+        return [int(t) for t in touched]
 
     # -- the adaptive policy ----------------------------------------------
 

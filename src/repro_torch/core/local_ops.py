@@ -18,6 +18,18 @@ PyTorch under both backends). Every output row is a function of its
 query row alone, so a call whose (Q, C, S, cap) planes would pass
 ``cfg.scan_chunk_elems`` runs in query-row chunks with the same result.
 
+When the index has delta buffers (``delta_cap`` > 0, DESIGN.md §11),
+every program also probes the live buffered inserts of the partitions it
+reads: the point program ORs a probe of each query's two candidates, the
+sweeps add the backend's delta stage, and the windowed programs append
+``queries.delta_window_at``'s ids (or the buffered kNN candidates) after
+each candidate's window ids, as the reference concatenates them. The
+probes are elementwise per (query, partition), so each runs once per
+call over all rows and partitions (in groups whose planes stay within
+``cfg.scan_chunk_elems``) rather than once per chunk: the same values,
+far fewer launches. With ``delta_cap`` 0 the probes are skipped, and
+every program is the frozen index's.
+
 Serving mode's programs (``_CondFusedLocal``, ``_KnnLadderLocal``) run a
 windowed program and its exact fallback with no host read, choosing the
 output on the device (``_select``). The need probes (``_WindowNeedLocal``,
@@ -31,12 +43,14 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch._num import dist2_f32, mul_f32, stable_topk
+from repro_torch._num import (dist2_f32, flush_denormals, mul_f32,
+                              stable_topk)
 from repro_torch.core import keys as K
 from repro_torch.core import queries as Q
 from repro_torch.core.build import LearnedSpatialIndex
 from repro_torch.core.plan import EngineConfig
 from repro_torch.kernels import knn_topk as _knn
+from repro_torch.kernels.point_probe import first_box
 
 EMPTY_BOX = np.asarray([3e38, 3e38, -3e38, -3e38], np.float32)
 NEG = _knn.NEG              # empty kNN slot, as the reference's
@@ -58,6 +72,10 @@ def pad_partitions(index: LearnedSpatialIndex, multiple: int
 
     boxes = torch.as_tensor(np.broadcast_to(EMPTY_BOX, (extra, 4)).copy(),
                             device=index.device)
+
+    def pad_opt(a, fill):
+        return None if a is None else pad(a, fill)
+
     return dataclasses.replace(
         index,
         key=pad(index.key, index.key_spec.sentinel),
@@ -70,32 +88,68 @@ def pad_partitions(index: LearnedSpatialIndex, multiple: int
         radix_kmin=pad(index.radix_kmin, 0.0),
         radix_scale=pad(index.radix_scale, 0.0),
         part_bounds=torch.cat([index.part_bounds, boxes], dim=0),
-        max_run=None if index.max_run is None else pad(index.max_run, 0),
+        delta_key=pad_opt(index.delta_key, index.key_spec.sentinel),
+        delta_x=pad_opt(index.delta_x, 3e38),
+        delta_y=pad_opt(index.delta_y, 3e38),
+        delta_vid=pad_opt(index.delta_vid, -1),
+        delta_count=pad_opt(index.delta_count, 0),
+        dead=pad_opt(index.dead, 0),
+        max_run=pad_opt(index.max_run, 0),
+        refit_gen=pad_opt(index.refit_gen, 0),
         # the true overflow grid keeps its pre-padding position
         overflow_pid=index.overflow,
     )
 
 
-def part_arrays(index: LearnedSpatialIndex) -> dict:
-    """Dict-of-tensors view of the index (leading axis = partitions)."""
-    return {
-        "keys_f": K.keys_to_f32(index.key),
+def part_leaf_names(index: LearnedSpatialIndex) -> set:
+    """The names ``part_arrays`` gives (no tensor built)."""
+    names = {"keys_f", "x", "y", "vid", "count", "knot_keys", "knot_pos",
+             "n_knots", "radix_table", "radix_kmin", "radix_scale"}
+    if index.delta_cap:
+        names |= {"dx", "dy", "dvid", "dcount"}
+    return names
+
+
+def part_arrays(index: LearnedSpatialIndex, leaves=None) -> dict:
+    """Dict-of-tensors view of the index (leading axis = partitions).
+
+    The delta-buffer leaves appear only when the index has a nonzero
+    delta capacity. ``leaves`` restricts the result to the named subset:
+    the executor's update path refreshes only the planes a mutation
+    touched, and skips the key plane's float32 cast unless it moved."""
+    parts = {
         "x": index.x, "y": index.y, "vid": index.vid, "count": index.count,
         "knot_keys": index.knot_keys, "knot_pos": index.knot_pos,
         "n_knots": index.n_knots, "radix_table": index.radix_table,
         "radix_kmin": index.radix_kmin, "radix_scale": index.radix_scale,
     }
+    if index.delta_cap:
+        parts.update({"dx": index.delta_x, "dy": index.delta_y,
+                      "dvid": index.delta_vid, "dcount": index.delta_count})
+    if leaves is None or "keys_f" in leaves:
+        parts["keys_f"] = K.keys_to_f32(index.key)
+    if leaves is not None:
+        return {k: parts[k] for k in leaves}
+    return parts
+
+
+def _slices(parts: dict, size: int):
+    """Yield (first partition, dict) over consecutive slices of ``size``
+    partitions, the last possibly shorter; every leaf is a contiguous
+    (size, ...) slice."""
+    p = parts["count"].shape[0]
+    for lo in range(0, p, size):
+        yield lo, {k: v[lo:lo + size] for k, v in parts.items()}
 
 
 def _chunks(parts: dict, chunk: int):
     """Yield (first partition, chunk dict) over consecutive partition
-    chunks; every chunk leaf is a contiguous (C, ...) slice."""
+    chunks of ``chunk`` (fewer partitions: one chunk of them all)."""
     p = parts["count"].shape[0]
     c = min(chunk, p)
     if p % c:
         raise ValueError(f"{p} partitions do not split into chunks of {c}")
-    for lo in range(0, p, c):
-        yield lo, {k: v[lo:lo + c] for k, v in parts.items()}
+    return _slices(parts, c)
 
 
 def _edge_mask(polys, n_edges):
@@ -177,6 +231,30 @@ def _chunk_cands(cc: int, *arrays):
     return tuple(prep(a) for a in arrays)
 
 
+def _delta_knn_planes(parts, pid, qx, qy):
+    """The pruned kNN's delta probe, the part no round changes: the
+    buffered points of each query's (Q, C) candidate partitions, their
+    squared distance (the window's ``fma(dx, dx, dy*dy)``, flushed),
+    ids and live mask (``queries.gather_delta``'s rule). Returns (d2,
+    vids, live), (Q, C, d_cap) each."""
+    dx, dy, dv, live = Q.gather_delta(parts, pid, torch.ones_like(
+        pid, dtype=torch.bool))
+    # the differences are only squared: no flush needed
+    return dist2_f32(dx - qx[:, None, None], dy - qy[:, None, None]), dv, live
+
+
+def _delta_knn_candidates(planes, active, r):
+    """One round's live buffered candidates within radius ``r`` of the
+    active (Q, C) candidate partitions, from ``_delta_knn_planes``.
+    Returns (counts (Q,), vids (Q, C*d_cap), neg_d2 (Q, C*d_cap))."""
+    d2, dv, live = planes
+    qn = d2.shape[0]
+    inc = live & active[..., None] & (d2 <= mul_f32(r, r)[:, None, None])
+    return (inc.sum((1, 2), dtype=torch.int32),
+            torch.where(inc, dv, -1).reshape(qn, -1),
+            torch.where(inc, -d2, NEG).reshape(qn, -1))
+
+
 class _LocalFn:
     def __init__(self, index: LearnedSpatialIndex, cfg: EngineConfig,
                  backend):
@@ -190,6 +268,38 @@ class _LocalFn:
         # per (query, candidate, subinterval): the lookup's knot row and
         # probe windows for both ends, beside the cap-wide gather
         self.lookup_elems = 2 * (index.knot_keys.shape[1] + index.probe)
+        # 0 skips every delta probe: the frozen index's programs
+        self.d_cap = index.delta_cap
+
+    def _delta_group(self, qn: int) -> int:
+        """Partitions per delta-stage call: whole multiples of part_chunk
+        whose (partitions, qn, d_cap) planes stay within
+        ``cfg.scan_chunk_elems`` (at least one chunk)."""
+        c = self.cfg.part_chunk
+        return c * max(1, self.cfg.scan_chunk_elems //
+                       max(1, c * qn * self.d_cap))
+
+    def _delta_sum(self, parts, overlap, stage):
+        """(Q,) int32: ``stage(group, active)``'s (C, Q) delta counts
+        summed over every partition, ``overlap`` (Q, P) the active
+        pairs. Integer sums: the order of the groups moves nothing."""
+        acc = torch.zeros(overlap.shape[0], dtype=torch.int32,
+                          device=overlap.device)
+        for lo, grp in _slices(parts, self._delta_group(overlap.shape[0])):
+            act = overlap[:, lo:lo + grp["count"].shape[0]].t()
+            acc += stage(grp, act).sum(0, dtype=torch.int32)
+        return acc
+
+    def _delta_window(self, parts, bounds, rects, circ=None):
+        """The windowed programs' delta probe for every row at once: ()
+        without delta buffers, else (counts (Q, C), vids (Q, C, d_cap))
+        of each row's candidate partitions (the ones ``_rows`` picks),
+        for ``_row_chunks`` to hand each row chunk its rows."""
+        if not self.d_cap:
+            return ()
+        pids, valid, _ = _top_candidates(Q.rect_overlaps_box(rects, bounds),
+                                         self.cand)
+        return Q.delta_window_at(parts, pids, valid, rects, circ=circ)
 
     def _row_chunks(self, fn, cand: int, cap: int, *q, z_depth: int = 2):
         """``fn(*q)`` on query-row chunks whose windowed planes stay within
@@ -198,8 +308,8 @@ class _LocalFn:
         so the result is the unchunked call's. A row chunk's candidate
         planes then fit the same budget, so the chunked circle and kNN
         paths engage only where one row's plane passes it."""
-        plane = min(cand, self.p_total) * (1 << z_depth) * (
-            cap + self.lookup_elems)
+        plane = min(cand, self.p_total) * (
+            (1 << z_depth) * (cap + self.lookup_elems) + self.d_cap)
         qn = q[0].shape[0]
         rows = max(1, self.cfg.scan_chunk_elems // plane)
         if rows >= qn:
@@ -212,14 +322,26 @@ class _PointLocal(_LocalFn):
     """Point probe, query-centric: each query touches only its
     first-match grid partition and the overflow grid (paper Alg. 1). The
     whole program (candidates, lookup, scan, merge) is the backend's
-    point_query stage: one kernel launch on the cuda backend."""
+    point_query stage: one kernel launch on the cuda backend. With delta
+    buffers, a probe of both candidates' live buffered points (equal
+    coordinates, denormals read as zero) is OR-ed after it."""
 
     n_query_args = 3
 
     def __call__(self, parts, bounds, qx, qy, qk):
-        return self.backend.point_query(parts, bounds, qx, qy, qk,
-                                        overflow=self.overflow,
-                                        probe=self.kw["probe"])
+        found = self.backend.point_query(parts, bounds, qx, qy, qk,
+                                         overflow=self.overflow,
+                                         probe=self.kw["probe"])
+        if not self.d_cap:
+            return found
+        pid1 = first_box(bounds, qx, qy, self.overflow)
+        pids = torch.stack([pid1, torch.full_like(pid1, self.overflow)], 1)
+        dx, dy, _, live = Q.gather_delta(parts, pids, torch.ones_like(
+            pids, dtype=torch.bool))                  # (Q, 2, d_cap)
+        fx, fy = flush_denormals(qx), flush_denormals(qy)
+        hit = (live & (flush_denormals(dx) == fx[:, None, None]) &
+               (flush_denormals(dy) == fy[:, None, None])).any((1, 2))
+        return found | hit.to(found.dtype)
 
 
 class _RangeCountLocal(_LocalFn):
@@ -240,6 +362,9 @@ class _RangeCountLocal(_LocalFn):
             s, e = bk.bounds(ch, klo, khi, **self.kw)         # lookup
             cnt = bk.range_scan(ch, rects, s, e, active=act)  # scan
             acc += cnt.sum(0, dtype=torch.int32)              # merge
+        if self.d_cap:
+            acc += self._delta_sum(parts, overlap, lambda g, a: bk.delta_scan(
+                g, rects, active=a))
         return acc
 
 
@@ -261,6 +386,9 @@ class _CircleCountLocal(_LocalFn):
             s, e = bk.bounds(ch, klo, khi, **self.kw)         # lookup
             cnt = bk.circle_scan(ch, rects, s, e, circ, active=act)
             acc += cnt.sum(0, dtype=torch.int32)              # merge
+        if self.d_cap:
+            acc += self._delta_sum(parts, overlap, lambda g, a: bk.delta_scan(
+                g, rects, circ=circ, active=a))
         return acc
 
 
@@ -279,16 +407,20 @@ class _RangeWindowLocal(_LocalFn):
 
     def __call__(self, parts, bounds, rects, klo, khi):
         del klo, khi   # recomputed per candidate with clipping
-        return self._row_chunks(lambda r: self._rows(parts, bounds, r),
-                                self.cand, self.cap, rects)
+        return self._row_chunks(
+            lambda r, *d: self._rows(parts, bounds, r, *d), self.cand,
+            self.cap, rects, *self._delta_window(parts, bounds, rects))
 
-    def _rows(self, parts, bounds, rects):
+    def _rows(self, parts, bounds, rects, *delta):
         qn = rects.shape[0]
         overlap = Q.rect_overlaps_box(rects, bounds)
         pids, valid, within = _top_candidates(overlap, self.cand)
         cnts, vids, ok, _, _ = Q.range_window_at(
             parts, bounds[pids], pids, valid, rects, self.spec,
             cap=self.cap, **self.kw)
+        if delta:                  # this row chunk's delta probe
+            cnts = cnts + delta[0]
+            vids = torch.cat([vids, delta[1]], -1)
         cnt = cnts.sum(1, dtype=torch.int32)
         okq = (ok | ~valid).all(1)
         vids, cap_ok = _keep_window(vids.reshape(qn, -1), cnt, self.cap)
@@ -313,22 +445,28 @@ class _CircleWindowLocal(_LocalFn):
     def __call__(self, parts, bounds, rects, klo, khi, circ):
         del klo, khi   # recomputed per candidate with clipping
         return self._row_chunks(
-            lambda r, cr: self._rows(parts, bounds, r, cr),
-            self.cand, self.cap, rects, circ)
+            lambda r, cr, *d: self._rows(parts, bounds, r, cr, *d),
+            self.cand, self.cap, rects, circ,
+            *self._delta_window(parts, bounds, rects, circ))
 
-    def _rows(self, parts, bounds, rects, circ):
+    def _rows(self, parts, bounds, rects, circ, *delta):
         qn = rects.shape[0]
         overlap = Q.rect_overlaps_box(rects, bounds)
         pids, valid, within = _top_candidates(overlap, self.cand)
         boxes = bounds[pids]
         c = pids.shape[1]
-        cc = max(1, self.cfg.scan_chunk_elems // max(1, qn * 4 * self.cap))
+        cc = max(1, self.cfg.scan_chunk_elems //
+                 max(1, qn * (4 * self.cap + self.d_cap)))
         if self.materialize and cc < c:
             return self._chunked(parts, rects, circ, boxes, pids, valid,
                                  within, cc)
         cnts, vids, ok = Q.circle_window_at(
             parts, boxes, pids, valid, rects, circ, self.spec,
             cap=self.cap, materialize=self.materialize, **self.kw)
+        if delta:                  # this row chunk's delta probe
+            cnts = cnts + delta[0]
+            if self.materialize:
+                vids = torch.cat([vids, delta[1]], -1)
         cnt = cnts.sum(1, dtype=torch.int32)
         okq = (ok | ~valid).all(1)
         if not self.materialize:
@@ -342,9 +480,12 @@ class _CircleWindowLocal(_LocalFn):
         front-compacted (Q, keep) id carry, so the materialized plane
         never exceeds O(keep + chunk) per query. Bitwise the monolithic
         path: compaction keeps plane order, the carry precedes each
-        chunk, and the final width bound is the monolithic plane's."""
+        chunk, and the final width bound is the monolithic plane's. Each
+        candidate chunk probes its own delta buffers (its ids follow the
+        chunk's window ids, as in the monolithic plane)."""
         qn = rects.shape[0]
-        w_loc = boxes.shape[1] * 4 * self.cap    # monolithic plane width
+        # the monolithic plane's width
+        w_loc = boxes.shape[1] * (4 * self.cap + self.d_cap)
         keep_loc = min(w_loc, max(self.cap * 8, 256))
         kept = torch.full((qn, keep_loc), -1, dtype=torch.int32,
                           device=rects.device)
@@ -354,6 +495,11 @@ class _CircleWindowLocal(_LocalFn):
             cnts, vids, ok = Q.circle_window_at(
                 parts, bx, lc, mn, rects, circ, self.spec, cap=self.cap,
                 materialize=True, **self.kw)
+            if self.d_cap:
+                dcnts, dvids = Q.delta_window_at(parts, lc, mn, rects,
+                                                 circ=circ)
+                cnts = cnts + dcnts
+                vids = torch.cat([vids, dvids], -1)
             kept = _compact_ids(torch.cat([kept, vids.reshape(qn, -1)], 1),
                                 keep_loc)
             cnt = cnt + cnts.sum(1, dtype=torch.int32)
@@ -366,7 +512,8 @@ class _KnnExactLocal(_LocalFn):
     """Exact kNN over every partition: per-chunk candidates from the
     backend, streamed into a running top-k (ties to the lowest index,
     carry first, so the result equals one top-k over all points in
-    partition order)."""
+    partition order). Each partition's buffered candidates follow its
+    main-plane ones, as the reference concatenates them."""
 
     n_query_args = 2
 
@@ -380,11 +527,19 @@ class _KnnExactLocal(_LocalFn):
         neg = torch.full((qn, k), -3e38, dtype=torch.float32,
                          device=qx.device)
         vid = torch.full((qn, k), -1, dtype=torch.int32, device=qx.device)
-        for _, ch in _chunks(parts, self.cfg.part_chunk):
-            cn, cv = bk.knn_scan(ch, qx, qy, k)               # (C, Q, W)
-            cn = cn.transpose(0, 1).reshape(qn, -1)
-            cv = cv.transpose(0, 1).reshape(qn, -1)
-            neg, vid = bk.topk_merge(neg, vid, cn, cv, k)     # merge
+        g = self._delta_group(qn) if self.d_cap else parts["count"].shape[0]
+        for _, grp in _slices(parts, g):
+            if self.d_cap:         # the group's buffered candidates
+                dn, dv = bk.delta_knn_scan(grp, qx, qy)
+            for lo, ch in _chunks(grp, self.cfg.part_chunk):
+                cn, cv = bk.knn_scan(ch, qx, qy, k)           # (C, Q, W)
+                if self.d_cap:
+                    c = ch["count"].shape[0]
+                    cn = torch.cat([cn, dn[lo:lo + c]], 2)
+                    cv = torch.cat([cv, dv[lo:lo + c]], 2)
+                cn = cn.transpose(0, 1).reshape(qn, -1)
+                cv = cv.transpose(0, 1).reshape(qn, -1)
+                neg, vid = bk.topk_merge(neg, vid, cn, cv, k)  # merge
         return neg, vid
 
 
@@ -454,6 +609,9 @@ class _KnnPrunedLocal(_LocalFn):
         # per-chunk candidate plane (Q, cc * 4*cap); when the whole
         # (Q, cand * 4*cap) plane fits, one top-k over it instead
         cc = max(1, self.cfg.scan_chunk_elems // max(1, qn * 4 * self.cap))
+        # the buffered candidates' distances: the same in every round
+        dplanes = (_delta_knn_planes(parts, order, qx, qy) if self.d_cap
+                   else None)
 
         def empty():
             return (torch.full((qn, k), NEG, dtype=torch.float32,
@@ -463,7 +621,9 @@ class _KnnPrunedLocal(_LocalFn):
         def round_chunked(r, rects, active):
             """Fold candidate chunks into a running (Q, k) best set:
             bitwise the monolithic top-k (the carry precedes each chunk,
-            and empty carry slots equal masked plane slots)."""
+            and empty carry slots equal masked plane slots); the delta
+            candidates merge last, as they follow the main plane in the
+            monolithic concatenation."""
             bn, bv = empty()
             cnt = torch.zeros(qn, dtype=torch.int32, device=dev)
             okl = torch.ones(qn, dtype=torch.bool, device=dev)
@@ -473,11 +633,23 @@ class _KnnPrunedLocal(_LocalFn):
                 bn, bv = bk.topk_merge(bn, bv, negd, wv, k)
                 cnt = cnt + c_in
                 okl = okl & ok
+            if self.d_cap:
+                dcnts, dvids, dd2 = _delta_knn_candidates(dplanes, active, r)
+                bn, bv = bk.topk_merge(bn, bv, dd2, dvids, k)
+                cnt = cnt + dcnts
             return bn, bv, cnt, okl
 
         def round_monolithic(r, rects, active):
             negd, wv, cnt, okl = self._round(parts, boxes, order, active,
                                              rects, r, qx, qy)
+            if self.d_cap:
+                # buffered candidates of the same partitions: an insert
+                # is in the circle iff within r (coverage already holds
+                # every partition within r as a candidate)
+                dcnts, dvids, dd2 = _delta_knn_candidates(dplanes, active, r)
+                negd = torch.cat([negd, dd2], 1)
+                wv = torch.cat([wv, dvids], 1)
+                cnt = cnt + dcnts
             bn, ix = stable_topk(negd, k)
             return bn, torch.gather(wv, 1, ix), cnt, okl
 
@@ -526,10 +698,26 @@ class _JoinLocal(_LocalFn):
 
     def __call__(self, parts, bounds, polys, n_edges, mbr_k):
         return self._row_chunks(
-            lambda pl, ne, mk: self._rows(parts, bounds, pl, ne, mk),
-            self.cand, self.cap, polys, n_edges, mbr_k, z_depth=3)
+            lambda pl, ne, mk, *d: self._rows(parts, bounds, pl, ne, mk, *d),
+            self.cand, self.cap, polys, n_edges, mbr_k,
+            *self._delta_join(parts, bounds, mbr_k[:, :4]), z_depth=3)
 
-    def _rows(self, parts, bounds, polys, n_edges, mbr_k):
+    def _delta_join(self, parts, bounds, mbrs):
+        """The delta probe of every polygon's candidate partitions: ()
+        without delta buffers, else the buffered points' (dx, dy (PG, C,
+        d_cap), vids -1 outside the polygon's MBR), for the ray cast."""
+        if not self.d_cap:
+            return ()
+        pids, valid, _ = _top_candidates(Q.rect_overlaps_box(mbrs, bounds),
+                                         self.cand)
+        dxw, dyw, dvw, live = Q.gather_delta(parts, pids, valid)
+        r = flush_denormals(mbrs)[:, None, None, :]
+        fx, fy = flush_denormals(dxw), flush_denormals(dyw)
+        inm = (live & (fx >= r[..., 0]) & (fx <= r[..., 2]) &
+               (fy >= r[..., 1]) & (fy <= r[..., 3]))
+        return dxw, dyw, torch.where(inm, dvw, -1)
+
+    def _rows(self, parts, bounds, polys, n_edges, mbr_k, *delta):
         pg = polys.shape[0]
         mbrs = mbr_k[:, :4]
         overlap = Q.rect_overlaps_box(mbrs, bounds)
@@ -537,6 +725,9 @@ class _JoinLocal(_LocalFn):
         _, vids, ok, wx, wy = Q.range_window_at(
             parts, bounds[pids], pids, valid, mbrs, self.spec,
             cap=self.cap, z_depth=3, **self.kw)
+        if delta:                  # this row chunk's delta probe
+            wx, wy, vids = (torch.cat([a, d], -1) for a, d in
+                            zip((wx, wy, vids), delta))
         inside = Q.point_in_polygon(wx.reshape(pg, -1), wy.reshape(pg, -1),
                                     polys, n_edges)
         cnt = ((vids.reshape(pg, -1) >= 0) & inside).sum(1,
@@ -564,6 +755,10 @@ class _JoinFullLocal(_LocalFn):
                              **self.kw)                        # lookup
             cnt = bk.join_scan(ch, polys, n_edges, mbrs, s, e, active=act)
             acc += cnt.sum(0, dtype=torch.int32)               # merge
+        if self.d_cap:
+            acc += self._delta_sum(parts, overlap, lambda g, a:
+                                   bk.delta_join_scan(g, polys, n_edges,
+                                                      mbrs, active=a))
         return acc
 
 

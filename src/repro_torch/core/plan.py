@@ -12,6 +12,9 @@ program; ``sticky_key()`` names the tier state an executor keeps per
 spec family. A wide non-strict batch on a sticky tier takes the
 tier-bucketed dispatch (``tier_buckets``, ``tier_bucket_min``,
 ``row_chunk_elems``; DESIGN.md §13).
+
+UpdateSpecs (InsertBatch, DeleteBatch, Refit) mutate the executor's
+index through the same ``Executor.run`` (DESIGN.md §11).
 """
 from __future__ import annotations
 
@@ -49,6 +52,11 @@ class EngineConfig:
                                     # cand) per fused call
     demote_after: int = 3        # consecutive clean maintain() checks
                                  # before a sticky tier steps back down
+    delta_cap: int = 128         # delta-buffer capacity floor on first
+                                 # insert (grows by doubling; DESIGN §11)
+    delta_occupancy: float = 0.5  # (buffered + tombstoned) / live
+                                  # fraction above which the executor
+                                  # schedules a deferred re-fit
 
     def __post_init__(self):
         if self.backend not in BACKENDS:
@@ -171,3 +179,46 @@ class SpatialJoin(QuerySpec):
         object.__setattr__(self, "mode",
                            _as_choice(self.mode, "mode",
                                       ("windowed", "full")))
+
+
+# ---------------------------------------------------------------------------
+# update specs: mutations through the same executor (DESIGN.md §11)
+# ---------------------------------------------------------------------------
+
+class UpdateSpec(QuerySpec):
+    """Base class for declarative index mutations. Like a query, an
+    UpdateSpec carries no data: batches are passed to
+    ``Executor.run(spec, *args)``."""
+
+
+@dataclasses.dataclass(frozen=True)
+class InsertBatch(UpdateSpec):
+    """Batched insert. args: (xs (B,), ys (B,)) -> assigned vids (B,).
+
+    Points are appended to their partition's delta buffer; the spline is
+    not re-fit (that waits for ``Refit`` or the executor's
+    occupancy-triggered ``maintain()`` compaction)."""
+    kind = "insert"
+    n_args = 2
+
+
+@dataclasses.dataclass(frozen=True)
+class DeleteBatch(UpdateSpec):
+    """Batched delete by coordinate. args: (xs (B,), ys (B,)) ->
+    removed count (int). Removes EVERY live copy of each (x, y)."""
+    kind = "delete"
+    n_args = 2
+
+
+@dataclasses.dataclass(frozen=True)
+class Refit(UpdateSpec):
+    """Compaction + per-partition spline re-fit of every dirty partition
+    (buffered inserts or tombstones). args: () -> the list of partition
+    ids re-fit. Targeted re-fit: ``Executor.refit(touched)``."""
+    kind = "refit"
+    n_args = 0
+
+
+ALL_SPEC_TYPES = (PointQuery, RangeCount, RangeQuery, CircleQuery, Knn,
+                  SpatialJoin)
+ALL_UPDATE_TYPES = (InsertBatch, DeleteBatch, Refit)

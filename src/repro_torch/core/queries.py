@@ -207,6 +207,47 @@ def circle_window_at(parts, boxes, pid, valid, rects, circ, spec, *,
     return cnts, vids.reshape(qn, c, -1), ok
 
 
+def gather_delta(parts, pid, valid):
+    """Gather (Q, C) candidate partitions' delta buffers and their live
+    mask.
+
+    Liveness: slot < dcount AND vid >= 0 AND candidate valid. Every
+    query-centric delta probe (range and circle windows, kNN candidates,
+    join windows, the point probe) builds on this gather; the partition
+    sweeps apply the same rule per row in ``backends.TorchBackend.
+    delta_live``: change both together. Returns (dx, dy, dvid (Q, C,
+    d_cap), live (Q, C, d_cap) bool); the coordinates are as stored."""
+    dv = parts["dvid"][pid]
+    slot = torch.arange(dv.shape[-1], dtype=torch.int32, device=pid.device)
+    live = ((slot < parts["dcount"][pid][..., None]) & (dv >= 0) &
+            valid[..., None])
+    return parts["dx"][pid], parts["dy"][pid], dv, live
+
+
+def delta_window_at(parts, pid, valid, rects, circ=None):
+    """Live delta-buffer matches of (Q, C) candidate partitions (the
+    delta probe beside the learned window gather, DESIGN.md §11: the
+    buffers are small, so a full masked scan is the whole cost).
+
+    pid, valid (Q, C); rects (Q, 4); circ, optional (Q, 3) [cx, cy, r],
+    the distance refine. The rect compares read denormals as zero, and
+    the distance is XLA:CPU's contracted ``fma(dx, dx, dy*dy)`` against
+    ``r*r``, flushed (``_num.dist2_f32``, ``mul_f32``). Returns (counts
+    (Q, C) int32, vids (Q, C, d_cap) int32 padded -1)."""
+    dx, dy, dv, live = gather_delta(parts, pid, valid)
+    r = flush_denormals(rects)[:, None, None, :]
+    fx, fy = flush_denormals(dx), flush_denormals(dy)
+    m = (live & (fx >= r[..., 0]) & (fx <= r[..., 2]) &
+         (fy >= r[..., 1]) & (fy <= r[..., 3]))
+    if circ is not None:
+        cc = circ[:, None, None, :]
+        rr = cc[..., 2]
+        # the differences are only squared: no flush needed
+        m = m & (dist2_f32(dx - cc[..., 0], dy - cc[..., 1]) <=
+                 mul_f32(rr, rr))
+    return m.sum(-1, dtype=torch.int32), torch.where(m, dv, -1)
+
+
 def clip_rect_to_box(rects, box):
     """Intersect (Q, 4) rects with one partition box (4,); an empty
     intersection is an inverted rect. Both are read flushed."""

@@ -8,7 +8,10 @@ through ``Executor.run``, so:
   - a steady request on a sticky tier runs one fused program with zero
     host syncs (no retry chain, no host read of the ok flags);
   - ``warmup`` settles the sticky tiers before traffic arrives;
-  - ``maintain`` re-tunes the tiers between batches, off the hot path.
+  - ``maintain`` re-tunes the tiers between batches, off the hot path,
+    and runs the compaction that updates scheduled;
+  - ``insert``, ``delete`` and ``refit`` mutate the resident index
+    (DESIGN.md §11); queries stay exact at once.
 """
 from __future__ import annotations
 
@@ -16,7 +19,8 @@ from typing import Optional, Sequence, Tuple
 
 from repro_torch.core.build import LearnedSpatialIndex
 from repro_torch.core.executor import Executor
-from repro_torch.core.plan import EngineConfig, QuerySpec
+from repro_torch.core.plan import (DeleteBatch, EngineConfig, InsertBatch,
+                                   QuerySpec)
 
 
 class SpatialServeSession:
@@ -44,13 +48,34 @@ class SpatialServeSession:
         """A mixed batch of (spec, *args) requests, in order."""
         return self.executor.run_batch(requests, strict=strict)
 
+    # -- mutations (epoch-versioned mutable index, DESIGN.md §11) --------
+
+    def insert(self, xs, ys):
+        """Absorb a batch of new points into the resident index's delta
+        buffers (no re-fit on this path: maintain() compacts a partition
+        whose delta occupancy crossed the configured threshold). Returns
+        the assigned point ids."""
+        return self.executor.run(InsertBatch(), xs, ys)
+
+    def delete(self, xs, ys) -> int:
+        """Tombstone every live copy of each (x, y); returns the number
+        of removed points. Queries stay exact at once."""
+        return self.executor.run(DeleteBatch(), xs, ys)
+
+    def refit(self, touched=None):
+        """Compaction + per-partition spline re-fit now (e.g. in a
+        maintenance window) instead of waiting for maintain()."""
+        return self.executor.refit(touched)
+
     def maintain(self) -> dict:
         """Re-tune between batches: check the ok flags stashed by recent
         zero-sync runs, escalate overflowed sticky tiers and demote
-        clean ones. Returns what moved. Call off the hot path."""
+        clean ones, and run the deferred re-fit that updates scheduled.
+        Returns what moved. Call off the hot path."""
         return self.executor.maintain()
 
     def stats(self) -> dict:
         """Executor counters: host_syncs, probe_syncs (one host read per
-        bucketed wide call), dispatches, backend, sticky."""
+        bucketed wide call), dispatches, backend, sticky, epoch,
+        shape_epoch, updates, refits, pending_refit."""
         return self.executor.stats()

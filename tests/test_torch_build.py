@@ -134,7 +134,7 @@ def test_index_leaves_bitwise(data, n, parts, kind, kw):
     for name in LEAVES:
         a = np.asarray(getattr(want, name))
         b = getattr(got, name).numpy()
-        if name == "key":
+        if name in ("key", "delta_key"):      # uint32 keys, held as int64
             a = a.astype(np.int64)
         assert a.dtype == b.dtype and np.array_equal(a, b), name
     for attr in ("eps", "radix_bits", "probe", "overflow_pid", "n_pad",

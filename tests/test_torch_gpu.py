@@ -894,3 +894,318 @@ def test_gpu_kernels_on_denormals(denormal_index, cuda):
     cpu = t_knn.knn_topk_plain(*_on("cpu", *args), k=6)
     for g, w, h in zip(got, want, cpu):
         assert torch.equal(g, w) and torch.equal(w.cpu(), h)
+
+
+# -- the mutable index (DESIGN.md §11) on the card --------------------------
+
+def flushed_pairs(x, y) -> np.ndarray:
+    """(x, y) as one int64 per point, float32 denormals read as zero (a
+    delete matches coordinates that way)."""
+    def bits(v):
+        v = np.where(np.abs(v) < np.finfo(np.float32).tiny, np.float32(0),
+                     v).astype(np.float32)
+        return v.view(np.uint32).astype(np.int64)
+    return (bits(x) << 32) | bits(y)
+
+
+def update_batches(x, y, n_ins: int, n_del: int, n_buf: int, seed: int):
+    """An insert batch and a delete batch on the points (x, y) (vids
+    0..N-1), with the denormal cases of a delete: the inserts are
+    ``n_ins`` taxi points (seed ``seed``) and (1e-45, 0.5), (-1e-45,
+    0.25); the deletes are ``n_del`` originals, ``n_buf`` of the taxi
+    inserts, and (0.0, 0.25), which removes the buffered (-1e-45, 0.25).
+    (1e-45, 0.5) survives: a later delete of (0.0, 0.5) removes it from
+    the main plane once a re-fit has merged it.
+
+    Returns dict(ins=(ix, iy), dele=(dx, dy), removed: the number the
+    delete batch removes (every live copy of each coordinate), surv=(sx,
+    sy, svid): the surviving points in vid order)."""
+    n = len(x)
+    ix, iy = ds.make("taxi", n_ins, seed=seed)
+    ix = np.concatenate([ix, np.float32([1e-45, -1e-45])])
+    iy = np.concatenate([iy, np.float32([0.5, 0.25])])
+    rng = np.random.default_rng(seed + 1)
+    orig = rng.choice(n, n_del, replace=False)
+    buf = rng.choice(n_ins, n_buf, replace=False)
+    dx = np.concatenate([x[orig], ix[buf], np.float32([0.0])])
+    dy = np.concatenate([y[orig], iy[buf], np.float32([0.25])])
+    ax, ay = np.concatenate([x, ix]), np.concatenate([y, iy])
+    gone = np.isin(flushed_pairs(ax, ay), flushed_pairs(dx, dy))
+    keep = ~gone
+    return {"ins": (ix, iy), "dele": (dx, dy), "removed": int(gone.sum()),
+            "surv": (ax[keep], ay[keep],
+                     np.arange(len(ax), dtype=np.int64)[keep])}
+
+
+def kernel_cases(ex, rects, qx, qy, kx, ky, circles, polys, ne, k=10):
+    """Every query kernel's launches on executor ``ex``'s index, at the
+    shapes its exact programs give them: (name, kernel, plain version,
+    args, kwargs) per launch. ``spline_search`` and ``range_count`` per
+    partition chunk of a range count on ``rects``, ``circle_count`` per
+    chunk of the exact circle program on ``circles`` (cx, cy, r),
+    ``knn_topk`` per chunk of exact kNN of (kx, ky), ``point_in_polygon``
+    (the fused ``join_count``) per chunk of the full join, and the point
+    query's one launch on (qx, qy). The learned bounds come from the
+    plain backend. Inputs may be numpy; they go to ``ex.device``."""
+    from repro_torch.core import queries as Q
+    from repro_torch.core.backends import TorchBackend
+    dev = ex.device
+    kw = dict(radix_bits=ex.index.radix_bits, probe=ex.index.probe)
+    c = ex.cfg.part_chunk
+    chunks = list(L._chunks(ex.parts, c))
+    rect_t, qxt, qyt, kxt, kyt = (
+        torch.as_tensor(np.ascontiguousarray(a), device=dev)
+        for a in (rects, qx, qy, kx, ky))
+    out = []
+
+    def count_args(rs, klo, khi, circ=None):
+        ov = Q.rect_overlaps_box(rs, ex.bounds)
+        mid = () if circ is None else (circ,)
+        for lo, ch in chunks:
+            s, e = TorchBackend().bounds(ch, klo, khi, **kw)
+            act = ov[:, lo:lo + c].t().contiguous()
+            yield ch, (rs, s, e, *mid, act, ch["count"], ch["x"], ch["y"])
+
+    klo, khi = ex._rect_keys(rect_t)
+    q2 = torch.cat([klo, khi + 1.0]).contiguous()
+    for ch, args in count_args(rect_t, klo, khi):
+        out.append(("spline_search", t_ss.spline_search,
+                    t_ss.spline_search_plain,
+                    (q2, ch["knot_keys"], ch["knot_pos"], ch["radix_table"],
+                     ch["keys_f"], ch["radix_kmin"], ch["radix_scale"],
+                     ch["n_knots"], ch["count"]), kw))
+        out.append(("range_count", t_rf.range_count, t_rf.range_count_plain,
+                    args, {}))
+    crect, cklo, ckhi, circ = ex._circle_args(circles)
+    for _, args in count_args(crect, cklo, ckhi, circ):
+        out.append(("circle_count", t_cf.circle_count,
+                    t_cf.circle_count_plain, args, {}))
+    for _, ch in chunks:
+        out.append(("knn_topk", t_knn.knn_topk, t_knn.knn_topk_plain,
+                    (kxt, kyt, ch["count"], ch["x"], ch["y"]), {"k": k}))
+    jpoly, jne, jmbr_k = ex._join_args((polys, ne))
+    jmbrs = jmbr_k[:, :4].contiguous()
+    jklo, jkhi = jmbr_k[:, 4].contiguous(), jmbr_k[:, 5].contiguous()
+    ov = Q.rect_overlaps_box(jmbrs, ex.bounds)
+    for lo, ch in chunks:
+        s, e = TorchBackend().bounds(ch, jklo, jkhi, **kw)
+        out.append(("point_in_polygon", t_pip.join_count,
+                    t_pip.join_count_plain,
+                    (jpoly, jne, jmbrs, s, e,
+                     ov[:, lo:lo + c].t().contiguous(), ch["count"],
+                     ch["x"], ch["y"]), {}))
+    qk = K.keys_to_f32(K.make_keys(qxt, qyt, ex.spec))
+    p = ex.parts
+    out.append(("point_probe", t_pp.point_query, t_pp.point_query_plain,
+                (ex.bounds, p["knot_keys"], p["knot_pos"], p["keys_f"],
+                 p["x"], p["y"], p["count"], qxt, qyt, qk),
+                {"overflow": ex.index.overflow, "probe": ex.index.probe}))
+    return out
+
+
+def check_kernel_cases(cases) -> dict:
+    """Each case's kernel bitwise its plain version; {name: max_abs_err}
+    (0 everywhere, or an AssertionError)."""
+    err = {}
+    for name, fn, plain, args, kw in cases:
+        got, want = fn(*args, **kw), plain(*args, **kw)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        e = max(float((g.double() - w.double()).abs().max())
+                if g.numel() else 0.0 for g, w in zip(got, want))
+        err[name] = max(err.get(name, 0.0), e)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), name
+    return err
+
+
+def _small_update_case():
+    """taxi 20,000 points, kdtree 16, and update_batches on them (600
+    inserts, 250 original deletes, 150 buffered)."""
+    x, y = ds.make("taxi", 20000, seed=0)
+    part = fit("kdtree", x, y, 16, seed=0)
+    return x, y, part, update_batches(x, y, 600, 250, 150, seed=5)
+
+
+def _families(x, y, part, seed=9):
+    """One call of each family on (executor) -> result."""
+    rng = np.random.default_rng(seed)
+    ix = rng.integers(0, len(x), 48)
+    qx = np.concatenate([x[ix], rng.random(16).astype(np.float32),
+                         np.float32([1e-45, 0.0])])
+    qy = np.concatenate([y[ix], rng.random(16).astype(np.float32),
+                         np.float32([0.5, 0.5])])
+    rects = ds.random_rects(32, 1e-4, part.bounds, seed=seed, centers=(x, y))
+    r = np.full(len(qx), 0.01, np.float32)
+    polys, ne = ds.random_polygons(8, part.bounds, seed=seed)
+    return {
+        "point": lambda e: e.run(T.PointQuery(), qx, qy),
+        "range_count": lambda e: e.run(T.RangeCount(), rects),
+        "range": lambda e: e.run(T.RangeQuery(), rects, strict=True),
+        "circle": lambda e: e.run(T.CircleQuery(), qx, qy, r, strict=True),
+        "circle_mat": lambda e: e.run(T.CircleQuery(materialize=True), qx,
+                                      qy, r, strict=True),
+        "circle_exact": lambda e: e._circle_exact(e._circle_args((qx, qy,
+                                                                  r))),
+        "knn": lambda e: e.run(T.Knn(k=10), qx, qy, strict=True),
+        "knn_exact": lambda e: e.run(T.Knn(k=10, mode="exact"), qx, qy),
+        "join": lambda e: e.run(T.SpatialJoin(), polys, ne, strict=True),
+        "join_full": lambda e: e.run(T.SpatialJoin(mode="full"), polys, ne),
+    }, (rects, qx, qy, qx, qy, (qx, qy, r), polys, ne)
+
+
+def _same_as_fresh(name, got, want):
+    """Counts, kNN distances and id order bitwise; materialized ids equal
+    as sets (the two indexes' window widths differ by the delta plane)."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    if name in ("range", "circle_mat"):
+        assert torch.equal(got[0], want[0]), name
+        for a, b in zip(got[1].tolist(), want[1].tolist()):
+            assert {v for v in a if v >= 0} == {v for v in b if v >= 0}
+    else:
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), name
+
+
+def test_gpu_updates_cuda_matches_torch_backend(cuda):
+    """Inserts and deletes (the denormal cases among them) on a small
+    index: every family on the cuda backend bitwise the torch backend on
+    the card, before and after the re-fit, and both bitwise a fresh build
+    of the surviving points (materialized ids as sets); the kernels
+    launch on the mutated index."""
+    x, y, part, u = _small_update_case()
+    idx = build_index(x, y, part, device=cuda)
+    ex = T.Executor(idx, device=cuda)
+    pl = T.Executor(idx, EngineConfig(backend="torch"), device=cuda)
+    for e in (ex, pl):
+        vids = e.run(T.InsertBatch(), *u["ins"])
+        assert vids.tolist() == list(range(len(x), len(x) + len(u["ins"][0])))
+        assert e.run(T.DeleteBatch(), *u["dele"]) == u["removed"]
+    assert ex.index.delta_cap > 0
+    fams, _ = _families(x, y, part)
+    sx, sy, svid = u["surv"]
+    results = []
+    for refit in (False, True):
+        if refit:
+            assert ex.refit() == pl.refit()
+            assert ex.index.epoch == pl.index.epoch == 3
+        KERN.reset_launch_counts()
+        got = {n: f(ex) for n, f in fams.items()}
+        launched = KERN.launch_counts()
+        for n in ("spline_search", "range_count", "point_probe",
+                  "knn_topk", "circle_count", "point_in_polygon"):
+            assert launched[n] > 0, (n, refit)
+        for n, f in fams.items():
+            want = f(pl)
+            g = got[n] if isinstance(got[n], tuple) else (got[n],)
+            w = want if isinstance(want, tuple) else (want,)
+            assert all(torch.equal(a, b) for a, b in zip(g, w)), (n, refit)
+        results.append(got)
+    fresh = T.Executor(build_index(sx, sy, part, vid=svid,
+                                   n_pad=ex.index.n_pad, device=cuda),
+                       device=cuda)
+    for n, f in fams.items():
+        want = f(fresh)
+        for got in results:
+            _same_as_fresh(n, got[n], want)
+    for n in ("key", "x", "y", "vid", "count"):
+        assert torch.equal(getattr(ex.index, n), getattr(fresh.index, n))
+    # the denormal case on the main plane, after the re-fit merged it
+    pq = (np.float32([1e-45]), np.float32([0.5]))
+    assert ex.run(T.PointQuery(), *pq).tolist() == [True]
+    assert ex.run(T.DeleteBatch(), np.float32([0.0]),
+                  np.float32([0.5])) == 1
+    assert ex.run(T.PointQuery(), *pq).tolist() == [False]
+
+
+def test_gpu_kernels_on_mutated_planes(cuda):
+    """Each query kernel bitwise its plain version on tombstoned planes
+    (coordinates 3e38 and vid -1 inside count) and on the re-fit planes
+    (merged rows, a wider n_pad, a larger probe)."""
+    x, y, part, u = _small_update_case()
+    ex = T.Executor(build_index(x, y, part, device=cuda), device=cuda)
+    ex.run(T.InsertBatch(), *u["ins"])
+    # a long duplicate run in the fullest partition, of a point that no
+    # delete removes: the re-fit widens the probe, and the merged row
+    # outgrows n_pad
+    row = int(ex.index.count.argmax())
+    px, py = (getattr(ex.index, a)[row].cpu().numpy() for a in "xy")
+    ok = ~np.isin(flushed_pairs(px, py), flushed_pairs(*u["dele"]))
+    j = int(np.flatnonzero(ok)[0])
+    ex.run(T.InsertBatch(), np.full(300, px[j], np.float32),
+           np.full(300, py[j], np.float32))
+    ex.run(T.DeleteBatch(), *u["dele"])
+    assert (ex.index.vid < 0).logical_and(
+        torch.arange(ex.index.n_pad, device=cuda)[None, :]
+        < ex.index.count[:, None]).any()
+    _, args = _families(x, y, part)
+    before = (ex.index.n_pad, ex.index.probe)
+    err = check_kernel_cases(kernel_cases(ex, *args))
+    ex.refit()
+    assert ex.index.n_pad > before[0] and ex.index.probe > before[1]
+    err2 = check_kernel_cases(kernel_cases(ex, *args))
+    assert set(err) == set(err2) == {
+        "spline_search", "range_count", "circle_count", "knn_topk",
+        "point_in_polygon", "point_probe"}
+    assert max(err.values()) == max(err2.values()) == 0
+
+
+def test_gpu_denormal_deletes(cuda):
+    """A delete reads float32 denormals as zero on the card too: a point
+    built at (1e-45, 0.5) and a buffered insert at (-1e-45, 0.25) are
+    removed by deletes at x = 0.0, on both backends alike."""
+    px, py = ds.make("uniform", 1500, seed=71)
+    px = np.concatenate([px, np.float32([1e-45])]).astype(np.float32)
+    py = np.concatenate([py, np.float32([0.5])]).astype(np.float32)
+    part = fit("kdtree", px, py, 4, seed=0)
+    out = []
+    for bk in ("cuda", "torch"):
+        e = T.Executor(build_index(px, py, part, device=cuda),
+                       EngineConfig(backend=bk), device=cuda)
+        e.run(T.InsertBatch(), np.float32([-1e-45, 0.7]),
+              np.float32([0.25, 0.7]))
+        q = (np.float32([1e-45, -1e-45, 0.7]), np.float32([0.5, 0.25, 0.7]))
+        assert e.run(T.PointQuery(), *q).tolist() == [True, True, True]
+        assert e.run(T.DeleteBatch(), np.float32([0.0, 0.0]),
+                     np.float32([0.5, 0.25])) == 2
+        assert e.run(T.PointQuery(), *q).tolist() == [False, False, True]
+        out.append(e.run(T.Knn(k=3, mode="exact"), *q))
+    assert all(torch.equal(a, b) for a, b in zip(*out))
+
+
+def test_gpu_serving_after_insert_makes_no_sync(cuda):
+    """An insert between serving rounds: the steady round after it makes
+    no synchronising call (sync-debug "error"), host_syncs +0, outputs
+    bitwise the torch backend's; with delta_occupancy low the insert
+    schedules a re-fit, maintain() runs it and pending_refit empties."""
+    x, y = ds.make("taxi", 20000, seed=0)
+    part = fit("kdtree", x, y, 16, seed=0)
+    idx = build_index(x, y, part, device=cuda)
+    cfg = dict(delta_occupancy=0.001)
+    sess = SpatialServeSession(idx, EngineConfig(**cfg), device=cuda)
+    plain = SpatialServeSession(idx, EngineConfig(backend="torch", **cfg),
+                                device=cuda)
+    for s in (sess, plain):
+        s.warmup(_serve_round(x, y, part.bounds, 16, 0, cuda))
+    bx, by = ds.make("taxi", 256, seed=4)
+    for s in (sess, plain):
+        s.insert(bx, by)
+        assert s.stats()["pending_refit"]
+    rnd = _serve_round(x, y, part.bounds, 16, 1, cuda)
+    for refit in (False, True):
+        torch.cuda.synchronize()
+        syncs = sess.stats()["host_syncs"]
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = sess.submit_batch(rnd)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert sess.stats()["host_syncs"] == syncs
+        for got, want in zip(out, plain.submit_batch(rnd)):
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
+        if not refit:
+            moved = sess.maintain()
+            assert moved == plain.maintain() and moved.get("refit")
+            assert not sess.stats()["pending_refit"]
+            assert sess.stats()["refits"] == 1
