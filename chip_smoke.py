@@ -103,7 +103,31 @@ result line):
               launched, outputs held against the exact programs),
               maintain() between them running the re-fit the insert
               scheduled (pending_refit empties);
-  9. kernels  each of the seven kernels against its plain version at the
+  9. scheduler the streaming serve scheduler (serve/scheduler.py) on a
+              new SpatialServeSession with the default config over the
+              same index, serving src/repro/launch/serve.py --spatial
+              --scheduler's traffic at --batch 64 --rounds 8: 512
+              single-query requests, point, range count (selectivity
+              1e-5), 10-NN and circle (r = 0.02) round-robin, numpy
+              inputs as the launcher sends them; warmup on the first
+              four. A serial replay through session.submit (all 512,
+              or the first 64 of each kind when the whole would pass
+              60 s); (a) drain mode: all 512 submitted, then drain():
+              four coalesced batches of 128 (one per spec; 10-NN and
+              circle bucketed), every ticket bitwise its serial result,
+              probe_syncs and host_syncs deltas (the dispatches read no
+              ok flag: host_syncs grows only by idle maintain()'s
+              reads); (b) worker mode, 8 closed-loop client threads:
+              every ticket bitwise serial, host_syncs as in (a), wall,
+              req/s, p50/p99 per request, mean and max batch; (c) the
+              same with the launcher's two InsertBatch requests of 64
+              points (one before the clients, one beside them): every
+              read submitted after an insert resolved carries an epoch
+              at or above it, maintain_busy 0, write_merges, maintain
+              runs; peak memory of the phase. Launch counts are set to
+              0 before each scheduler run and read after it (the serial
+              replay is not counted);
+ 10. kernels  each of the seven kernels against its plain version at the
               shapes the main path gives it (bitwise; morton on the
               quantized coordinates of the 2^23 build, at its own entry
               point, and also against core/keys.morton_encode), with its
@@ -116,7 +140,8 @@ result line):
               run's inputs (bytes over 3.35 TB/s, or operations over 67
               TFLOP/s for float32 and 16.7 TOP/s for int32, whichever is
               larger). ``launches`` counts every path this script drives
-              (main, serve, wide, updates, morton). spline_search is also held
+              (main, serve, wide, updates, scheduler,
+              morton). spline_search is also held
               equal to torch.searchsorted (its library call) on every
               chunk, with
               the floor of as many one-element PyTorch launches beside
@@ -140,7 +165,7 @@ result line):
               the floor of one launch on the card at its grid: an empty
               kernel (csrc/launch_floor.cu, on no query path) timed the
               same way;
- 10. denormals the four kernels that read float32 denormals as zero
+ 11. denormals the four kernels that read float32 denormals as zero
               (range_count, circle_count, knn_topk, point_in_polygon) on
               tests/test_torch_gpu.py's denormal points and queries, each
               bitwise its plain version on the card, which must equal the
@@ -189,6 +214,16 @@ UPD_DELETES = 3072
 UPD_BUFFERED = 1024
 UPD_SERVE_INSERTS = 1024     # between two serving rounds
 UPD_SERVE_OCCUPANCY = 1e-4   # low enough that this insert schedules re-fits
+# the scheduler phase: src/repro/launch/serve.py --spatial --scheduler's
+# traffic at its --batch 64 --rounds 8 (512 single-query requests, point,
+# range count, 10-NN, circle round-robin) from 8 client threads
+SCHED_BATCH = 64
+SCHED_ROUNDS = 8
+SCHED_CLIENTS = 8
+SCHED_SERIAL_S = 60.0    # the serial replay's budget (else 64 of each kind)
+# the kernels the scheduler's traffic launches (it has no join)
+SCHED_KERNELS = ("spline_search", "range_count", "point_probe", "knn_topk",
+                 "circle_count")
 # what torch.cuda.set_sync_debug_mode("warn") says at a synchronizing call
 SYNC_WARNING = "called a synchronizing CUDA operation"
 DEVICE = "cuda"          # where the port runs, and the kernel backend
@@ -1159,6 +1194,242 @@ def update_phase(index, part, x, y, dev, main_path, main_args, sticky,
     return report, launches, report["kernel_max_abs_err"]
 
 
+def closed_loop_clients(sched, reqs, n_clients, before=None):
+    """``n_clients`` threads, client k sending requests k, k + n, ...
+    one at a time, each waiting for its ticket (the serve launcher's
+    clients). ``before``: started with the clients, run on a thread of
+    its own (the launcher's insert stream). Returns (wall s, per request
+    (submit time, latency us, ticket), in request order)."""
+    import threading
+    done = [None] * len(reqs)
+    errors = []
+
+    def client(k):
+        try:
+            for i in range(k, len(reqs), n_clients):
+                t0 = time.perf_counter()
+                t = sched.submit(*reqs[i])
+                t.result(300.0)
+                done[i] = (t0, (time.perf_counter() - t0) * 1e6, t)
+        except Exception as e:           # noqa: BLE001 -- re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in range(n_clients)]
+    if before is not None:
+        threads.append(threading.Thread(target=before))
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600.0)
+        require(not t.is_alive(), "scheduler: a client thread hung")
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    return wall, done
+
+
+def scheduler_phase(index, part, x, y, card) -> tuple:
+    """Phase 9: the streaming serve scheduler on ``index`` (see the
+    module docstring). Returns (report, {kernel: launches of the
+    scheduler's own dispatches})."""
+    import torch
+    from repro_torch import kernels as KERN
+    from repro_torch.core.plan import InsertBatch
+    from repro_torch.launch.serve import insert_stream, scheduler_requests
+    from repro_torch.serve import SpatialServeSession
+    sys.path.insert(0, str(ROOT / "tests"))
+    from test_torch_gpu import maintain_syncs
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    sess = SpatialServeSession(index, device=DEVICE)
+    ex = sess.executor
+    maint_syncs = maintain_syncs(ex)
+    n_req = SCHED_BATCH * SCHED_ROUNDS
+    reqs = scheduler_requests(x, y, part, n_req)
+    kinds = ("point", "range_count", "knn10", "circle")
+    t0 = time.perf_counter()
+    sess.warmup(reqs[:4])
+    torch.cuda.synchronize()
+    report = {"card": card, "requests": n_req, "clients": SCHED_CLIENTS,
+              "warmup_s": time.perf_counter() - t0,
+              "tiers_after_warmup": {str(k): v
+                                     for k, v in ex._sticky.items()}}
+    launches = {n: 0 for n in KERN.KERNELS}
+
+    def counted(fn):
+        KERN.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        got = KERN.launch_counts()
+        for n, c in got.items():
+            launches[n] += c
+        return out, {n: c for n, c in got.items() if c}
+
+    # the serial replay: each request alone through session.submit. The
+    # first 64 of each kind first; the rest only if the whole replay
+    # stays within SCHED_SERIAL_S
+    def replay(lo, hi):
+        out = []
+        for r in reqs[lo:hi]:
+            out.append(sess.submit(*r))
+        torch.cuda.synchronize()
+        return out
+
+    st0 = ex.stats()
+    t0 = time.perf_counter()
+    serial = replay(0, 4 * 64)
+    first_s = time.perf_counter() - t0
+    if first_s * n_req / (4 * 64) <= SCHED_SERIAL_S:
+        serial += replay(4 * 64, n_req)
+    serial_s = time.perf_counter() - t0
+    st1 = ex.stats()
+    report["serial"] = {
+        "replayed": len(serial), "wall_s": serial_s,
+        "host_syncs_added": st1["host_syncs"] - st0["host_syncs"],
+        "probe_syncs_added": st1["probe_syncs"] - st0["probe_syncs"]}
+    log(f"[scheduler] {card}: serial replay of {len(serial)} of {n_req} "
+        f"requests through session.submit in {serial_s:.1f} s "
+        f"(host_syncs +{report['serial']['host_syncs_added']}, "
+        f"probe_syncs +{report['serial']['probe_syncs_added']})")
+
+    def check(tickets, what):
+        for i, t in enumerate(tickets):
+            require(t.done(), f"scheduler {what}: request {i} unresolved")
+            got = t.result()
+            if i < len(serial):
+                require(same(got, serial[i]), f"scheduler {what}: request "
+                        f"{i} ({kinds[i % 4]}) differs from serial")
+
+    # (a) drain mode: everything queued, then one synchronous pump
+    sched = sess.scheduler(start=False)
+    tickets = [sched.submit(*r) for r in reqs]
+    m0, st0 = maint_syncs[0], ex.stats()
+    t0 = time.perf_counter()
+    _, got = counted(sched.drain)
+    drain_s = time.perf_counter() - t0
+    st1 = ex.stats()
+    batches = [e for e in sched.events if e[0] == "batch"]
+    require([(e[1], e[2], e[3]) for e in batches] ==
+            [(k, n_req // 4, n_req // 4) for k in kinds],
+            f"scheduler drain: batches {batches}")
+    check(tickets, "drain")
+    maint = maint_syncs[0] - m0
+    report["drain"] = {
+        "wall_s": drain_s, "events": [list(e) for e in sched.events],
+        "launches": got,
+        "host_syncs_added": st1["host_syncs"] - st0["host_syncs"],
+        "host_syncs_added_by_maintain": maint,
+        "probe_syncs_added": st1["probe_syncs"] - st0["probe_syncs"],
+        "stats": sched.stats()}
+    require(report["drain"]["host_syncs_added"] == maint,
+            "scheduler drain: a dispatch read ok flags on the host")
+    require(sched.stats()["maintain_busy"] == 0, "scheduler drain: busy")
+    sched.close()
+    log(f"[scheduler] {card}: drain of {n_req} requests in {drain_s:.2f} s,"
+        f" batches {[(e[1], e[2], e[3]) for e in batches]}, every ticket "
+        f"bitwise serial; host_syncs +{report['drain']['host_syncs_added']}"
+        f" (all {maint} of idle maintain()), probe_syncs "
+        f"+{report['drain']['probe_syncs_added']}, launches {got}")
+
+    def worker(what, with_inserts):
+        """Worker mode: SCHED_CLIENTS closed-loop clients, and with
+        ``with_inserts`` the launcher's two InsertBatch requests."""
+        out = {}
+        m0, st0 = maint_syncs[0], ex.stats()
+        torch.cuda.reset_peak_memory_stats()
+        ins = []
+        KERN.reset_launch_counts()
+        with sess.scheduler() as sched:
+            stream = None
+            if with_inserts:
+                bx, by = insert_stream(x, y, SCHED_BATCH)
+                t = sched.submit(InsertBatch(), bx, by)
+                t.result(300.0)                      # prewarm
+                ins.append((time.perf_counter(), t))
+
+                def stream():
+                    t = sched.submit(InsertBatch(), bx, by)
+                    t.result(300.0)
+                    ins.append((time.perf_counter(), t))
+            wall, done = closed_loop_clients(sched, reqs, SCHED_CLIENTS,
+                                             stream)
+            sched.drain()
+        st = sched.stats()            # closed: idle maintenance counted
+        events = list(sched.events)
+        torch.cuda.synchronize()
+        got = KERN.launch_counts()
+        for n, c in got.items():
+            launches[n] += c
+        st1 = ex.stats()
+        lat = np.asarray([d[1] for d in done])
+        out.update(
+            wall_s=wall, req_per_s=n_req / wall,
+            p50_us=float(np.percentile(lat, 50)),
+            p99_us=float(np.percentile(lat, 99)),
+            mean_batch=st["mean_batch"], max_batch=st["max_batch"],
+            read_batches=st["read_batches"],
+            batch_widths=sorted({e[3] for e in events if e[0] == "batch"}),
+            maintain_runs=st["maintain_runs"],
+            maintain_busy=st["maintain_busy"],
+            write_merges=st["write_merges"], writes=st["writes"],
+            host_syncs_added=st1["host_syncs"] - st0["host_syncs"],
+            host_syncs_added_by_maintain=maint_syncs[0] - m0,
+            probe_syncs_added=st1["probe_syncs"] - st0["probe_syncs"],
+            max_memory_allocated=torch.cuda.max_memory_allocated(),
+            launches={n: c for n, c in got.items() if c}, stats=st)
+        require(st["maintain_busy"] == 0, f"scheduler {what}: busy")
+        require(out["host_syncs_added"] == out["host_syncs_added_by_maintain"],
+                f"scheduler {what}: a dispatch read ok flags on the host")
+        tickets = [d[2] for d in done]
+        if not with_inserts:
+            check(tickets, what)
+        else:
+            require(len(ins) == 2, f"scheduler {what}: inserts {ins}")
+            for resolved, t in ins:
+                require(all(d[2].epoch >= t.epoch for d in done
+                            if d[0] > resolved),
+                        f"scheduler {what}: a read submitted after an "
+                        "insert resolved saw an older epoch")
+            out["insert_epochs"] = [t.epoch for _, t in ins]
+            out["reads_after_an_insert"] = sum(d[0] > ins[-1][0]
+                                               for d in done)
+            for t in tickets:
+                t.result()
+        log(f"[scheduler] {card}: {what}: {n_req} requests from "
+            f"{SCHED_CLIENTS} clients in {wall:.2f} s ({out['req_per_s']:.1f}"
+            f" req/s), p50 {out['p50_us']:.0f} us, p99 {out['p99_us']:.0f} "
+            f"us, mean batch {st['mean_batch']}, max {st['max_batch']}, "
+            f"widths {out['batch_widths']}, maintain {st['maintain_runs']} "
+            f"runs ({st['maintain_busy']} busy), write_merges "
+            f"{st['write_merges']}, host_syncs +{out['host_syncs_added']} "
+            f"(all of idle maintain()), probe_syncs "
+            f"+{out['probe_syncs_added']}, max_memory_allocated "
+            f"{out['max_memory_allocated']}, launches {out['launches']}")
+        return out
+
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()    # warmup, replay, drain
+    # (b) worker mode, reads only: every ticket bitwise serial
+    report["worker"] = worker("worker", False)
+    # (c) worker mode with the insert stream: read-your-writes epochs
+    report["worker_inserts"] = worker("worker + inserts", True)
+    report["phase_s"] = time.perf_counter() - t_phase
+    report["max_memory_allocated"] = max(
+        peak, *(report[k]["max_memory_allocated"]
+                for k in ("worker", "worker_inserts")))
+    del sess
+    torch.cuda.empty_cache()
+    require(all(launches[n] > 0 for n in SCHED_KERNELS),
+            f"scheduler launches {launches}")
+    log(f"[scheduler] {card}: phase {report['phase_s']:.1f} s, "
+        f"max_memory_allocated {report['max_memory_allocated']}")
+    return report, launches
+
+
 def denormal_phase(dev) -> dict:
     """Phase 10: the four kernels that read float32 denormals as zero
     (range_count, circle_count, knn_topk, the join's point_in_polygon)
@@ -1511,8 +1782,13 @@ def main() -> int:
     require(all(upd_launches[n] > 0 for n in PATH_KERNELS),
             f"update launches {upd_launches}")
 
+    phase("scheduler")
+    # 9. the streaming serve scheduler on a session of its own
+    report["scheduler"], sched_launches = scheduler_phase(index, part, x, y,
+                                                          card)
+
     phase("kernels")
-    # 9. each kernel against its plain version on the inputs the main
+    # 10. each kernel against its plain version on the inputs the main
     # path gives it: every launch of one call (one per partition chunk,
     # or one per candidate set) is held bitwise against the plain
     # version, and the times, bytes and operations are those of the
@@ -1532,7 +1808,8 @@ def main() -> int:
         return lambda: [fn(*a, **kws) for a in arglist]
 
     by_path = {"main": launches, "serve": serve_launches,
-               "serve_wide": wide_launches, "updates": upd_launches}
+               "serve_wide": wide_launches, "updates": upd_launches,
+               "scheduler": sched_launches}
 
     def launch_floor(n, blocks, threads) -> dict:
         """The card's floor per launch: an empty kernel
@@ -1863,7 +2140,7 @@ def main() -> int:
                                      upd_err[row["name"]])
 
     phase("denormals")
-    # 10. the flushed kernels on denormal inputs (comparison launches,
+    # 11. the flushed kernels on denormal inputs (comparison launches,
     # counted on no path)
     report["denormals"] = denormal_phase(dev)
     for row in rows:

@@ -294,6 +294,14 @@ class Executor:
         calls, or occupancy-scheduled re-fits."""
         return bool(self._pending) or bool(self._refit_pending)
 
+    @property
+    def precompiling(self) -> bool:
+        """Whether a background precompile worker is running: never, as
+        the port compiles no program per width or tier (warm start,
+        ROADMAP item 16, brings the worker). The serve scheduler reads
+        it to decide its batch width."""
+        return False
+
     # -- the mutable index (DESIGN.md §11) ---------------------------------
 
     def _recount(self):

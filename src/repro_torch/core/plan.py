@@ -28,8 +28,8 @@ BACKENDS = ("auto", "torch", "cuda")
 class EngineConfig:
     """Executor knobs: how many partitions one backend call spans, the
     kernel backend (auto | torch | cuda), the initial window tiers of
-    the adaptive specs, and the serving knobs (the reference's
-    defaults)."""
+    the adaptive specs, the serving knobs and the serve scheduler's
+    (the reference's defaults)."""
     part_chunk: int = 8          # partitions per backend call
     backend: str = "auto"
     range_cap: int = 64          # windowed-range candidate cap/partition
@@ -57,6 +57,16 @@ class EngineConfig:
     delta_occupancy: float = 0.5  # (buffered + tombstoned) / live
                                   # fraction above which the executor
                                   # schedules a deferred re-fit
+    # -- streaming serve scheduler knobs (serve/scheduler.py, §12) ------
+    serve_max_batch: int = 256   # micro-batch coalescing cap (per-spec
+                                 # caps clamp below this)
+    serve_coalesce_us: int = 200  # straggler wait once a partial batch
+                                  # exists (worker mode only; drain()
+                                  # never waits)
+    serve_queue_depth: int = 4096  # backpressure bound: submit() blocks
+                                   # while the queue is this deep
+    serve_idle_maintain: bool = True  # run maintain() when the queue
+                                      # drains (never between requests)
 
     def __post_init__(self):
         if self.backend not in BACKENDS:

@@ -1,0 +1,114 @@
+"""Spatial analytics launcher: the paper's end-to-end scenario on one
+device.
+
+Builds the learned index over a synthetic city-scale dataset and runs
+batched spatial queries (point / range count / range / circle / kNN /
+join) through the adaptive executor, printing build time and each
+QuerySpec's batch latency (the third call: the first settles the sticky
+tier, the second runs the steady program once).
+
+``python -m repro_torch.launch.spatial --n 1000000 --partitions 64
+--queries 256`` runs on the card; ``--device cpu`` on the CPU.
+
+Not ported yet: ``--mesh`` and ``--query-shard`` (multi-GPU, ROADMAP
+item 17), ``--compile-cache`` and the cached-executable count (warm
+start, item 16).
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.core import (CircleQuery, EngineConfig, Executor, Knn,
+                              PointQuery, RangeCount, RangeQuery,
+                              SpatialJoin, build_index, fit)
+from repro_torch.core.plan import BACKENDS
+from repro_torch.data import spatial as ds
+
+
+def sync(device) -> None:
+    """Wait until the work queued on ``device``'s current stream is done
+    (nothing to wait for on the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.current_stream(dev).synchronize()
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--dataset", default="taxi",
+                    choices=list(ds.GENERATORS))
+    ap.add_argument("--n", type=int, default=1_000_000)
+    ap.add_argument("--partitions", type=int, default=64)
+    ap.add_argument("--partitioner", default="kdtree",
+                    choices=["fixed", "adaptive", "quadtree", "kdtree",
+                             "rtree"])
+    ap.add_argument("--queries", type=int, default=256)
+    ap.add_argument("--k", type=int, default=10)
+    ap.add_argument("--selectivity", type=float, default=1e-5)
+    ap.add_argument("--backend", choices=list(BACKENDS), default="auto",
+                    help="kernel backend for the lookup and scan stages "
+                         "(auto: cuda on the card, torch on the CPU)")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    print(f"generating {args.n} {args.dataset} points ...")
+    x, y = ds.make(args.dataset, args.n, seed=args.seed)
+
+    t0 = time.perf_counter()
+    part = fit(args.partitioner, x, y, args.partitions, seed=args.seed)
+    t_part = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    index = build_index(x, y, part, device=args.device)
+    sync(args.device)
+    t_build = time.perf_counter() - t0
+    sizes = index.size_bytes()
+    print(f"partitioner fit {t_part*1e3:.0f} ms; index build "
+          f"{t_build*1e3:.0f} ms; model {sizes['local_model']/1e3:.1f} KB"
+          f" + global {sizes['global_index']/1e3:.1f} KB")
+
+    ex = Executor(index, config=EngineConfig(backend=args.backend),
+                  device=args.device)
+    print(f"backend={ex.backend.name} device={ex.device}")
+    rng = np.random.default_rng(args.seed)
+    q = args.queries
+
+    ix = rng.integers(0, args.n, q)
+    qx, qy = x[ix], y[ix]
+    rects = ds.random_rects(q, args.selectivity, part.bounds,
+                            seed=args.seed, centers=(x, y))
+    polys, n_edges = ds.random_polygons(max(q // 8, 8), part.bounds,
+                                        seed=args.seed)
+
+    workload = [
+        ("point", PointQuery(), (qx, qy), q),
+        ("range_count", RangeCount(), (rects,), q),
+        ("range", RangeQuery(), (rects,), q),
+        ("circle", CircleQuery(), (qx, qy,
+                                   np.full(q, 0.01, np.float32)), q),
+        ("knn", Knn(k=args.k), (qx[:64], qy[:64]), min(q, 64)),
+        ("join", SpatialJoin(), (polys, n_edges), len(n_edges)),
+    ]
+
+    for name, spec, sargs, denom in workload:
+        ex.run(spec, *sargs)      # settles the sticky tier
+        ex.run(spec, *sargs)      # the steady program, once
+        sync(args.device)
+        t0 = time.perf_counter()
+        ex.run(spec, *sargs)
+        sync(args.device)
+        dt = time.perf_counter() - t0
+        print(f"{name:12s} {dt*1e3:9.2f} ms for batch "
+              f"({dt/denom*1e6:8.1f} us/query)")
+    st = ex.stats()
+    print(f"executor: {st['host_syncs']} host syncs total, "
+          f"sticky={st['sticky']}")
+
+
+if __name__ == "__main__":
+    main()

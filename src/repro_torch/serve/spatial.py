@@ -11,7 +11,9 @@ through ``Executor.run``, so:
   - ``maintain`` re-tunes the tiers between batches, off the hot path,
     and runs the compaction that updates scheduled;
   - ``insert``, ``delete`` and ``refit`` mutate the resident index
-    (DESIGN.md §11); queries stay exact at once.
+    (DESIGN.md §11); queries stay exact at once;
+  - ``scheduler`` opens the streaming front door over the same executor
+    (serve/scheduler.py).
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from repro_torch.core.build import LearnedSpatialIndex
 from repro_torch.core.executor import Executor
 from repro_torch.core.plan import (DeleteBatch, EngineConfig, InsertBatch,
                                    QuerySpec)
+from repro_torch.serve.scheduler import SpatialScheduler
 
 
 class SpatialServeSession:
@@ -30,6 +33,17 @@ class SpatialServeSession:
     def __init__(self, index: LearnedSpatialIndex,
                  config: Optional[EngineConfig] = None, device="cuda"):
         self.executor = Executor(index, config=config, device=device)
+
+    def scheduler(self, bench=None, start: bool = True):
+        """The streaming front door (serve/scheduler.py, DESIGN.md §12):
+        a request queue and a background worker coalescing concurrent
+        submissions into micro-batches over THIS session's executor, with
+        write barriers and idle-time maintain(). ``bench`` is a benchmark
+        record (dict or JSON path) for the per-spec batch caps (default:
+        none, every spec coalesces to ``serve_max_batch``);
+        ``start=False`` skips the worker thread: callers pump
+        ``drain()``."""
+        return SpatialScheduler(self.executor, bench=bench, start=start)
 
     def warmup(self, requests: Sequence[Tuple]) -> None:
         """Run representative requests before traffic arrives: the

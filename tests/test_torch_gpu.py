@@ -1209,3 +1209,119 @@ def test_gpu_serving_after_insert_makes_no_sync(cuda):
             assert moved == plain.maintain() and moved.get("refit")
             assert not sess.stats()["pending_refit"]
             assert sess.stats()["refits"] == 1
+
+
+# -- the streaming serve scheduler (serve/scheduler.py) ---------------------
+
+def _scheduler_case(dev, n_req, **cfg):
+    """A small index on the card, a warmed session, and the serve
+    launcher's single-query traffic (point, range count, 10-NN, circle
+    round-robin) with its inputs on the card; plus each request's
+    serial result."""
+    from repro_torch.launch.serve import scheduler_requests
+    x, y = ds.make("taxi", 20000, seed=0)
+    part = fit("kdtree", x, y, 16, seed=0)
+    sess = SpatialServeSession(build_index(x, y, part, device=dev),
+                               EngineConfig(**cfg), device=dev)
+    reqs = [(s, *_on(dev, *a)) for s, *a in
+            scheduler_requests(x, y, part, n_req)]
+    sess.warmup(reqs[:4])
+    serial = [sess.submit(*r) for r in reqs]
+    return sess, reqs, serial
+
+
+def _same_tree(got, want) -> bool:
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    return all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_gpu_scheduler_drain_matches_serial(cuda):
+    """Drain mode on the card: one coalesced batch per spec (64
+    single-query requests -> four of 16), each launching its kernels,
+    every ticket bitwise its serial result."""
+    sess, reqs, serial = _scheduler_case(cuda, 64)
+    sched = sess.scheduler(start=False)
+    tickets = [sched.submit(*r) for r in reqs]
+    KERN.reset_launch_counts()
+    sched.drain()
+    launched = KERN.launch_counts()
+    batches = [e for e in sched.events if e[0] == "batch"]
+    assert [(e[1], e[2], e[3]) for e in batches] == [
+        (n, 16, 16) for n in ("point", "range_count", "knn10", "circle")]
+    for name in ("spline_search", "range_count", "point_probe", "knn_topk",
+                 "circle_count"):
+        assert launched[name] > 0, name
+    for i, (t, want) in enumerate(zip(tickets, serial)):
+        assert t.batched == 16 and _same_tree(t.result(), want), i
+    assert sched.stats()["maintain_busy"] == 0
+    sched.close()
+
+
+def maintain_syncs(ex) -> list:
+    """Wrap ``ex.maintain`` to tally the host syncs maintenance makes
+    (its reads of the stashed ok flags); returns the one-element tally,
+    so a window's dispatches' own syncs are the rest."""
+    tally, run = [0], ex.maintain
+
+    def counted():
+        h = ex.host_syncs
+        try:
+            return run()
+        finally:
+            tally[0] += ex.host_syncs - h
+
+    ex.maintain = counted
+    return tally
+
+
+def test_gpu_scheduler_worker_concurrent_submitters(cuda):
+    """Worker mode on the card, 8 client threads: every ticket resolves
+    bitwise its serial result, and the dispatches read no ok flag on the
+    host (host_syncs grows only by idle maintenance's reads)."""
+    import threading
+    sess, reqs, serial = _scheduler_case(cuda, 128)
+    ex = sess.executor
+    tally = maintain_syncs(ex)
+    syncs = ex.host_syncs
+    tickets = [None] * len(reqs)
+    with sess.scheduler() as sched:
+        def client(k):
+            for i in range(k, len(reqs), 8):
+                tickets[i] = sched.submit(*reqs[i])
+                tickets[i].result(120.0)
+
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120.0)
+            assert not t.is_alive()
+        st = sched.stats()
+    assert st["reads"] == len(reqs) and st["maintain_busy"] == 0
+    assert ex.host_syncs - syncs == tally[0]
+    for i, (t, want) in enumerate(zip(tickets, serial)):
+        assert _same_tree(t.result(), want), i
+
+
+def test_gpu_scheduler_ticket_waits_for_the_device(cuda):
+    """A ticket resolves only once its batch completed on the device: the
+    executor is made to queue a ~50 ms sleep kernel after each batch, and
+    when result() returns the stream has no work left."""
+    sess, reqs, serial = _scheduler_case(cuda, 8,
+                                         serve_idle_maintain=False)
+    run = sess.executor.run
+
+    def slow_run(spec, *args, **kw):
+        out = run(spec, *args, **kw)
+        torch.cuda._sleep(100_000_000)
+        return out
+
+    sess.executor.run = slow_run
+    torch.cuda.synchronize()
+    with sess.scheduler() as sched:
+        for r, want in zip(reqs, serial):
+            got = sched.submit(*r).result(60.0)
+            assert torch.cuda.current_stream().query()
+            assert _same_tree(got, want)

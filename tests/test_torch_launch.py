@@ -1,0 +1,68 @@
+"""The port's launchers run to the end on the CPU at a tiny size:
+``repro_torch.launch.spatial`` and ``repro_torch.launch.serve --spatial``
+with and without ``--scheduler``; the serve launcher refuses the LM mode,
+and both run on the card by default."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.launch import serve, spatial
+
+# the suite runs in parallel worker processes: one torch thread each
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
+TINY = ["--device", "cpu", "--n", "20000"]
+
+
+def test_spatial_launcher_runs_every_spec(capsys):
+    spatial.main(TINY + ["--queries", "8", "--partitions", "16"])
+    out = capsys.readouterr().out
+    assert "backend=torch device=cpu" in out
+    for name in ("point", "range_count", "range", "circle", "knn",
+                 "join"):
+        assert any(line.split()[0] == name and "us/query" in line
+                   for line in out.splitlines()), name
+    assert "host syncs total" in out
+
+
+def test_serve_rounds_after_warmup_add_no_host_sync(capsys):
+    serve.main(["--spatial"] + TINY + ["--batch", "8", "--rounds", "2"])
+    rounds = [line for line in capsys.readouterr().out.splitlines()
+              if line.startswith("round ")]
+    assert len(rounds) == 2
+    assert all("(host_syncs +0)" in line for line in rounds), rounds
+
+
+def test_serve_scheduler_runs_to_the_end(capsys):
+    serve.main(["--spatial", "--scheduler"] + TINY +
+               ["--batch", "8", "--rounds", "2"])
+    out = capsys.readouterr().out
+    assert "16 requests from 8 clients" in out and "req/s" in out
+    assert "p50" in out and "p99" in out and "mean batch" in out
+    assert "(0 busy)" in out
+
+
+def test_serve_without_spatial_exits_non_zero():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve"],
+                         env=env, cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode != 0
+    assert "item 19" in out.stderr
+
+
+@pytest.mark.parametrize("run", [
+    lambda: spatial.main(["--n", "2000", "--queries", "8"]),
+    lambda: serve.main(["--spatial", "--n", "2000", "--batch", "8"]),
+    lambda: serve.main(["--spatial", "--scheduler", "--n", "2000"]),
+], ids=["spatial", "serve", "serve_scheduler"])
+def test_launchers_default_to_the_card(run):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device works")
+    with pytest.raises(RuntimeError, match="cuda"):
+        run()
