@@ -5,6 +5,15 @@ the CUDA toolkit:
 
     python3 chip_smoke.py
 
+Every executor here realizes its query programs as CUDA graphs (the
+program cache, DESIGN.md §14): a program's first call at an argument
+signature runs eagerly, its second captures its graph and replays it,
+later calls replay it. A wrapper counts a launch where it launches its kernel; a replay
+adds the launches its capture recorded (launches per capture x
+replays), so the launch counts below count the kernels that replays
+run. An engine built with ``cuda_graphs`` off runs every program
+eagerly (the timings beside the graphs').
+
 Phases (any failure raises, and the script exits non-zero without a
 result line):
 
@@ -40,7 +49,11 @@ result line):
               busy time, idle share and top activities from a profiler
               trace; then circle_count at its sticky tier under the
               default row-chunk budget (EngineConfig.scan_chunk_elems)
-              and under twice it: rows per call, peak memory, latency;
+              and under twice it (on eager engines): rows per call, peak
+              memory, latency. Each call's first result (its programs
+              run eagerly) is held bitwise against a second and a third
+              call (captures, then graph replays), and each call is
+              timed again on an eager engine (wall and busy);
   6. serve    serving mode on the same index: a SpatialServeSession with
               the default config serving src/repro/launch/serve.py's
               mixed round at q = 16 (point, range count, range query at
@@ -58,8 +71,32 @@ result line):
               of a steady round (device busy, idle share, top activities,
               the fallback programs' share), each request's latency, and
               pruned kNN's fixed-round cost against its early exit; no
-              round makes a bucketing probe (probe_syncs stays 0);
-  7. wide     serving mode at src/repro/launch/serve.py's default q = 64
+              round makes a bucketing probe (probe_syncs stays 0); the
+              same round and requests on a session running eagerly
+              (bitwise equal; wall and busy beside the graphs');
+  7. warm     warm start (DESIGN.md §14): (a) each of the seven
+              launchers captured alone into a one-launch CUDA graph at
+              the main path's shapes (tests/test_torch_gpu.py
+              capture_alone), two replays bitwise its eager launch;
+              (b) phase 5's per-family check (eager first call, graph
+              replays, torch backend) and its graph and eager times, gathered;
+              (c) two graphs of one executor's pool replayed in the
+              reverse of their capture order (range count then point,
+              three new inputs each), bitwise an eager engine; (d) is
+              phase 9's: graphs captured after the inserts replay after
+              the delete and the re-fit on planes written in place; (e)
+              is phases 6 and 8: q = 16 and q = 64 rounds through graphs;
+              (f) the kernel libraries kept in an on-disk store
+              (EngineConfig.compile_cache_dir under build/), the serve
+              session's manifest() saved, and a restart in a
+              subprocess (``chip_smoke.py --restart``): the 2^23 index
+              rebuilt from its seeds, a cold
+              session's first call per family (the libraries from the
+              store: one hit each, no nvcc), then prewarm(manifest,
+              exercise=True) (prewarm_ms), the first call per family
+              and the steady calls; every output bitwise the parent's,
+              no program realized by the prewarmed traffic;
+  8. wide     serving mode at src/repro/launch/serve.py's default q = 64
               (at or above tier_bucket_min = 32): a new session warmed on
               its round 0, then 3 steady rounds, where the range query,
               circle and kNN requests (64 rows; the join's 8 polygons
@@ -73,17 +110,19 @@ result line):
               answers. Per round: wall ms per round and per request,
               each fused call's (family, tier, rows padded to a power of
               two), launches, peak memory; then each request's latency;
-  8. updates  the update path on the same index through the engine
+  9. updates  the update path on the same index through the engine
               (EngineConfig defaults): 8,192 inserts from the taxi
               generator (seed 1) and the two denormal points (1e-45, 0.5)
               and (-1e-45, 0.25); one delete batch of 3,072 originals,
               1,024 still-buffered inserts and (0.0, 0.25) (which removes
               the buffered (-1e-45, 0.25): a delete reads denormals as
               zero); then every call of phase 5 on the mutated index
-              (the strict loop starting from phase 5's tiers), launch
-              counts set to 0 just before and read just after (every
-              query kernel must launch), each bitwise the torch backend
-              on the card; the six query kernels against their plain
+              (the strict loop starting from phase 5's tiers; the
+              graphs captured by two passes after the inserts, so these
+              calls replay them after the delete), launch counts set
+              to 0 just before and read just after (every query kernel
+              must launch), each bitwise the torch backend on the card
+              (run eagerly); the six query kernels against their plain
               versions at the main path's shapes on the mutated planes
               (tombstones inside count); Refit(), every call again and
               the kernels again on the re-fit index; a fresh build_index
@@ -103,7 +142,7 @@ result line):
               launched, outputs held against the exact programs),
               maintain() between them running the re-fit the insert
               scheduled (pending_refit empties);
-  9. scheduler the streaming serve scheduler (serve/scheduler.py) on a
+ 10. scheduler the streaming serve scheduler (serve/scheduler.py) on a
               new SpatialServeSession with the default config over the
               same index, serving src/repro/launch/serve.py --spatial
               --scheduler's traffic at --batch 64 --rounds 8: 512
@@ -127,7 +166,7 @@ result line):
               runs; peak memory of the phase. Launch counts are set to
               0 before each scheduler run and read after it (the serial
               replay is not counted);
- 10. kernels  each of the seven kernels against its plain version at the
+ 11. kernels  each of the seven kernels against its plain version at the
               shapes the main path gives it (bitwise; morton on the
               quantized coordinates of the 2^23 build, at its own entry
               point, and also against core/keys.morton_encode), with its
@@ -165,7 +204,7 @@ result line):
               the floor of one launch on the card at its grid: an empty
               kernel (csrc/launch_floor.cu, on no query path) timed the
               same way;
- 11. denormals the four kernels that read float32 denormals as zero
+ 12. denormals the four kernels that read float32 denormals as zero
               (range_count, circle_count, knn_topk, point_in_polygon) on
               tests/test_torch_gpu.py's denormal points and queries, each
               bitwise its plain version on the card, which must equal the
@@ -354,18 +393,21 @@ def traced(fn, reps: int, counts=None, warm: bool = True) -> tuple:
 
 def stream_ms(fn, reps: int, cold: bool = False) -> float:
     """Mean device time of one call from CUDA events: before each call a
-    spin kernel (``torch.cuda._sleep``, about twice the host's enqueue
-    time of a call) keeps the stream busy while the host enqueues the
-    call between two events, so the events time its device work with no
-    launch gaps. ``cold``: a 1 GiB fill first evicts the 50 MB L2."""
+    spin kernel (``torch.cuda._sleep``, about four times the longest of
+    three host enqueue times of a call: host jitter must not outrun it)
+    keeps the stream busy while the host enqueues the call between two
+    events, so the events time its device work with no launch gaps.
+    ``cold``: a 1 GiB fill first evicts the 50 MB L2."""
     import torch
     fn()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    host_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    cycles = int(host_s * 2e9 * 2) + 200_000
+    host_s = 0.0
+    for _ in range(3):
+        t0 = time.perf_counter()
+        fn()
+        host_s = max(host_s, time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    cycles = int(host_s * 2e9 * 4) + 200_000
     flush = (torch.empty(1 << 28, dtype=torch.float32, device="cuda")
              if cold else None)
     total = 0.0
@@ -692,7 +734,7 @@ def serve_checks(sx, reqs, out, what: str):
 def serve_phase(index, part, x, y, dev) -> tuple:
     """Phase 6: serving mode on ``index`` (see the module docstring).
     Returns (report, {kernel: launches over the steady rounds}, the
-    sticky tiers after warmup)."""
+    sticky tiers after warmup, the session, its torch backend's)."""
     import torch
     from repro_torch import kernels as KERN
     from repro_torch.core import EngineConfig
@@ -705,6 +747,8 @@ def serve_phase(index, part, x, y, dev) -> tuple:
     sx, px_ = sess.executor, plain.executor
     rounds = [serve_round(x, y, part, seed, dev)
               for seed in range(SERVE_ROUNDS + 1)]
+    # the same session running every program eagerly: its rounds'
+    # wall beside the graphs', and the fallbacks' share of a round
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     sess.warmup(rounds[0])
@@ -756,14 +800,30 @@ def serve_phase(index, part, x, y, dev) -> tuple:
                "launches": {n: c for n, c in got.items() if c},
                "maintain": {str(k): v for k, v in moved.items()},
                "max_memory_allocated": peak}
+        row["memory_reserved"] = torch.cuda.memory_reserved()
+        row["graph_pool_bytes"] = pool_bytes(sx)
         report["rounds"].append(row)
         log(f"[serve] round {i}: {ms:.1f} ms, host_syncs +0, launches "
             f"{row['launches']}, maintain {row['maintain']}, "
-            f"max_memory_allocated {peak}")
+            f"max_memory_allocated {peak}, graph pool "
+            f"{row['graph_pool_bytes']}, memory_reserved "
+            f"{row['memory_reserved']}")
+    report["graphs"] = graph_count(sx)
+    report["capture_ms_total"] = sx.compile_ms_total
+    report["cache_size"] = sx.stats()["cache_size"]
+    log(f"[serve] {report['graphs']} graphs in {report['cache_size']} "
+        f"cached programs, captured in {sx.compile_ms_total:.1f} ms")
 
-    # one steady round traced; the fused programs' fallbacks are captured
-    # and traced alone on the same inputs for their share of device time
+    # one steady round traced; the fused programs' fallbacks are taken
+    # from the same round on an eager session (its programs run op by
+    # op), and traced alone on the same inputs for their share of
+    # device time
     reqs = rounds[1]
+    prof, kept = traced(lambda: sess.submit_batch(reqs), 1)
+    eager = SpatialServeSession(index, device=DEVICE)
+    eager.executor.cuda_graphs = False
+    eager.executor._sticky.update(sx._sticky)
+    eager.submit_batch(reqs)
     captured = []
     fused_call = L._CondFusedLocal.__call__
 
@@ -774,7 +834,8 @@ def serve_phase(index, part, x, y, dev) -> tuple:
 
     L._CondFusedLocal.__call__ = capture
     try:
-        prof, kept = traced(lambda: sess.submit_batch(reqs), 1)
+        for a, b in zip(eager.submit_batch(reqs), sess.submit_batch(reqs)):
+            require(same(a, b), "serve: eager session vs graphs")
     finally:
         L._CondFusedLocal.__call__ = fused_call
     fbs = captured[-4:]             # range, circle, kNN, join
@@ -798,13 +859,21 @@ def serve_phase(index, part, x, y, dev) -> tuple:
         "device time)")
     log("[serve] where: " + "; ".join(
         f"{n} {t:.4f}" for n, t in report["top_device_ms"]))
-    names = ["point", "range_count", "range_query", "circle_count",
-             "knn10", "join"]
     report["request_ms"] = {
         n: host_ms(lambda r=r: sess.submit(*r), 3)
-        for n, r in zip(names, reqs)}
-    log("[serve] per request ms: " + ", ".join(
-        f"{n} {t:.3f}" for n, t in report["request_ms"].items()))
+        for n, r in zip(SERVE_NAMES, reqs)}
+    report["request_ms_eager"] = {
+        n: host_ms(lambda r=r: eager.submit(*r), 3)
+        for n, r in zip(SERVE_NAMES, reqs)}
+    report["steady_round_ms_eager"] = host_ms(
+        lambda: eager.submit_batch(reqs), 3)
+    log("[serve] per request ms, graphs (eager): " + ", ".join(
+        f"{n} {t:.3f} ({report['request_ms_eager'][n]:.3f})"
+        for n, t in report["request_ms"].items()))
+    log(f"[serve] eager steady round {report['steady_round_ms_eager']:.3f}"
+        " ms")
+    release(eager.executor)
+    del eager
 
     # pruned kNN at its sticky tier: the serving form's fixed rounds
     # against the strict form's early exit, on the round's queries
@@ -831,11 +900,11 @@ def serve_phase(index, part, x, y, dev) -> tuple:
             "serve: a q = 16 round made a bucketing probe")
     report["stats"] = {k: (str(v) if k == "sticky" else v)
                        for k, v in sess.stats().items()}
-    return report, launches, warm_tiers
+    return report, launches, warm_tiers, sess, plain
 
 
 def wide_serve_phase(index, part, x, y, dev) -> tuple:
-    """Phase 7: serving mode at src/repro/launch/serve.py's default batch
+    """Phase 8: serving mode at src/repro/launch/serve.py's default batch
     (WIDE_Q queries, at or above tier_bucket_min), where each adaptive
     family with that many rows takes the tier-bucketed dispatch. Returns
     (report, {kernel: launches over the steady rounds})."""
@@ -927,13 +996,17 @@ def wide_serve_phase(index, part, x, y, dev) -> tuple:
                "buckets": list(buckets),
                "launches": {n: c for n, c in got.items() if c},
                "maintain": {str(k): v for k, v in moved.items()},
-               "max_memory_allocated": peak}
+               "max_memory_allocated": peak,
+               "graph_pool_bytes": pool_bytes(sx),
+               "capture_ms_total": sx.compile_ms_total}
         report["rounds"].append(row)
         log(f"[wide] round {i}: {ms:.1f} ms ({ms / len(reqs):.1f} per "
             f"request), host_syncs +0, probe_syncs +{grew}, sync warnings "
             f"{n_sync}, buckets (family, tier, rows) {row['buckets']}, "
             f"launches {row['launches']}, maintain {row['maintain']}, "
-            f"max_memory_allocated {peak}")
+            f"max_memory_allocated {peak}, graph pool "
+            f"{row['graph_pool_bytes']}, captures so far "
+            f"{sx.compile_ms_total:.1f} ms")
     sx._fused_chunked = fused_chunked
     reqs = rounds[1]
     names = ["point", "range_count", "range_query", "circle_count",
@@ -948,6 +1021,239 @@ def wide_serve_phase(index, part, x, y, dev) -> tuple:
     report["stats"] = {k: (str(v) if k == "sticky" else v)
                        for k, v in sess.stats().items()}
     return report, launches
+
+
+def release(*executors) -> None:
+    """Drop the executors' cached programs (their CUDA graphs) and give
+    the freed memory back to the card."""
+    import gc
+
+    import torch
+    for ex in executors:
+        ex.release()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def pool_bytes(ex) -> int:
+    """Device bytes the caching allocator holds in the memory pool of an
+    executor's CUDA graphs (0 when it has none)."""
+    import torch
+    if ex._pool is None:
+        return 0
+    pid = tuple(ex._pool)
+    return sum(seg["total_size"]
+               for seg in torch.cuda.memory._snapshot()["segments"]
+               if tuple(seg.get("segment_pool_id", ())) == pid)
+
+
+def graph_count(ex) -> int:
+    """The CUDA graphs an executor holds."""
+    from repro_torch.core.executor import _Graph
+    return sum(isinstance(r, _Graph) for d in ex._cache.values()
+               for r in d._fns.values())
+
+
+SERVE_NAMES = ["point", "range_count", "range_query", "circle_count",
+               "knn10", "join"]
+# the restart's kernel store (build/ is git-ignored)
+WARM_STORE = ROOT / "build" / "warm_start_store"
+
+
+def restart_main(argv) -> int:
+    """``chip_smoke.py --restart STORE MANIFEST OUT N_POINTS N_PARTS``:
+    phase 7 (f), run by the parent in a fresh process. Rebuilds the index
+    (the parent's N_POINTS and N_PARTS) and the
+    q = 16 serving round 1 from their seeds; a cold session (the
+    manifest's sticky tiers only) takes the first call of each family,
+    loading each kernel library from the store; then a session given
+    ``prewarm(manifest, exercise=True)``, its first call per family,
+    and the steady calls. Saves both sessions' outputs to OUT (npz) and
+    prints one JSON line."""
+    import torch
+    from repro_torch import kernels as KERN
+    from repro_torch.core import EngineConfig
+    from repro_torch.core.compile_cache import load_manifest
+    from repro_torch.kernels import _build
+    from repro_torch.serve import SpatialServeSession
+    global N_POINTS, N_PARTS
+    store, man_path, out_path = argv[:3]
+    N_POINTS, N_PARTS = int(argv[3]), int(argv[4])
+    dev = torch.device(DEVICE)
+    t0 = time.perf_counter()
+    x, y, part, index, _, _ = full_index(dev)
+    index_s = time.perf_counter() - t0
+    man = load_manifest(man_path)
+    require(man is not None and man["programs"], "restart: no manifest")
+    reqs = serve_round(x, y, part, 1, dev)
+    cfg = EngineConfig(compile_cache_dir=store)
+    res = {"index_s": index_s, "programs": len(man["programs"])}
+    outs = {}
+
+    def first_calls(sess, tag):
+        ms, got = {}, []
+        for name, r in zip(SERVE_NAMES, reqs):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            got.append(sess.submit(*r))
+            torch.cuda.synchronize()
+            ms[name] = (time.perf_counter() - t1) * 1e3
+        outs[tag] = got
+        return ms
+
+    # cold: no program realized; the sticky tiers as recorded
+    cold = SpatialServeSession(index, cfg, device=DEVICE)
+    cold.prewarm(dict(man, programs=[]))
+    KERN.reset_launch_counts()
+    res["cold_ms"] = first_calls(cold, "cold")
+    res["libraries_loaded"] = sorted(_build._libs)
+    res["disk_cache_hits"] = cold.stats()["disk_cache_hits"]
+    res["disk_cache_misses"] = cold.stats()["disk_cache_misses"]
+    res["nvcc_compiles"] = _build.compiles
+    release(cold.executor)
+    del cold
+    warm = SpatialServeSession(index, cfg, device=DEVICE)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    res["prewarm"] = warm.prewarm(man, exercise=True)
+    torch.cuda.synchronize()
+    res["prewarm_ms"] = (time.perf_counter() - t1) * 1e3
+    st0 = warm.stats()
+    res["prewarmed_first_ms"] = first_calls(warm, "prewarmed")
+    st1 = warm.stats()
+    res["prewarmed_new_programs"] = st1["cache_size"] - st0["cache_size"]
+    res["prewarmed_capture_ms"] = st1["compile_ms_total"] - \
+        st0["compile_ms_total"]
+    res["host_syncs_added"] = st1["host_syncs"] - st0["host_syncs"]
+    res["steady_ms"] = {
+        n: host_ms(lambda r=r: warm.submit(*r), 3, warm=False)
+        for n, r in zip(SERVE_NAMES, reqs)}
+    res["graphs"] = graph_count(warm.executor)
+    res["graph_pool_bytes"] = pool_bytes(warm.executor)
+    res["launches"] = KERN.launch_counts()
+    np.savez(out_path, **{
+        f"{tag}.{i}.{j}": a.cpu().numpy()
+        for tag, got in outs.items() for i, o in enumerate(got)
+        for j, a in enumerate(o if isinstance(o, tuple) else (o,))})
+    print(json.dumps(res))
+    return 0
+
+
+def warm_phase(eng, plain, main_path, main_args, sess, x, y, part, dev,
+               card) -> dict:
+    """Phase 7: warm start (see the module docstring), on the main path's
+    engines and the serve phase's session. Returns the report."""
+    import torch
+    from repro_torch.core import PointQuery, RangeCount, SpatialEngine
+    from repro_torch.core.compile_cache import save_manifest
+    from repro_torch.data import spatial as ds
+    from repro_torch.kernels import _build
+    sys.path.insert(0, str(ROOT / "tests"))
+    from test_torch_gpu import capture_alone, launcher_cases
+
+    ex = eng.executor
+    report = {"card": card, "main_graphs": graph_count(ex),
+              "main_graph_pool_bytes": pool_bytes(ex),
+              "main_capture_ms_total": ex.compile_ms_total}
+    log(f"[warm] phase 5's engine: {report['main_graphs']} graphs, pool "
+        f"{report['main_graph_pool_bytes']} bytes, captured in "
+        f"{ex.compile_ms_total:.1f} ms")
+    # (a) each launcher captured alone, at the main path's shapes
+    alone = {}
+    for name, (fn, a, kw) in launcher_cases(ex, main_args).items():
+        eager, replays, launched = capture_alone(fn, a, kw)
+        require(launched == {name: 1}, f"warm (a): {name} capture "
+                f"recorded {launched}")
+        require(all(same(eager, r) for r in replays),
+                f"warm (a): {name} replay vs its eager launch")
+        alone[name] = "bitwise, 1 launch"
+    report["launchers_alone"] = alone
+    log(f"[warm] (a) each launcher captured alone into a one-launch "
+        f"graph, two replays bitwise its eager launch: {sorted(alone)}")
+
+    # (c) two graphs of one pool, replayed in the reverse of their
+    # capture order (point captured before range count in phase 5)
+    eager = SpatialEngine(ex.index, device=DEVICE)
+    eager.executor.cuda_graphs = False
+    order = [k[2][0] for k in ex._cache if k[2] in (("point",),
+                                                    ("range_count",))]
+    require(order == ["point", "range_count"], f"warm (c): order {order}")
+    for seed in (21, 22, 23):
+        rng = np.random.default_rng(seed)
+        ix = rng.integers(0, len(x), 1024)
+        rc = ds.random_rects(1024, 1e-5, part.bounds, seed=seed,
+                             centers=(x, y))
+        for req in ((RangeCount(), rc), (PointQuery(), x[ix], y[ix])):
+            require(torch.equal(eng.run(*req), eager.run(*req)),
+                    f"warm (c): {type(req[0]).__name__} replay")
+    report["reverse_order_replays"] = 6
+    log("[warm] (c) range count then point (the reverse of their capture "
+        "order), 3 new inputs each: bitwise an eager engine")
+    release(eager.executor)
+
+    # (f) a restart in a subprocess on a warm kernel store and the
+    # serve phase's manifest; the parent's answers at the same tiers
+    import shutil
+    shutil.rmtree(WARM_STORE, ignore_errors=True)
+    from repro_torch.core import EngineConfig
+    from repro_torch.serve import SpatialServeSession
+    keeper = SpatialServeSession(ex.index, EngineConfig(
+        compile_cache_dir=str(WARM_STORE)), device=DEVICE)
+    h0, m0 = _build.disk_hits, _build.disk_misses
+    _build.build_all()          # nvcc builds each library into the store
+    report["store"] = {"entries": len(keeper.executor._disk),
+                       "bytes": keeper.executor._disk.size_bytes(),
+                       "misses": _build.disk_misses - m0,
+                       "hits": _build.disk_hits - h0}
+    _build.use_store(None)
+    del keeper
+    ref = sess.submit_batch(serve_round(x, y, part, 1, dev))
+    man = sess.manifest()
+    mpath = ROOT / "build" / "warm_start_manifest.json"
+    save_manifest(mpath, man)
+    report["manifest_programs"] = len(man["programs"])
+    report["manifest_signatures"] = sum(len(p["sigs"])
+                                        for p in man["programs"])
+    release(ex, plain.executor, sess.executor)
+    out_npz = ROOT / "build" / "warm_start_restart.npz"
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                           "--restart", str(WARM_STORE), str(mpath),
+                           str(out_npz), str(N_POINTS), str(N_PARTS)],
+                          capture_output=True,
+                          text=True, timeout=600)
+    report["restart_process_s"] = time.perf_counter() - t0
+    require(proc.returncode == 0, f"warm (f): the restart failed:\n"
+            f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    rs = json.loads(proc.stdout.strip().splitlines()[-1])
+    report["restart"] = rs
+    n_libs = len(rs["libraries_loaded"])
+    require(rs["disk_cache_hits"] == n_libs and rs["disk_cache_misses"] == 0
+            and rs["nvcc_compiles"] == 0,
+            f"warm (f): store hits {rs['disk_cache_hits']}, misses "
+            f"{rs['disk_cache_misses']}, nvcc {rs['nvcc_compiles']} for "
+            f"{n_libs} libraries")
+    require(rs["prewarmed_new_programs"] == 0 and rs["host_syncs_added"] == 0,
+            f"warm (f): prewarmed traffic realized "
+            f"{rs['prewarmed_new_programs']} programs")
+    got = np.load(out_npz)
+    for tag in ("cold", "prewarmed"):
+        for i, o in enumerate(ref):
+            for j, a in enumerate(o if isinstance(o, tuple) else (o,)):
+                require(np.array_equal(got[f"{tag}.{i}.{j}"],
+                                       a.cpu().numpy()),
+                        f"warm (f): {tag} {SERVE_NAMES[i]} leaf {j} "
+                        "differs from the parent's")
+    log(f"[warm] (f) {card}: restart in {report['restart_process_s']:.1f} s "
+        f"(index {rs['index_s']:.1f} s); {n_libs} libraries from the store "
+        f"(hits {rs['disk_cache_hits']}, misses {rs['disk_cache_misses']}, "
+        f"nvcc runs {rs['nvcc_compiles']}); prewarm "
+        f"{rs['prewarm_ms']:.1f} ms ({rs['prewarm']}); first call ms, "
+        "cold / prewarmed / steady: " + ", ".join(
+            f"{n} {rs['cold_ms'][n]:.1f} / {rs['prewarmed_first_ms'][n]:.1f}"
+            f" / {rs['steady_ms'][n]:.3f}" for n in SERVE_NAMES) +
+        "; every output bitwise the parent's")
+    return report
 
 
 def same_as_fresh(a, b, materialized: bool) -> tuple:
@@ -983,7 +1289,7 @@ def same_as_fresh(a, b, materialized: bool) -> tuple:
 
 def update_phase(index, part, x, y, dev, main_path, main_args, sticky,
                  serve_tiers, frozen_ms, card) -> tuple:
-    """Phase 8: the update path on the full index (see the module
+    """Phase 9: the update path on the full index (see the module
     docstring). Returns (report, {kernel: launches of the driven
     families and serving rounds}, {kernel: max_abs_err of the kernels
     against their plain versions on the mutated and the re-fit index})."""
@@ -1001,6 +1307,7 @@ def update_phase(index, part, x, y, dev, main_path, main_args, sticky,
     eng = SpatialEngine(index, device=DEVICE)
     plain = SpatialEngine(index, EngineConfig(backend="torch"),
                           device=DEVICE)
+    plain.executor.cuda_graphs = False      # the reference: eager
     ex = eng.executor
     for e in (eng, plain):
         # the strict loop starts from the frozen index's tiers
@@ -1017,6 +1324,17 @@ def update_phase(index, part, x, y, dev, main_path, main_args, sticky,
             "updates: insert vids")
     report["delta_cap"] = ex.index.delta_cap
     report["partitions_with_inserts"] = int((ex.index.delta_count > 0).sum())
+    # capture every family's graphs on the inserted index (the insert
+    # installed the delta buffers: a new shape epoch; a program captures
+    # on its second call); the delete below keeps every shape, so the
+    # calls after it replay these graphs on planes written in place
+    se_insert = ex.index.shape_epoch
+    for _ in range(2):
+        for fn, _, _ in main_path.values():
+            fn(eng)
+    graphs = {"captured_before_delete": graph_count(ex),
+              "shape_epoch_after_insert": se_insert}
+    cap_ms = ex.compile_ms_total
     t0 = time.perf_counter()
     removed = eng.delete(*u["dele"])
     torch.cuda.synchronize()
@@ -1065,6 +1383,11 @@ def update_phase(index, part, x, y, dev, main_path, main_args, sticky,
 
     pre, report["pre_refit_ms"], pre_launch, peak = families(
         "before the re-fit", True)
+    graphs.update(shape_epoch_after_delete=ex.index.shape_epoch,
+                  capture_ms_after_delete=ex.compile_ms_total - cap_ms,
+                  graphs_after_delete=graph_count(ex))
+    require(ex.index.shape_epoch == se_insert,
+            "updates: the delete changed a shape")
     err = check_kernel_cases(kernel_cases(ex, *main_args))
     shape0 = (ex.index.n_pad, ex.index.probe, ex.index.knot_keys.shape[1])
     t0 = time.perf_counter()
@@ -1084,6 +1407,17 @@ def update_phase(index, part, x, y, dev, main_path, main_args, sticky,
         f"{ex.index.shape_epoch}")
     post, report["post_refit_ms"], post_launch, peak2 = families(
         "after the re-fit", False)
+    graphs.update(shape_epoch_after_refit=ex.index.shape_epoch,
+                  graph_recaptures=ex.graph_recaptures,
+                  graphs_after_refit=graph_count(ex))
+    # a replay never found a moved plane: the delete and the re-fit wrote
+    # the planes in place, and a shape change evicted the old programs
+    require(ex.graph_recaptures == 0, f"updates: {ex.graph_recaptures} "
+            "graphs captured again after a plane moved")
+    require(all(k[5] == ex.index.shape_epoch for k in ex.cache_keys()),
+            "updates: a program of a superseded shape epoch stayed")
+    report["graphs"] = graphs
+    log(f"[updates] graphs: {graphs}")
     report["max_memory_allocated"] = max(peak, peak2)
     err2 = check_kernel_cases(kernel_cases(ex, *main_args))
     report["kernel_max_abs_err"] = {n: max(err[n], err2[n]) for n in err}
@@ -1096,6 +1430,7 @@ def update_phase(index, part, x, y, dev, main_path, main_args, sticky,
     fresh = SpatialEngine(build_index(sx, sy, part, vid=svid,
                                       n_pad=ex.index.n_pad, device=DEVICE),
                           device=DEVICE)
+    fresh.executor.cuda_graphs = False
     torch.cuda.synchronize()
     report["fresh_build_s"] = time.perf_counter() - t0
     fresh.executor._sticky.update(sticky)
@@ -1128,6 +1463,7 @@ def update_phase(index, part, x, y, dev, main_path, main_args, sticky,
                 e.delete(np.float32([0.0]), np.float32([0.5])) == 1 and
                 e.run(PointQuery(), *pq).tolist() == [False],
                 "updates: the denormal delete on the main plane")
+    release(ex)
     del eng, plain, fresh
     launches = {n: pre_launch[n] + post_launch[n] for n in pre_launch}
 
@@ -1187,8 +1523,8 @@ def update_phase(index, part, x, y, dev, main_path, main_args, sticky,
     srv["stats"] = {k: (str(v) if k == "sticky" else v)
                     for k, v in sess.stats().items()}
     report["serving"] = srv
+    release(sx_)
     del sess
-    torch.cuda.empty_cache()
     log(f"[updates] {card}: max_memory_allocated of the driven calls "
         f"{report['max_memory_allocated']}")
     return report, launches, report["kernel_max_abs_err"]
@@ -1231,7 +1567,7 @@ def closed_loop_clients(sched, reqs, n_clients, before=None):
 
 
 def scheduler_phase(index, part, x, y, card) -> tuple:
-    """Phase 9: the streaming serve scheduler on ``index`` (see the
+    """Phase 10: the streaming serve scheduler on ``index`` (see the
     module docstring). Returns (report, {kernel: launches of the
     scheduler's own dispatches})."""
     import torch
@@ -1431,7 +1767,7 @@ def scheduler_phase(index, part, x, y, card) -> tuple:
 
 
 def denormal_phase(dev) -> dict:
-    """Phase 10: the four kernels that read float32 denormals as zero
+    """Phase 12: the four kernels that read float32 denormals as zero
     (range_count, circle_count, knn_topk, the join's point_in_polygon)
     on tests/test_torch_gpu.py's denormal points and queries (every pair
     active, whole rows), each against its plain version on the card and
@@ -1642,7 +1978,7 @@ def main() -> int:
             f"point_1024 launched {path_launches['point_1024']}")
     launches = KERN.launch_counts()
     log(f"[main] launches {launches}")
-    # every kernel but morton, whose only entry point is its own (phase 9)
+    # every kernel but morton, whose only entry point is its own (phase 11)
     require(all(launches[n] > 0 for n in PATH_KERNELS),
             f"a kernel of the main path never launched: {launches}")
     report.update(first_call_ms=first_ms, max_memory_allocated_per_call=peak,
@@ -1657,8 +1993,15 @@ def main() -> int:
     require(bool(found[:512].all()), "every data point is found")
     plain = SpatialEngine(index, EngineConfig(backend="torch"),
                           device=DEVICE)
+    plain.executor.cuda_graphs = False      # the reference: eager
     for name, (fn, _, _) in main_path.items():
+        # the first call ran eagerly; by the third, every program it
+        # runs was captured (on its second call) and replays
+        for _ in range(2):
+            require(same(res[name], fn(eng)), f"{name}: graph replay vs "
+                    "the eager first call")
         require(same(res[name], fn(plain)), f"{name}: cuda vs torch backend")
+    report["graphs_after_main"] = graph_count(ex)
     oracle_checks(x, y, qx, qy, rects, kx, ky, found.cpu().numpy(),
                   counts.cpu().numpy(), d2.cpu().numpy(), vid.cpu().numpy(),
                   k)
@@ -1687,7 +2030,14 @@ def main() -> int:
         f"{float(ccount.float().mean()):.1f}, join counts "
         f"{res['join_full_32'].tolist()}")
 
-    lat, lat_plain = {}, {}
+    # the same calls on an engine running every program eagerly (its
+    # sticky tiers preset): each call's wall beside the graphs', and the
+    # busy time of the calls under a second (a slow call is device-bound
+    # and launches the same kernels: its busy time is the graph's)
+    eager = SpatialEngine(index, device=DEVICE)
+    eager.executor.cuda_graphs = False
+    eager.executor._sticky.update(ex._sticky)
+    lat, lat_plain, lat_eager, busy_eager = {}, {}, {}, {}
     report["where"] = {}
     for name, (fn, _, _) in main_path.items():
         # a slow call was warmed by its first call and the bitwise check
@@ -1696,6 +2046,10 @@ def main() -> int:
                             warm=not slow)
         lat_plain[name] = host_ms(lambda: fn(plain), 1 if slow else 3,
                                   warm=not slow)
+        lat_eager[name] = host_ms(lambda: fn(eager), 1 if slow else 5,
+                                  warm=not slow)
+        busy_eager[name] = None if slow else sum(device_profile(
+            lambda: fn(eager), 3, warm=False).values())
         acts: dict = {}
         prof, kept = traced(lambda: fn(eng), 1 if slow else 3, acts,
                             warm=not slow)
@@ -1711,18 +2065,30 @@ def main() -> int:
             log(f"[where] point_1024 activities per call: {acts}")
         log(f"[latency] {name}: cuda {lat[name]:.3f} ms (device busy "
             f"{busy:.3f} ms, idle share {1.0 - busy / lat[name]:.3f}, "
-            f"trace retention {kept}), torch backend "
+            f"trace retention {kept}), eager {lat_eager[name]:.3f} ms "
+            f"(busy {busy_eager[name]}), torch backend (eager) "
             f"{lat_plain[name]:.3f} ms")
         log(f"[where] {name}: " + "; ".join(f"{n} {t:.4f}" for n, t in top))
     report["batch_ms"] = lat
     report["batch_ms_torch_backend"] = lat_plain
+    report["batch_ms_eager"] = lat_eager
+    report["device_busy_ms_eager"] = busy_eager
+    release(eager.executor)
+    del eager
 
     # the row-chunk budget (EngineConfig.scan_chunk_elems): circle_count
     # at its sticky tier under the default budget and under twice it, on
     # a second engine given the same sticky tier (the budget moves no ok
     # flag, so its own ladder settles there too). The counts must not
     # change; peak memory and latency do.
-    def row_budget(e, budget):
+    def row_budget(budget):
+        # an eager engine (a replay allocates nothing new) at the sticky
+        # tier of phase 5's circle count
+        e = SpatialEngine(index, EngineConfig(scan_chunk_elems=budget),
+                          device=DEVICE)
+        e.executor.cuda_graphs = False
+        e.executor._sticky[("circle", False)] = ex._sticky[("circle",
+                                                            False)]
         fn = main_path["circle_count_256"][0]
         tier = e.executor._sticky[("circle", False)]
         prog = L._CircleWindowLocal(e.executor.index, e.executor.cfg,
@@ -1731,22 +2097,20 @@ def main() -> int:
                                                   prog.lookup_elems)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
         require(torch.equal(fn(e), ccount), f"circle_count at {budget}")
         torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
         mem = torch.cuda.max_memory_allocated()
-        ms = host_ms(lambda: fn(e), 1, warm=False)
         busy = sum(device_profile(lambda: fn(e), 1, warm=False).values())
         return {"scan_chunk_elems": budget, "tier": tier,
                 "rows_per_chunk": max(1, budget // plane),
                 "max_memory_allocated": mem, "wall_ms": ms,
                 "device_busy_ms": busy, "idle_share": 1.0 - busy / ms}
 
-    wide = SpatialEngine(index, EngineConfig(
-        scan_chunk_elems=2 * ex.cfg.scan_chunk_elems), device=DEVICE)
-    wide.executor._sticky[("circle", False)] = ex._sticky[("circle", False)]
-    report["row_budget"] = [row_budget(eng, ex.cfg.scan_chunk_elems),
-                            row_budget(wide, 2 * ex.cfg.scan_chunk_elems)]
-    del wide
+    report["row_budget"] = [row_budget(ex.cfg.scan_chunk_elems),
+                            row_budget(2 * ex.cfg.scan_chunk_elems)]
+    release()           # the eager engines' blocks go back to the card
     for rb in report["row_budget"]:
         log(f"[budget] circle_count_256 at scan_chunk_elems "
             f"{rb['scan_chunk_elems']}: tier {rb['tier']}, "
@@ -1757,13 +2121,33 @@ def main() -> int:
 
     phase("serve")
     # 6. serving mode on the same index
-    report["serve"], serve_launches, serve_tiers = serve_phase(index, part,
-                                                              x, y, dev)
+    (report["serve"], serve_launches, serve_tiers, serve_sess,
+     serve_plain) = serve_phase(index, part, x, y, dev)
     require(all(serve_launches[n] > 0 for n in PATH_KERNELS),
             f"serve launches {serve_launches}")
 
+    phase("warm")
+    # 7. warm start: graphs, the kernel store, manifest and restart
+    report["warm"] = warm_phase(
+        eng, plain, main_path,
+        (rects, qx, qy, kx, ky, (cx, cy, cr), polys, ne), serve_sess, x, y,
+        part, dev, card)
+    report["warm"]["families"] = {
+        n: {"graph_ms": lat[n], "graph_busy_ms":
+            report["where"][n]["device_busy_ms"],
+            "eager_ms": report["batch_ms_eager"][n],
+            "eager_busy_ms": report["device_busy_ms_eager"][n],
+            "torch_backend_eager_ms": report["batch_ms_torch_backend"][n]}
+        for n in main_path}
+    log("[warm] (b) per family, graphs / eager ms (busy): " + "; ".join(
+        f"{n} {v['graph_ms']:.3f} ({v['graph_busy_ms']:.3f}) / "
+        f"{v['eager_ms']:.3f} ({v['eager_busy_ms']})"
+        for n, v in report["warm"]["families"].items()))
+    release(plain.executor)
+    del serve_sess, serve_plain, plain
+
     phase("wide")
-    # 7. serving mode at the reference's default batch: bucketed
+    # 8. serving mode at the reference's default batch: bucketed
     report["serve_wide"], wide_launches = wide_serve_phase(index, part, x,
                                                            y, dev)
     require(all(wide_launches[n] > 0 for n in PATH_KERNELS),
@@ -1774,7 +2158,7 @@ def main() -> int:
     log(f"[wide] peak memory of a steady round by q: {peaks}")
 
     phase("updates")
-    # 8. the update path on the full index
+    # 9. the update path on the full index
     report["updates"], upd_launches, upd_err = update_phase(
         index, part, x, y, dev, main_path,
         (rects, qx, qy, kx, ky, (cx, cy, cr), polys, ne), dict(ex._sticky),
@@ -1783,12 +2167,12 @@ def main() -> int:
             f"update launches {upd_launches}")
 
     phase("scheduler")
-    # 9. the streaming serve scheduler on a session of its own
+    # 10. the streaming serve scheduler on a session of its own
     report["scheduler"], sched_launches = scheduler_phase(index, part, x, y,
                                                           card)
 
     phase("kernels")
-    # 10. each kernel against its plain version on the inputs the main
+    # 11. each kernel against its plain version on the inputs the main
     # path gives it: every launch of one call (one per partition chunk,
     # or one per candidate set) is held bitwise against the plain
     # version, and the times, bytes and operations are those of the
@@ -2140,7 +2524,7 @@ def main() -> int:
                                      upd_err[row["name"]])
 
     phase("denormals")
-    # 11. the flushed kernels on denormal inputs (comparison launches,
+    # 12. the flushed kernels on denormal inputs (comparison launches,
     # counted on no path)
     report["denormals"] = denormal_phase(dev)
     for row in rows:
@@ -2166,4 +2550,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--restart"]:
+        sys.exit(restart_main(sys.argv[2:]))
     sys.exit(main())

@@ -38,19 +38,38 @@ host read on the serving path. An update whose partition's delta
 occupancy passes ``EngineConfig.delta_occupancy`` schedules a re-fit,
 which ``maintain()`` runs off the hot path.
 
-There is no compile cache: PyTorch runs eagerly, so ``shape_epoch`` is
-tracked (it bumps where the reference's executables would be evicted)
-but nothing is evicted.
+Programs are cached as the reference caches its executables (DESIGN.md
+§14): ``_compile(exec_key, make_fn)`` keeps one ``_Dispatch`` per key,
+which realizes the program once per argument signature. On the card a
+query program's realization is a CUDA graph (``_Graph``), so a steady
+call launches the whole program at once instead of op by op from
+Python. A signature's first call runs eagerly and only its second is
+captured (and replayed from then on), so a batch width seen once costs
+no capture and holds no graph memory. The eviction rules are the reference's: a sticky move
+drops the superseded window tiers (``_evict``), a shape-epoch bump drops
+every program of the old shapes (``_evict_stale``); ``release()`` drops
+every program and gives the graphs' memory back. With graphs on,
+mutations write the executor's own copy of the partition planes in
+place where their shape holds, so a graph keeps reading the live index;
+each replay also checks the planes' pointers and captures again if one
+moved. ``manifest()`` records every
+realized (exec_key, signature) and ``prewarm()`` realizes them in
+another executor or process. With ``EngineConfig.compile_cache_dir``,
+the CUDA kernel libraries are kept on disk (core/compile_cache.py).
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
+import math
 import threading
+import time
 from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch import kernels as KERN
 from repro_torch._num import (flush_denormals, mul_f32, resolve_device,
                               sub_f32)
 from repro_torch.core import keys as K
@@ -62,7 +81,15 @@ from repro_torch.core.build import LearnedSpatialIndex
 from repro_torch.core.plan import (CircleQuery, DeleteBatch, EngineConfig,
                                    InsertBatch, Knn, PointQuery, QuerySpec,
                                    RangeCount, RangeQuery, Refit,
-                                   SpatialJoin)
+                                   SpatialJoin, exec_key)
+
+# partition leaf -> the index field it holds (keys_f is derived: a cast)
+_LEAF_FIELDS = {"x": "x", "y": "y", "vid": "vid", "count": "count",
+                "knot_keys": "knot_keys", "knot_pos": "knot_pos",
+                "n_knots": "n_knots", "radix_table": "radix_table",
+                "radix_kmin": "radix_kmin", "radix_scale": "radix_scale",
+                "dx": "delta_x", "dy": "delta_y", "dvid": "delta_vid",
+                "dcount": "delta_count"}
 
 
 @dataclasses.dataclass
@@ -97,10 +124,212 @@ def _f32_const(v, like: torch.Tensor) -> torch.Tensor:
 
 def _tree(fn, *outs):
     """``fn`` over the leaves of equal output structures (a tensor, or a
-    tuple of tensors)."""
+    tuple of them, nested)."""
     if isinstance(outs[0], tuple):
-        return tuple(fn(*leaves) for leaves in zip(*outs))
+        return tuple(_tree(fn, *leaves) for leaves in zip(*outs))
     return fn(*outs)
+
+
+def _leaves(tree):
+    """The tensors of a (nested) tuple, in order; None is skipped."""
+    if isinstance(tree, (tuple, list)):
+        for t in tree:
+            yield from _leaves(t)
+    elif tree is not None:
+        yield tree
+
+
+def _dtype_name(dtype) -> str:
+    """A torch dtype in numpy's spelling ("float32", "int64", "bool")."""
+    return str(dtype).removeprefix("torch.")
+
+
+def _write_into(old, new):
+    """``new``'s values in ``old``'s storage when shape, dtype and device
+    agree (so a captured graph goes on reading the same pointer), else
+    ``new`` itself."""
+    if (old is None or old.shape != new.shape or old.dtype != new.dtype
+            or old.device != new.device):
+        return new
+    if old.data_ptr() != new.data_ptr():
+        old.copy_(new)
+    return old
+
+
+class GraphCaptureError(RuntimeError):
+    """A query program could not be captured as a CUDA graph."""
+
+
+class _Graph:
+    """One query program at one argument signature as a CUDA graph:
+    static inputs, the captured launches, static outputs, the kernel
+    launches the capture recorded (added to the wrappers' counts on each
+    replay) and the partition planes' pointers it reads.
+
+    All graphs of one executor allocate from one memory pool and replay
+    under the executor's lock on the current stream; each call returns
+    clones of the static outputs before the next replay can write them,
+    so any replay order is safe."""
+
+    __slots__ = ("key", "inputs", "graph", "outputs", "launches", "ptrs")
+
+    def __init__(self, ex, key, fn, inputs):
+        self.key = key
+        self.inputs = inputs
+        self.graph = self.outputs = None
+        self.launches = {}
+        self.ptrs = None
+        self.capture(ex, fn)
+
+    def capture(self, ex, fn) -> None:
+        """Record ``fn`` on the executor's capture stream into its pool.
+        Raises when the program cannot be captured (never falls back to
+        running it eagerly). The cyclic garbage collector is off during
+        the capture: collecting another executor's graphs there would
+        free device memory inside the capture, which invalidates it."""
+        self.graph = self.outputs = None    # the old graph goes first
+        with torch.cuda.device(ex.device):
+            cur = torch.cuda.current_stream()
+            side = ex._capture_stream()
+            side.wait_stream(cur)
+            pool = ex._graph_pool()
+            g = torch.cuda.CUDAGraph()
+            before = KERN.launch_counts()
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.stream(side):
+                    g.capture_begin(pool=pool,
+                                    capture_error_mode="thread_local")
+                    try:
+                        out = fn(ex.parts, ex.bounds, *self.inputs)
+                    except BaseException:
+                        try:
+                            g.capture_end()
+                        except Exception:
+                            pass
+                        raise
+                    g.capture_end()
+            except Exception as e:
+                raise GraphCaptureError(f"CUDA graph capture of "
+                                        f"{self.key} failed: {e}") from e
+            finally:
+                if collecting:
+                    gc.enable()
+                # the capture recorded its launches and ran none: they
+                # count when a replay runs them
+                after = KERN.launch_counts()
+                delta = {n: after[n] - before[n] for n in after
+                         if after[n] != before[n]}
+                for n, d in delta.items():
+                    KERN.KERNELS[n].launches -= d
+            cur.wait_stream(side)
+        self.graph, self.outputs, self.launches = g, out, delta
+        self.ptrs = _plane_ptrs(ex)
+
+    def __call__(self, ex, fn, args):
+        if self.ptrs != _plane_ptrs(ex):
+            # a plane was swapped, not written in place: capture again
+            t0 = time.perf_counter()
+            self.capture(ex, fn)
+            ex.compile_ms_total += (time.perf_counter() - t0) * 1e3
+            ex.graph_recaptures += 1
+        for static, a in zip(self.inputs, args):
+            static.copy_(a)
+        self.graph.replay()
+        for n, d in self.launches.items():
+            KERN.KERNELS[n].launches += d
+        return _tree(torch.clone, self.outputs)
+
+
+def _plane_ptrs(ex) -> tuple:
+    """(name, pointer, shape) of every partition plane and the boxes."""
+    return tuple((k, v.data_ptr(), tuple(v.shape))
+                 for k, v in sorted(ex.parts.items())) + \
+        (("bounds", ex.bounds.data_ptr(), tuple(ex.bounds.shape)),)
+
+
+class _Dispatch:
+    """Per-exec_key dispatcher (DESIGN.md §14): one local program,
+    realized once per argument SIGNATURE, the (shape, dtype) of every
+    argument after ``prefix`` (dtypes in numpy's spelling).
+
+    ``prefix`` 2: a query program, called as fn(parts, bounds, *q) (the
+    index state is keyed by shape epoch, not in the signature); 0: an
+    update program on raw arguments. On the card a query program is
+    realized as a CUDA graph (``_Graph``): the first call at a signature
+    runs the program eagerly and captures nothing (so every first-use
+    set-up of its launchers happens outside a capture); the second
+    copies its arguments into static inputs, captures the program on
+    them and replays it (that call's result); each later call copies
+    in, replays and returns clones of the outputs. Update
+    programs, programs that read the host (``host_reads``) and calls
+    with an empty argument run eagerly; on the CPU every realization is
+    the program itself. ``compile_ms_total`` counts capture time."""
+
+    __slots__ = ("ex", "key", "fn", "prefix", "_fns")
+
+    def __init__(self, ex, key, fn, prefix: int):
+        self.ex = ex
+        self.key = key
+        self.fn = fn
+        self.prefix = prefix
+        self._fns = {}            # signature -> _Graph, or fn (eager)
+
+    @staticmethod
+    def sig_of(args) -> Tuple:
+        return tuple((tuple(int(d) for d in a.shape), _dtype_name(a.dtype))
+                     for a in _leaves(args))
+
+    def sigs(self) -> list:
+        """Signatures realized so far (manifest recording)."""
+        return sorted(self._fns)
+
+    def _graphed(self, sig) -> bool:
+        return (self.ex.cuda_graphs and self.prefix == 2
+                and not self.fn.host_reads
+                and all(math.prod(s) > 0 for s, _ in sig))
+
+    def _capture(self, sig, inputs) -> None:
+        t0 = time.perf_counter()
+        self._fns[sig] = _Graph(self.ex, self.key, self.fn, inputs)
+        self.ex.compile_ms_total += (time.perf_counter() - t0) * 1e3
+
+    def __call__(self, *args):
+        q = args[self.prefix:]
+        sig = self.sig_of(q)
+        real = self._fns.get(sig)
+        if isinstance(real, _Graph):
+            return real(self.ex, self.fn, q)
+        if real is not None and self._graphed(sig):
+            # the signature's second call: capture, then replay
+            inputs = tuple(torch.empty_like(a) for a in q)
+            self._capture(sig, inputs)
+            return self._fns[sig](self.ex, self.fn, q)
+        self._fns[sig] = self.fn
+        return self.fn(*args)
+
+    def warm(self, sig: Tuple) -> bool:
+        """Realize one signature without a query: on the card, capture
+        from zero-filled inputs (after one eager run on them, so every
+        first-use set-up happens before the capture). Returns True when
+        work actually happened."""
+        sig = tuple((tuple(int(d) for d in s), str(d)) for s, d in sig)
+        if sig in self._fns:
+            return False
+        if not self._graphed(sig):
+            self._fns[sig] = self.fn
+            return True
+        ex = self.ex
+        inputs = tuple(torch.zeros(s, dtype=getattr(torch, d),
+                                   device=ex.device) for s, d in sig)
+        self.fn(ex.parts, ex.bounds, *inputs)
+        self._capture(sig, inputs)
+        return True
+
+    def drop(self) -> None:
+        """Drop every realization (an evicted key frees its graphs)."""
+        self._fns.clear()
 
 
 def _pad_rows(args, n: int):
@@ -114,7 +343,12 @@ def _pad_rows(args, n: int):
 class Executor:
     """Runs QuerySpecs against ``index`` on ``device`` (default: the
     card; "cpu" to run on the CPU). The index is padded to a multiple of
-    ``config.part_chunk`` partitions and moved to the device."""
+    ``config.part_chunk`` partitions and moved to the device.
+
+    ``cuda_graphs`` (True on the card) realizes query programs as CUDA
+    graphs; set it False before the first call to run them eagerly. With
+    graphs on, the executor holds its own copy of the partition planes,
+    which updates write in place; without, updates swap them."""
 
     def __init__(self, index: LearnedSpatialIndex,
                  config: Optional[EngineConfig] = None, device="cuda"):
@@ -122,9 +356,14 @@ class Executor:
         self.cfg = config if config is not None else EngineConfig()
         self.backend = resolve_backend(self.cfg.backend, self.device)
         index = L.pad_partitions(index.to(self.device), self.cfg.part_chunk)
-        self.index = index
-        self.parts = L.part_arrays(index)
-        self.bounds = index.part_bounds          # (P, 4)
+        self.cuda_graphs = self.device.type == "cuda"
+        # a graph reads fixed pointers: own the planes, write them in place
+        own = self.cuda_graphs
+        self.parts = {k: v.clone() if own and k in _LEAF_FIELDS else v
+                      for k, v in L.part_arrays(index).items()}
+        self.bounds = index.part_bounds.clone() if own else \
+            index.part_bounds                           # (P, 4)
+        self.index = self._bind(index, self.parts)
         self.spec = index.key_spec
         b = index.key_spec.bounds
         self.area = max((b[2] - b[0]) * (b[3] - b[1]), 1e-30)
@@ -149,6 +388,21 @@ class Executor:
         self.host_syncs = 0   # counted host reads of ok (_all_ok)
         self.probe_syncs = 0  # host reads of a bucketed call's sizes
         self.dispatches = 0   # local-program and update-program calls
+        # -- the program cache (DESIGN.md §14) ----------------------------
+        self._cache = {}      # exec_key -> _Dispatch
+        self.compile_ms_total = 0.0  # wall spent capturing CUDA graphs
+        self.graph_recaptures = 0    # captures redone: a plane moved
+        self._pool = None     # the graphs' shared memory pool
+        self._stream = None   # the side stream graphs are captured on
+        self._disk = None     # the on-disk kernel-library store
+        if self.cfg.compile_cache_dir:
+            from repro_torch.core.compile_cache import (CompileCache,
+                                                        process_context)
+            from repro_torch.kernels import _build
+            self._disk = CompileCache(self.cfg.compile_cache_dir,
+                                      self.cfg.compile_cache_bytes,
+                                      context=process_context(self.device))
+            _build.use_store(self._disk)
         # serializes run, maintain and refit, so several threads can
         # share one executor (sticky state, stashed ok flags, the index);
         # reentrant because run(Refit) and maintain() call refit()
@@ -167,6 +421,323 @@ class Executor:
     def _call(self, fn, *args):
         self.dispatches += 1
         return fn(self.parts, self.bounds, *args)
+
+    # -- the program cache (DESIGN.md §14) --------------------------------
+
+    def _key(self, base, tag="x", variant=None):
+        """Canonical cache key (plan.exec_key): backend and shape-epoch
+        aware (a program bakes the index's static shapes; superseded
+        shape epochs are swept by _evict_stale)."""
+        return exec_key(self.backend.name, base, tag, variant,
+                        epoch=self.index.shape_epoch)
+
+    def _compile(self, key, make_fn):
+        """The cached dispatcher of ``key``, building its local program
+        with ``make_fn`` on a miss."""
+        disp = self._cache.get(key)
+        if disp is None:
+            disp = self._cache[key] = _Dispatch(self, key, make_fn(),
+                                                prefix=2)
+        return disp
+
+    def _capture_stream(self):
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        return self._stream
+
+    def _graph_pool(self):
+        """The memory pool every graph of this executor shares. A pool
+        lives while a graph holds it: once the last one is gone (evicted,
+        or a capture failed), the next capture opens a new pool."""
+        if self._pool is None or not any(
+                isinstance(r, _Graph) and r.graph is not None
+                for d in self._cache.values() for r in d._fns.values()):
+            self._pool = torch.cuda.graph_pool_handle()
+        return self._pool
+
+    def _drop(self, key) -> None:
+        self._cache.pop(key).drop()
+
+    def release(self) -> None:
+        """Drop every cached program with its CUDA graphs and give their
+        memory pool back to the card. The next call at each signature
+        realizes its program again (eager first, captured second);
+        sticky tiers and the index stay."""
+        with self._lock:
+            for key in list(self._cache):
+                self._drop(key)
+            self._pool = None
+            if self.device.type == "cuda":
+                torch.cuda.empty_cache()
+
+    def _evict(self, base):
+        """Drop superseded cap-variants: keep the sticky and initial
+        tiers, so escalation cannot leak one program (and its graphs)
+        per step in long-running serving.
+
+        FUSED programs additionally keep every ladder tier between the
+        initial and sticky tiers (O(log) of them), the tier above sticky
+        and the demotion target: the bucketed dispatch (DESIGN.md §13)
+        runs light buckets at below-sticky tiers on every batch. Probe
+        ("p") programs are tier-independent and only swept by shape
+        epoch (_evict_stale)."""
+        sticky = self._sticky.get(base)
+        initial = self._initial.get(base)
+        keep_w = {sticky, initial}
+        keep_f = set(keep_w)
+        esc = self._escalators.get(base)
+        dem = self._demoters.get(base)
+        if sticky is not None:
+            if esc is not None:
+                keep_f.add(esc(*sticky))
+            if dem is not None:
+                keep_f.add(dem(*sticky))
+        if esc is not None and sticky is not None and initial is not None:
+            cur = initial
+            for _ in range(64):          # ladders are O(log) long
+                keep_f.add(cur)
+                if cur == sticky:
+                    break
+                nxt = esc(*cur)
+                if nxt == cur:
+                    break
+                cur = nxt
+        for key in list(self._cache):
+            if key[2] != tuple(base):
+                continue
+            if ((key[3] == "w" and key[4] not in keep_w) or
+                    (key[3] == "fused" and key[4] not in keep_f)):
+                self._drop(key)
+
+    def _evict_stale(self):
+        """Drop the programs of a superseded index shape epoch (a delta
+        capacity growth, an n_pad or knot widening, a probe refresh)."""
+        cur = self.index.shape_epoch
+        for key in list(self._cache):
+            if key[5] != cur:
+                self._drop(key)
+
+    def cache_variants(self, base) -> list:
+        """Cached (tag, (cap, cand)) window variants for one sticky key."""
+        return sorted((k[3], k[4]) for k in self._cache
+                      if k[2] == tuple(base) and k[3] in ("w", "fused"))
+
+    def cache_keys(self) -> list:
+        """All program-cache keys (plan.exec_key layout)."""
+        return list(self._cache)
+
+    # -- manifest-driven prewarm (DESIGN.md §14) -------------------------
+
+    def _op_for(self, base) -> Optional[_AdaptiveOp]:
+        """The adaptive-op descriptor of a sticky base: what lets a
+        recorded manifest rebuild any program family from its key."""
+        kind = base[0]
+        if kind == "range":
+            return self._op_range(tuple(base))
+        if kind == "circle":
+            return self._op_circle(tuple(base), bool(base[1]))
+        if kind == "knn":
+            return self._op_knn(tuple(base), int(base[1]))
+        if kind == "join":
+            return self._op_join(tuple(base))
+        return None
+
+    def _factory_for(self, base, tag, variant):
+        idx, cfg, bk = self.index, self.cfg, self.backend
+        kind = base[0]
+        if tag == "u":
+            return {"insert": (lambda: M.scatter_inserts),
+                    "delete": (lambda: M.apply_deletes)}.get(kind)
+        if tag == "x":
+            if kind == "point":
+                return lambda: L._PointLocal(idx, cfg, bk)
+            if kind == "range_count":
+                return lambda: L._RangeCountLocal(idx, cfg, bk)
+            if kind == "circle_exact":
+                return lambda: L._CircleCountLocal(idx, cfg, bk)
+            if kind == "join_full":
+                return lambda: L._JoinFullLocal(idx, cfg, bk)
+            if kind == "knn_exact":
+                return lambda: L._KnnExactLocal(idx, cfg, bk, int(base[1]))
+            return None
+        op = self._op_for(base)
+        if op is None:
+            return None
+        if tag == "p" and op.probe is not None:
+            return lambda: op.probe(int(variant[0]))
+        if tag == "w":
+            return lambda: op.window(*variant)
+        if tag == "fused":
+            return lambda: op.fused(*variant)
+        return None
+
+    def manifest(self) -> dict:
+        """JSON-serializable snapshot of everything realized and tuned:
+        sticky tiers, delta capacity, and every realized (exec_key,
+        signature). Replay it with ``prewarm()``, in this process after
+        an eviction or in a later one (compile_cache.save_manifest /
+        load_manifest round-trip it through JSON)."""
+        with self._lock:
+            progs = []
+            for key, v in sorted(self._cache.items(), key=repr):
+                if not v.sigs() or key[5] != self.index.shape_epoch:
+                    continue
+                variant = (list(key[4]) if isinstance(key[4], tuple)
+                           else key[4])
+                progs.append({
+                    "key": [key[0], bool(key[1]), list(key[2]),
+                            key[3], variant],
+                    "sigs": [[[list(s), d] for s, d in sig]
+                             for sig in v.sigs()],
+                })
+            return {"version": 1,
+                    "backend": self.backend.name,
+                    "delta_cap": int(self.index.delta_cap or 0),
+                    "sticky": [[list(b), list(t)]
+                               for b, t in sorted(self._sticky.items())],
+                    "programs": progs}
+
+    def prewarm(self, manifest: dict, exercise: bool = False) -> dict:
+        """Replay a recorded manifest: install the recorded delta
+        capacity FIRST (so the shape-epoch bump cannot evict what is
+        about to be realized), preset the sticky tiers, then realize
+        every recorded (program, signature) without running a query
+        (on the card: capture its CUDA graph from zero-filled inputs).
+        ``exercise=True`` also routes one zero-filled query batch per
+        recorded READ family through the public ``run`` path, outputs
+        discarded and adaptive bookkeeping restored, to absorb the
+        first-use cost of the host-side preparation
+        (``_exercise_families``); update programs are never run.
+        Returns {programs, compiled, skipped} counts."""
+        if not isinstance(manifest, dict) or \
+                manifest.get("version") != 1:
+            return {"programs": 0, "compiled": 0, "skipped": 0}
+        with self._lock:
+            return self._prewarm_locked(manifest, exercise)
+
+    def _prewarm_locked(self, manifest: dict, exercise: bool = False
+                        ) -> dict:
+        progs = [p for p in manifest.get("programs", ())
+                 if p["key"][0] == self.backend.name]
+        # 1. delta capacity before ANY realization: the recorded cap is
+        # already pow2-at-least(cfg floor), so this reproduces the shape
+        # a first insert would install
+        dcap = int(manifest.get("delta_cap") or 0)
+        has_u = any(p["key"][3] == "u" for p in progs)
+        if dcap > 0 or has_u:
+            idx = self.index
+            need = max(dcap, 1)
+            if idx.delta_count is None or idx.delta_cap < need:
+                self._install_index(M.with_delta_capacity(
+                    idx, need, floor=self.cfg.delta_cap))
+        # 2. sticky tiers, so live traffic dispatches fused programs at
+        # the recorded tier from the first request
+        for b, t in manifest.get("sticky", ()):
+            self._sticky[tuple(b)] = tuple(int(v) for v in t)
+        # 3. realize the programs
+        compiled = skipped = 0
+        for p in progs:
+            _bk, qs, base, tag, variant = p["key"]
+            base = tuple(base)
+            if isinstance(variant, list):
+                variant = tuple(int(v) for v in variant)
+            if qs:
+                skipped += 1        # query-sharded wrappings: item 17
+                continue
+            if tag == "u" and variant and \
+                    int(variant[1]) != int(self.index.delta_cap or 0):
+                skipped += 1        # stale capacity variant
+                continue
+            make_fn = self._factory_for(base, tag, variant)
+            if make_fn is None:
+                skipped += 1
+                continue
+            key = self._key(base, tag, variant)
+            if tag == "u":
+                if key not in self._cache:
+                    self._cache[key] = _Dispatch(self, key, make_fn(),
+                                                 prefix=0)
+                disp = self._cache[key]
+            else:
+                disp = self._compile(key, make_fn)
+            for sig in p.get("sigs", ()):
+                sig_t = tuple((tuple(int(d) for d in s), str(dt))
+                              for s, dt in sig)
+                compiled += bool(disp.warm(sig_t))
+        if exercise:
+            self._exercise_families(progs)
+        return {"programs": len(progs), "compiled": compiled,
+                "skipped": skipped}
+
+    def _exercise_families(self, progs) -> None:
+        """Real ``run()`` calls per recorded read family, on zero-filled
+        queries at each recorded narrow batch width, outputs discarded.
+
+        Realizing the programs is not enough after a restart: the host
+        side of each dispatch (the key encodes, the kNN radius estimate,
+        the polygon MBRs) pays its first-use cost in a fresh process,
+        per batch shape, so every recorded narrow width is exercised.
+        Widths at or above ``tier_bucket_min`` are skipped: they take
+        the data-dependent bucketed dispatch, whose zero-query buckets
+        could realize widths the recorded traffic never used. Adaptive
+        bookkeeping is snapshotted and restored, so prewarm never
+        changes what later traffic computes; update programs never
+        run."""
+        fam = {}
+        bmin = self.cfg.tier_bucket_min
+        for p in progs:
+            _bk, qs, base, tag, _variant = p["key"]
+            base = tuple(base)
+            want = "x" if base[0] in ("point", "range_count",
+                                      "knn_exact", "join_full") \
+                else "fused"
+            if qs or tag != want:
+                continue
+            for sig in p.get("sigs", ()):
+                if sig[0][0][0] < bmin:
+                    fam.setdefault(base, {})[tuple(sig[0][0])] = sig
+        pending = dict(self._pending)
+        for base, sigs in sorted(fam.items(), key=repr):
+            for sig in sigs.values():
+                self._exercise_one(base, sig)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._pending = pending
+
+    def _exercise_one(self, base, sig) -> None:
+        b = int(sig[0][0][0])
+        kind = base[0]
+        f32 = np.float32
+        try:
+            if kind == "point":
+                req = (PointQuery(), np.zeros(b, f32), np.zeros(b, f32))
+            elif kind == "range_count":
+                req = (RangeCount(), np.zeros((b, 4), f32))
+            elif kind == "range":
+                req = (RangeQuery(), np.zeros((b, 4), f32))
+            elif kind == "circle":
+                req = (CircleQuery(materialize=bool(base[1])),
+                       np.zeros(b, f32), np.zeros(b, f32),
+                       np.zeros(b, f32))
+            elif kind == "knn":
+                req = (Knn(k=int(base[1])), np.zeros(b, f32),
+                       np.zeros(b, f32))
+            elif kind == "knn_exact":
+                req = (Knn(k=int(base[1]), mode="exact"),
+                       np.zeros(b, f32), np.zeros(b, f32))
+            elif kind in ("join", "join_full"):
+                v = int(sig[0][0][1])
+                req = (SpatialJoin(mode="full" if kind ==
+                                   "join_full" else "windowed"),
+                       np.zeros((b, v, 2), f32),
+                       np.full(b, min(3, v), np.int32))
+            else:
+                return
+            self.run(req[0], *req[1:])
+        except GraphCaptureError:
+            raise                       # a program that cannot be graphed
+        except Exception:
+            pass                        # best-effort, like the reference
 
     def _all_ok(self, ok) -> bool:
         """The only counted host read of ``ok`` on the query path."""
@@ -269,13 +840,28 @@ class Executor:
         return moved
 
     def stats(self) -> dict:
-        """Counters: host_syncs, probe_syncs, dispatches, backend, sticky
-        tiers, the index's epoch and shape_epoch, applied updates and
-        re-fits, and the partitions with a re-fit pending."""
+        """Counters: host_syncs, probe_syncs, dispatches, cache_size (the
+        cached programs), backend, qshard_executables (0 until
+        multi-GPU, ROADMAP item 17), compile_ms_total (capture time),
+        disk_cache_hits and disk_cache_misses (the kernel-library store's,
+        process-level; 0 without a cache directory), async_compiles (0
+        until the precompile worker, item 16b), sticky tiers, the
+        index's epoch and shape_epoch, applied updates and re-fits, and
+        the partitions with a re-fit pending."""
+        hits = misses = 0
+        if self._disk is not None:
+            from repro_torch.kernels import _build
+            hits, misses = _build.disk_hits, _build.disk_misses
         return {"host_syncs": self.host_syncs,
                 "probe_syncs": self.probe_syncs,
                 "dispatches": self.dispatches,
+                "cache_size": len(self._cache),
                 "backend": self.backend.name,
+                "qshard_executables": sum(1 for k in self._cache if k[1]),
+                "compile_ms_total": round(self.compile_ms_total, 1),
+                "disk_cache_hits": hits,
+                "disk_cache_misses": misses,
+                "async_compiles": 0,
                 "sticky": dict(self._sticky),
                 "epoch": self.index.epoch,
                 "shape_epoch": self.index.shape_epoch,
@@ -296,10 +882,10 @@ class Executor:
 
     @property
     def precompiling(self) -> bool:
-        """Whether a background precompile worker is running: never, as
-        the port compiles no program per width or tier (warm start,
-        ROADMAP item 16, brings the worker). The serve scheduler reads
-        it to decide its batch width."""
+        """Whether a background precompile worker is running: never yet
+        (the worker and the scheduler's warm-width handoff are ROADMAP
+        item 16b). The serve scheduler reads it to decide its batch
+        width."""
         return False
 
     # -- the mutable index (DESIGN.md §11) ---------------------------------
@@ -317,19 +903,46 @@ class Executor:
         self.n_total = n
         self.density = max(n / self.area, 1e-30)
 
+    def _bind(self, index, leaves):
+        """``index`` with the partition fields of ``leaves`` and the boxes
+        taken from the executor's own planes."""
+        return dataclasses.replace(
+            index, part_bounds=self.bounds,
+            **{_LEAF_FIELDS[k]: self.parts[k] for k in leaves
+               if k in _LEAF_FIELDS})
+
     def _install_index(self, new_index, leaves=None):
-        """Swap in a mutated index: refresh the partition tensors (only
-        ``leaves`` when given and the leaf set is unchanged: inserts
-        never move the sorted data plane) and the boxes, and recount."""
-        self.index = new_index
+        """Install a mutated index: write its partition planes (only
+        ``leaves`` when given and neither the shape epoch nor the leaf
+        set moved: inserts never move the sorted data plane) and boxes
+        into the executor's own (in place where shape and dtype hold and
+        graphs are on, so a captured graph goes on reading the live
+        index); drop the programs of a superseded shape epoch,
+        and recount."""
+        shape_changed = new_index.shape_epoch != self.index.shape_epoch
         names = L.part_leaf_names(new_index)
-        if leaves is None or names != set(self.parts):
+        if shape_changed or leaves is None or names != set(self.parts):
             leaves = names
-        parts = dict(self.parts)
-        parts.update(L.part_arrays(new_index, leaves=leaves))
-        self.parts = {k: parts[k] for k in names}
-        self.bounds = new_index.part_bounds
+        parts = {k: v for k, v in self.parts.items() if k in names}
+        put = _write_into if self.cuda_graphs else (lambda _old, new: new)
+        for k, v in L.part_arrays(new_index, leaves=leaves).items():
+            parts[k] = put(parts.get(k), v)
+        self.parts = parts
+        self.bounds = put(self.bounds, new_index.part_bounds)
+        self.index = self._bind(new_index, leaves)
+        if shape_changed:
+            self._evict_stale()
         self._recount()
+
+    def _update_fn(self, kind: str, b: int, fn):
+        """Update programs cache like queries: one dispatcher per (batch
+        size, delta capacity) variant, which `_evict_stale` sweeps with
+        a superseded shape epoch. They run eagerly (host-driven)."""
+        key = self._key((kind,), "u", (b, self.index.delta_cap))
+        if key not in self._cache:
+            self._cache[key] = _Dispatch(self, key, fn, prefix=0)
+        self.dispatches += 1
+        return self._cache[key]
 
     def _note_occupancy(self, touched):
         """Schedule the deferred re-fit of the touched partitions whose
@@ -355,7 +968,7 @@ class Executor:
         if b == 0:
             return np.zeros((0,), np.int32)
         idx = self._with_delta_state()
-        pid = M.assign_insert(idx, xs, ys)
+        pid = M.assign_insert(idx, xs, ys).to(torch.int32)  # as the reference's
         # out-of-domain inserts land in the overflow grid; widen its box
         # so the global filter (rect, circle, kNN and join candidates)
         # sees them, not only the point probe, which always reads the
@@ -382,8 +995,8 @@ class Executor:
         key = K.make_keys(xs, ys, self.spec)
         vids = torch.arange(self.next_vid, self.next_vid + b,
                             dtype=torch.int32, device=self.device)
-        self.dispatches += 1   # the update program, as the reference counts
-        dk, dx, dy, dv, dc = M.scatter_inserts(
+        fn = self._update_fn("insert", b, M.scatter_inserts)
+        dk, dx, dy, dv, dc = fn(
             idx.delta_key, idx.delta_x, idx.delta_y, idx.delta_vid,
             idx.delta_count, pid, key, xs, ys, vids)
         idx = dataclasses.replace(
@@ -404,10 +1017,10 @@ class Executor:
         if b == 0:
             return 0
         idx = self._with_delta_state()
-        pid1 = M.assign_insert(idx, xs, ys)
+        pid1 = M.assign_insert(idx, xs, ys).to(torch.int32)
         pid2 = torch.full_like(pid1, idx.overflow)
-        self.dispatches += 1
-        nx, ny, nv, dx, dy, dv, dead2, removed = M.apply_deletes(
+        fn = self._update_fn("delete", b, M.apply_deletes)
+        nx, ny, nv, dx, dy, dv, dead2, removed = fn(
             idx.x, idx.y, idx.vid, idx.count, idx.delta_x, idx.delta_y,
             idx.delta_vid, idx.delta_count, idx.dead, xs, ys, pid1, pid2)
         idx = dataclasses.replace(
@@ -472,12 +1085,16 @@ class Executor:
                 return self._run_bucketed(op, pargs, sticky)
             # steady state: the fused program, no host read; ok is
             # stashed, unread, for maintain()
-            out, ok = self._call(op.fused(*sticky), *pargs)
+            fn = self._compile(self._key(op.base, "fused", sticky),
+                               lambda: op.fused(*sticky))
+            out, ok = self._call(fn, *pargs)
             self._pending[op.base] = (sticky, ok)
             return op.post(out)
         cap, cand = start or sticky or op.initial
         while True:
-            res = self._call(op.window(cap, cand), *pargs)
+            fn = self._compile(self._key(op.base, "w", (cap, cand)),
+                               lambda: op.window(cap, cand))
+            res = self._call(fn, *pargs)
             hit = self._all_ok(op.get_ok(res))
             maxed = op.maxed(cap, cand)
             if hit or (maxed and op.sticky_on_maxed):
@@ -595,7 +1212,8 @@ class Executor:
         call's. A short tail chunk is padded with its own row 0 (a real
         query) to the chunk width and un-padded."""
         cw = self._row_chunk(tier, width)
-        fn = op.fused(*tier)
+        fn = self._compile(self._key(op.base, "fused", tier),
+                           lambda: op.fused(*tier))
         if cw >= width:
             return self._call(fn, *bargs)
         outs, oks = [], []
@@ -629,7 +1247,9 @@ class Executor:
         qn = pargs[0].shape[0]
         cand_p = (self.cfg.knn_cand if op.bucketer is not None
                   else sticky[1])
-        probe = self._call(op.probe(cand_p), *pargs)
+        pfn = self._compile(self._key(op.base, "p", (cand_p,)),
+                            lambda: op.probe(cand_p))
+        probe = self._call(pfn, *pargs)
         if op.bucketer is not None:
             rank = op.bucketer(probe, *sticky)
             tier_of = [sticky] * 3
@@ -685,6 +1305,7 @@ class Executor:
         if old != variant:
             # a new tier starts its demotion clock from zero
             self._ok_streak[base] = 0
+            self._evict(base)
 
     def _maxed_both(self, cap, cand):
         return (cap >= self.index.n_pad and
@@ -719,13 +1340,17 @@ class Executor:
     def _run_point(self, args):
         qx, qy = self._f32(args[0]), self._f32(args[1])
         qk = K.keys_to_f32(K.make_keys(qx, qy, self.spec))
-        fn = L._PointLocal(self.index, self.cfg, self.backend)
+        fn = self._compile(self._key(("point",)),
+                           lambda: L._PointLocal(self.index, self.cfg,
+                                                 self.backend))
         return self._call(fn, qx, qy, qk) > 0
 
     def _run_range_count(self, args):
         rects = self._f32(args[0]).reshape(-1, 4)
         klo, khi = self._rect_keys(rects)
-        fn = L._RangeCountLocal(self.index, self.cfg, self.backend)
+        fn = self._compile(self._key(("range_count",)),
+                           lambda: L._RangeCountLocal(self.index, self.cfg,
+                                                      self.backend))
         return self._call(fn, rects, klo, khi)
 
     def _op_range(self, base):
@@ -779,8 +1404,10 @@ class Executor:
     def _circle_exact(self, pargs):
         """Exact in-circle counts: the full-refine program behind the
         adaptive circle query (the reference's fallback program)."""
-        return self._call(L._CircleCountLocal(self.index, self.cfg,
-                                              self.backend), *pargs)
+        fn = self._compile(self._key(("circle_exact",)),
+                           lambda: L._CircleCountLocal(self.index, self.cfg,
+                                                       self.backend))
+        return self._call(fn, *pargs)
 
     def _op_circle(self, base, materialize: bool):
         idx, cfg, bk = self.index, self.cfg, self.backend
@@ -857,7 +1484,9 @@ class Executor:
         return torch.maximum(r0, _f32_const(r0g, qx))
 
     def _knn_exact(self, k, qx, qy):
-        fn = L._KnnExactLocal(self.index, self.cfg, self.backend, k)
+        fn = self._compile(self._key(("knn_exact", k)),
+                           lambda: L._KnnExactLocal(self.index, self.cfg,
+                                                    self.backend, k))
         return self._call(fn, qx, qy)
 
     def _op_knn(self, base, k):
@@ -921,8 +1550,10 @@ class Executor:
         return self._adaptive(op, (qx, qy, r0), strict)
 
     def _join_full(self, pargs):
-        return self._call(L._JoinFullLocal(self.index, self.cfg,
-                                           self.backend), *pargs)
+        fn = self._compile(self._key(("join_full",)),
+                           lambda: L._JoinFullLocal(self.index, self.cfg,
+                                                    self.backend))
+        return self._call(fn, *pargs)
 
     def _op_join(self, base):
         idx, cfg, bk = self.index, self.cfg, self.backend

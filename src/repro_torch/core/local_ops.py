@@ -256,6 +256,10 @@ def _delta_knn_candidates(planes, active, r):
 
 
 class _LocalFn:
+    # True for a program that reads the device on the host while it
+    # runs: the executor then runs it eagerly, never as a CUDA graph
+    host_reads = False
+
     def __init__(self, index: LearnedSpatialIndex, cfg: EngineConfig,
                  backend):
         self.kw = dict(radix_bits=index.radix_bits, probe=index.probe)
@@ -572,6 +576,7 @@ class _KnnPrunedLocal(_LocalFn):
         self.cand = cand
         self.cap = min(cap, index.n_pad)
         self.fixed_rounds = fixed_rounds
+        self.host_reads = not fixed_rounds     # the strict form's exit
 
     def __call__(self, parts, bounds, qx, qy, r0):
         return self._row_chunks(

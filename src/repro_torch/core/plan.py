@@ -15,10 +15,15 @@ tier-bucketed dispatch (``tier_buckets``, ``tier_bucket_min``,
 
 UpdateSpecs (InsertBatch, DeleteBatch, Refit) mutate the executor's
 index through the same ``Executor.run`` (DESIGN.md §11).
+
+``exec_key`` names one entry of the executor's program cache, and
+``cache_fingerprint`` the content address of one entry of the on-disk
+store (core/compile_cache.py, DESIGN.md §14).
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import Optional, Tuple
 
 BACKENDS = ("auto", "torch", "cuda")
@@ -67,6 +72,14 @@ class EngineConfig:
                                    # while the queue is this deep
     serve_idle_maintain: bool = True  # run maintain() when the queue
                                       # drains (never between requests)
+    # -- warm start (core/compile_cache.py, DESIGN.md §14) --------------
+    compile_cache_dir: Optional[str] = None  # on-disk store root (None =
+                                 # off): the CUDA kernel libraries, so a
+                                 # second process loads them instead of
+                                 # running nvcc
+    compile_cache_bytes: int = 1 << 30  # size cap of the store's
+                                 # entries; LRU-by-mtime eviction runs
+                                 # after each store
 
     def __post_init__(self):
         if self.backend not in BACKENDS:
@@ -74,6 +87,37 @@ class EngineConfig:
                              f"one of {BACKENDS}")
         if self.part_chunk <= 0:
             raise ValueError("part_chunk must be positive")
+
+
+def exec_key(backend: str, base: Tuple, tag: str = "x",
+             variant: Optional[Tuple] = None,
+             qshard: bool = False, epoch: int = 0) -> Tuple:
+    """Canonical program-cache key (DESIGN.md §10/§11 layout).
+
+    ``(backend, qshard, base, tag, variant, epoch)``:
+
+      backend   Backend.name: programs are never shared across kernel
+                backends;
+      qshard    True for the query-axis-sharded wrapping of the same
+                program (multi-GPU, ROADMAP item 17; always False here);
+      base      the spec's sticky/cache base tuple (``sticky_key()`` for
+                adaptive ops, a literal kind tuple otherwise);
+      tag       program flavor within the base: "x" exact/simple,
+                "w" strict windowed tier, "fused" zero-sync steady tier,
+                "p" wide-batch feasibility probe (tier bucketing),
+                "u" update (insert/delete) program;
+      variant   the (cap, cand) tier for "w"/"fused" programs (the slot
+                the executor's eviction policy sweeps), ``(cand,)`` for
+                "p", or the data shapes (batch size, delta capacity) for
+                "u" programs, so update programs cache like queries;
+      epoch     the index's SHAPE epoch (not the mutation epoch): bumps
+                only when a shape a program bakes changes (delta
+                capacity, n_pad, knot width, probe). Programs stay
+                cached across ordinary updates; ``_evict_stale`` sweeps
+                superseded shape epochs.
+    """
+    return (str(backend), bool(qshard), tuple(base), str(tag), variant,
+            int(epoch))
 
 
 class QuerySpec:
@@ -232,3 +276,54 @@ class Refit(UpdateSpec):
 ALL_SPEC_TYPES = (PointQuery, RangeCount, RangeQuery, CircleQuery, Knn,
                   SpatialJoin)
 ALL_UPDATE_TYPES = (InsertBatch, DeleteBatch, Refit)
+
+
+# ---------------------------------------------------------------------------
+# on-disk store fingerprinting (DESIGN.md §14)
+# ---------------------------------------------------------------------------
+
+# bump when the stored layout or the fingerprint recipe changes: old
+# entries become unreachable (and are LRU-evicted), never misread
+CACHE_SCHEMA = 1
+
+
+def _canon(v) -> str:
+    """Deterministic, recursion-stable rendering of a key component.
+
+    repr() is already stable for the ints, strs, bools and tuples of
+    exec_key and EngineConfig; floats and numpy scalars are rendered
+    explicitly so the same logical entry always maps to one address.
+    """
+    if isinstance(v, (tuple, list)):
+        return "(" + ",".join(_canon(u) for u in v) + ")"
+    if isinstance(v, dict):
+        return "{" + ",".join(f"{_canon(k)}:{_canon(v[k])}"
+                              for k in sorted(v, key=str)) + "}"
+    if isinstance(v, float):
+        return float(v).hex()
+    if isinstance(v, bool) or v is None or isinstance(v, (int, str)):
+        return repr(v)
+    if dataclasses.is_dataclass(v):
+        return _canon(dataclasses.asdict(v))
+    # numpy scalars and anything else with a stable item()/repr
+    item = getattr(v, "item", None)
+    if callable(item):
+        try:
+            return _canon(item())
+        except Exception:
+            pass
+    return repr(v)
+
+
+def cache_fingerprint(context: dict, key: Tuple, args_sig: Tuple) -> str:
+    """Content address of one stored entry.
+
+    ``context`` is the process-level invariants (compile_cache.
+    process_context: schema, torch and CUDA versions, nvcc, the card);
+    ``key`` names the entry (``("kernel", name)`` for a kernel library);
+    ``args_sig`` is what specializes it (for a library, the hash that
+    kernels/_build.lib_path takes of its source, headers and flags).
+    """
+    text = f"v{CACHE_SCHEMA}|{_canon(context)}|{_canon(key)}|" \
+           f"{_canon(args_sig)}"
+    return hashlib.sha256(text.encode()).hexdigest()

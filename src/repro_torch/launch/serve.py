@@ -13,9 +13,10 @@ requests plus an insert stream, a worker thread coalescing them into
 micro-batches, maintenance at idle. It prints req/s, p50/p99 latency
 per request, the mean and max batch, and the maintain runs.
 
-Both run on the card unless given ``--device cpu``. The LM serving mode
-of the reference's launcher is not ported (ROADMAP item 19), and neither
-is ``--compile-cache`` (warm start, item 16).
+Both run on the card unless given ``--device cpu``; ``--compile-cache
+DIR`` keeps the CUDA kernel libraries on disk (DESIGN.md §14). The LM
+serving mode of the reference's launcher is not ported (ROADMAP item
+19).
 """
 from __future__ import annotations
 
@@ -42,7 +43,9 @@ def build_session(args):
     part = fit("kdtree", x, y, 64, seed=0)
     session = SpatialServeSession(
         build_index(x, y, part, device=args.device),
-        config=EngineConfig(backend=args.backend), device=args.device)
+        config=EngineConfig(backend=args.backend,
+                            compile_cache_dir=args.compile_cache),
+        device=args.device)
     print(f"backend={session.stats()['backend']} "
           f"device={session.executor.device}")
     return x, y, part, session
@@ -157,7 +160,8 @@ def run_spatial(args):
         dt = time.perf_counter() - t0
         st = session.stats()
         print(f"round {rnd}: {len(reqs)} mixed specs in {dt*1e3:7.2f} ms "
-              f"(host_syncs +{st['host_syncs'] - syncs0})")
+              f"(host_syncs +{st['host_syncs'] - syncs0}, "
+              f"cache {st['cache_size']} executables)")
         moved = session.maintain()       # re-tune OFF the hot path
         if moved:
             print(f"  maintain: escalated {moved}")
@@ -181,6 +185,9 @@ def main(argv=None):
                          "card, torch on the CPU)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
+    ap.add_argument("--compile-cache", default=None, metavar="DIR",
+                    help="on-disk store of the CUDA kernel libraries "
+                         "(DESIGN.md §14)")
     args = ap.parse_args(argv)
     if not args.spatial:
         ap.error("only --spatial is ported: LM serving waits for "

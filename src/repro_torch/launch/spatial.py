@@ -9,10 +9,11 @@ tier, the second runs the steady program once).
 
 ``python -m repro_torch.launch.spatial --n 1000000 --partitions 64
 --queries 256`` runs on the card; ``--device cpu`` on the CPU.
+``--compile-cache DIR`` keeps the CUDA kernel libraries on disk, so a
+restart loads them instead of running nvcc (DESIGN.md §14).
 
 Not ported yet: ``--mesh`` and ``--query-shard`` (multi-GPU, ROADMAP
-item 17), ``--compile-cache`` and the cached-executable count (warm
-start, item 16).
+item 17).
 """
 from __future__ import annotations
 
@@ -54,6 +55,10 @@ def main(argv=None):
                          "(auto: cuda on the card, torch on the CPU)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
+    ap.add_argument("--compile-cache", default=None, metavar="DIR",
+                    help="on-disk store of the CUDA kernel libraries "
+                         "(DESIGN.md §14): a restart loads them instead "
+                         "of running nvcc")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -72,8 +77,10 @@ def main(argv=None):
           f"{t_build*1e3:.0f} ms; model {sizes['local_model']/1e3:.1f} KB"
           f" + global {sizes['global_index']/1e3:.1f} KB")
 
-    ex = Executor(index, config=EngineConfig(backend=args.backend),
-                  device=args.device)
+    cfg_kw = {"backend": args.backend}
+    if args.compile_cache:
+        cfg_kw["compile_cache_dir"] = args.compile_cache
+    ex = Executor(index, config=EngineConfig(**cfg_kw), device=args.device)
     print(f"backend={ex.backend.name} device={ex.device}")
     rng = np.random.default_rng(args.seed)
     q = args.queries
@@ -106,8 +113,8 @@ def main(argv=None):
         print(f"{name:12s} {dt*1e3:9.2f} ms for batch "
               f"({dt/denom*1e6:8.1f} us/query)")
     st = ex.stats()
-    print(f"executor: {st['host_syncs']} host syncs total, "
-          f"sticky={st['sticky']}")
+    print(f"executor: {st['cache_size']} cached executables, "
+          f"{st['host_syncs']} host syncs total, sticky={st['sticky']}")
 
 
 if __name__ == "__main__":

@@ -13,7 +13,10 @@ through ``Executor.run``, so:
   - ``insert``, ``delete`` and ``refit`` mutate the resident index
     (DESIGN.md §11); queries stay exact at once;
   - ``scheduler`` opens the streaming front door over the same executor
-    (serve/scheduler.py).
+    (serve/scheduler.py);
+  - ``manifest`` and ``prewarm`` carry the realized programs (on the
+    card, CUDA graphs) and sticky tiers over to another session or
+    process (DESIGN.md §14).
 """
 from __future__ import annotations
 
@@ -52,6 +55,29 @@ class SpatialServeSession:
         self.executor.run_batch(requests, strict=True)
         self.executor.run_batch(requests)
 
+    # -- warm start (manifest + prewarm, DESIGN.md §14) ------------------
+
+    def manifest(self) -> dict:
+        """Snapshot of every realized program family (exec keys, argument
+        signatures, sticky tiers): feed it to a later process's
+        ``prewarm`` to realize them before traffic."""
+        return self.executor.manifest()
+
+    def prewarm(self, manifest: dict, exercise: bool = False) -> dict:
+        """Replay a recorded ``manifest()``: install the delta capacity
+        and sticky tiers, then realize every recorded (program,
+        signature), on the card capturing its CUDA graph. With
+        ``EngineConfig.compile_cache_dir`` warm, the kernel libraries
+        come from the disk store. ``exercise=True`` also runs one
+        discarded zero-query batch per read family to absorb the host
+        side's first-use cost (the restart path)."""
+        return self.executor.prewarm(manifest, exercise)
+
+    def release(self) -> None:
+        """Drop every cached program with its CUDA graphs and give their
+        memory back to the card (``Executor.release``)."""
+        self.executor.release()
+
     def submit(self, spec: QuerySpec, *args, strict: bool = False):
         """One request on the zero-sync steady path (``strict=True``
         forces the host-checked escalation loop)."""
@@ -89,7 +115,8 @@ class SpatialServeSession:
         return self.executor.maintain()
 
     def stats(self) -> dict:
-        """Executor counters: host_syncs, probe_syncs (one host read per
-        bucketed wide call), dispatches, backend, sticky, epoch,
-        shape_epoch, updates, refits, pending_refit."""
+        """Executor counters (Executor.stats): host_syncs, probe_syncs
+        (one host read per bucketed wide call), dispatches, cache_size,
+        compile_ms_total, the disk store's hits and misses, sticky,
+        epoch, shape_epoch, updates, refits, pending_refit, ..."""
         return self.executor.stats()

@@ -14,11 +14,10 @@ probe, one host read of the bucket sizes (``probe_syncs``, not
     the sticky tiers and the stashed tiers equal the JAX Executor's;
   * the need probes' outputs bitwise the JAX programs';
   * several buckets form; a narrow batch skips the probe; with
-    ``row_chunk_elems=1`` the chunked run equals the unchunked one.
-
-The compile-cache test of the reference
-(``test_probe_executables_cached_per_base``) waits for the warm-start
-item: the port compiles nothing per tier.
+    ``row_chunk_elems=1`` the chunked run equals the unchunked one;
+  * after every call, the program-cache keys (backend names mapped) and
+    ``cache_size`` equal the JAX Executor's, and the need probes are
+    cached once per base (``test_probe_executables_cached_per_base``).
 """
 import numpy as np
 import pytest
@@ -86,6 +85,11 @@ class Pair:
                 {b: v[0] for b, v in t._pending.items()}), what
         st = t.stats()
         assert st["probe_syncs"] == t.probe_syncs == j.stats()["probe_syncs"]
+        # the program caches hold the same keys (backend names mapped)
+        names = {"xla": "torch"}
+        assert ({(names.get(k[0], k[0]),) + k[1:] for k in j.cache_keys()}
+                == set(t.cache_keys())), what
+        assert st["cache_size"] == j.stats()["cache_size"], what
 
     def run(self, name, rows=None, strict=False, repeat=1):
         """One call of family ``name`` on both (rows ``rows`` of its
@@ -164,12 +168,27 @@ def test_need_probe_bitwise_jax(pair, name):
     finally:
         del pair.j._call, pair.t._call
     (tfn, tout), (_, jout) = calls["t"][0], calls["j"][0]
-    assert isinstance(tfn, (TL._WindowNeedLocal, TL._KnnNeedLocal))
+    # the cached dispatcher of the probe program (exec_key tag "p")
+    assert tfn.key[3] == "p"
+    assert isinstance(tfn.fn, (TL._WindowNeedLocal, TL._KnnNeedLocal))
     jout = np.asarray(jout)
     assert jout.dtype == np.int32 and jout.shape == tuple(tout.shape)
     assert jout.tobytes() == tout.numpy().tobytes()
     assert tout.shape[-1] == 3 and tout.dim() == (3 if name == "knn5"
                                                   else 2)
+
+
+def test_probe_executables_cached_per_base(pair):
+    """One need-probe program per base, never query-sharded, the same
+    keys as the JAX Executor's (tests/test_bucketed.py)."""
+    for name in NAMES:
+        pair.run(name)
+    probes = [k for k in pair.t.cache_keys() if k[3] == "p"]
+    assert len(probes) >= 4        # range/circle x2/knn/join bases
+    assert all(not k[1] for k in probes)
+    assert len({k[2] for k in probes}) == len(probes)
+    want = {("torch",) + k[1:] for k in pair.j.cache_keys() if k[3] == "p"}
+    assert set(probes) == want
 
 
 def test_row_chunked_dispatch_equals_unchunked(built, pair):

@@ -104,6 +104,19 @@ def test_golden_replay(golden_index, golden, chunk):
     assert full.tolist() == golden["join_count"]
 
 
+@pytest.mark.parametrize("backend", ["torch", "auto"])
+def test_cache_keys_carry_backend(golden_index, backend):
+    """tests/test_backends.py: every cached program's key names the
+    executor's backend, and none is query-sharded (one device)."""
+    idx, qx, qy, rects = golden_index
+    ex = Executor(idx, EngineConfig(backend=backend), device="cpu")
+    ex.run(RangeCount(), rects)
+    keys = ex.cache_keys()
+    assert keys and all(k[0] == ex.backend.name == "torch" for k in keys)
+    assert all(not k[1] for k in keys)
+    assert ex.stats()["qshard_executables"] == 0
+
+
 # -- against the JAX engine on taxi 30k points / 16 partitions ----------
 
 @pytest.fixture(scope="module")

@@ -1325,3 +1325,253 @@ def test_gpu_scheduler_ticket_waits_for_the_device(cuda):
             got = sched.submit(*r).result(60.0)
             assert torch.cuda.current_stream().query()
             assert _same_tree(got, want)
+
+
+# -- CUDA graphs: the executor's program cache (DESIGN.md §14) -------------
+
+def capture_alone(fn, args, kw):
+    """One kernel wrapper ``fn(*args, **kw)`` captured alone into a CUDA
+    graph, after one eager call (its first use). Returns (the eager
+    output, the outputs of two replays, {kernel: launches the capture
+    recorded}). Before each replay the graph's outputs are filled with a
+    sentinel, so an element the graph did not write shows."""
+    eager = fn(*args, **kw)
+    torch.cuda.synchronize()
+    n0 = KERN.launch_counts()
+    g = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        g.capture_begin(capture_error_mode="thread_local")
+        out = fn(*args, **kw)
+        g.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    n1 = KERN.launch_counts()
+    out = out if isinstance(out, tuple) else (out,)
+    replays = []
+    for _ in range(2):
+        for o in out:
+            o.fill_(True if o.dtype == torch.bool else -7)
+        g.replay()
+        torch.cuda.synchronize()
+        replays.append(tuple(o.clone() for o in out))
+    eager = eager if isinstance(eager, tuple) else (eager,)
+    return eager, replays, {n: n1[n] - n0[n] for n in n1 if n1[n] != n0[n]}
+
+
+def launcher_cases(ex, args) -> dict:
+    """{kernel: (wrapper, args, kwargs)}: the first launch of each query
+    kernel on executor ``ex`` (``kernel_cases``), and morton on the
+    index's quantized coordinates."""
+    cases = {}
+    for name, fn, _plain, a, kw in kernel_cases(ex, *args):
+        cases.setdefault(name, (fn, a, kw))
+    b, bits = ex.spec.bounds, ex.spec.bits_per_dim
+    n = min(int(ex.index.count[0]), 4096)
+    qx = K.quantize(ex.index.x[0, :n].contiguous(), b[0], b[2], bits)
+    qy = K.quantize(ex.index.y[0, :n].contiguous(), b[1], b[3], bits)
+    cases["morton"] = (t_mo.morton_encode, (qx, qy), {})
+    return cases
+
+
+def graph_count(ex) -> int:
+    """The CUDA graphs an executor holds."""
+    from repro_torch.core.executor import _Graph
+    return sum(isinstance(r, _Graph) for d in ex._cache.values()
+               for r in d._fns.values())
+
+
+def _tup(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def _same(a, b) -> bool:
+    return all(torch.equal(u, v) for u, v in zip(_tup(a), _tup(b),
+                                                   strict=True))
+
+
+def test_gpu_each_launcher_captured_alone(cuda):
+    """Each of the seven launchers (the interval scans' cooperative
+    launches, knn_topk's occupancy-planned launch among them) captured
+    alone into a one-launch CUDA graph: both replays bitwise the eager
+    launch, and the capture recorded exactly one launch."""
+    x, y, part, _ = _small_update_case()
+    ex = T.Executor(build_index(x, y, part, device=cuda), device=cuda)
+    _, args = _families(x, y, part)
+    cases = launcher_cases(ex, args)
+    assert set(cases) == set(KERN.KERNELS)
+    for name, (fn, a, kw) in cases.items():
+        eager, replays, launched = capture_alone(fn, a, kw)
+        assert launched == {name: 1}, (name, launched)
+        for rep in replays:
+            assert _same(eager, rep), name
+
+
+def _serving_calls(args):
+    """The serving (non-strict) call of each adaptive family."""
+    rects, qx, qy, _, _, circ, polys, ne = args
+    return {
+        "range": lambda e: e.run(T.RangeQuery(), rects),
+        "circle": lambda e: e.run(T.CircleQuery(), *circ),
+        "circle_mat": lambda e: e.run(T.CircleQuery(materialize=True),
+                                      *circ),
+        "knn": lambda e: e.run(T.Knn(k=10), qx, qy),
+        "join": lambda e: e.run(T.SpatialJoin(), polys, ne),
+    }
+
+
+def test_gpu_graph_replays_match_eager_and_torch_backend(cuda):
+    """Every family, strict and serving: the first call (eager), the
+    second (captured, then replayed), two more graph replays, an
+    executor running eagerly and the torch backend (its programs graphs
+    too) are bitwise alike; the replays launch the kernels (counted per
+    capture x replays) and capture nothing new; the strict kNN (it
+    reads the host) stays eager."""
+    x, y, part, _ = _small_update_case()
+    idx = build_index(x, y, part, device=cuda)
+    g = T.Executor(idx, device=cuda)
+    e = T.Executor(idx, device=cuda)
+    e.cuda_graphs = False
+    pl = T.Executor(idx, EngineConfig(backend="torch"), device=cuda)
+    fams, args = _families(x, y, part)
+    fams.update({f"serve_{n}": f for n, f in _serving_calls(args).items()})
+    for name, f in fams.items():
+        first = f(g)
+        again = [f(g)]
+        captured = g.compile_ms_total
+        KERN.reset_launch_counts()
+        again += [f(g) for _ in range(2)]
+        launched = KERN.launch_counts()
+        assert g.compile_ms_total == captured, name
+        assert sum(launched.values()) > 0 or name in ("range", "circle",
+                                                      "circle_mat", "knn",
+                                                      "join"), name
+        for r in again:
+            assert _same(first, r), name
+        assert _same(first, f(e)), name
+        for _ in range(2):          # the second call captures
+            assert _same(first, f(pl)), name
+    assert graph_count(g) > 0 and graph_count(e) == 0
+    assert graph_count(pl) > 0
+    assert g.graph_recaptures == 0
+    strict_knn = [d for k, d in g._cache.items()
+                  if k[2] == ("knn", 10) and k[3] == "w"]
+    assert strict_knn and all(r is d.fn for d in strict_knn
+                              for r in d._fns.values())
+
+
+def test_gpu_two_graphs_of_one_pool_replay_in_reverse_order(cuda):
+    """Two graphs of one executor's pool (the point program, captured
+    first, and the range count; each captured on its second call),
+    replayed in the reverse of their capture order on new inputs each
+    time: bitwise an eager executor."""
+    x, y, part, _ = _small_update_case()
+    idx = build_index(x, y, part, device=cuda)
+    g = T.Executor(idx, device=cuda)
+    e = T.Executor(idx, device=cuda)
+    e.cuda_graphs = False
+    rng = np.random.default_rng(3)
+
+    def point(seed):
+        ix = np.random.default_rng(seed).integers(0, len(x), 64)
+        return T.PointQuery(), x[ix], y[ix]
+
+    def rcount(seed):
+        return T.RangeCount(), ds.random_rects(64, 1e-4, part.bounds,
+                                               seed=seed, centers=(x, y))
+
+    for req in (point(0), point(0), rcount(0)):
+        g.run(*req)
+    assert graph_count(g) == 1          # a signature seen once is eager
+    g.run(*rcount(0))
+    assert graph_count(g) == 2 and g._pool is not None
+    for seed in rng.integers(1, 1000, 4).tolist():
+        for req in (rcount(seed), point(seed)):
+            assert torch.equal(g.run(*req), e.run(*req))
+    assert graph_count(g) == 2
+
+
+def test_gpu_replay_after_updates_equals_fresh_build(cuda):
+    """Graphs captured on an index with delta buffers, then an insert, a
+    delete and a Refit(): the insert and the delete keep every shape, so
+    the same graphs replay (no capture, no pointer mismatch: the planes
+    are written in place) and answer bitwise as a fresh build of the
+    live points; after the re-fit too."""
+    x, y, part, u = _small_update_case()
+    g = T.Executor(build_index(x, y, part, delta_cap=1024, device=cuda),
+                   device=cuda)
+    fams, args = _families(x, y, part)
+    serve = _serving_calls(args)
+    for f in fams.values():           # strict: the sticky tiers settle
+        f(g)
+    calls = dict(serve, point=fams["point"],
+                 range_count=fams["range_count"],
+                 circle_exact=fams["circle_exact"],
+                 knn_exact=fams["knn_exact"], join_full=fams["join_full"])
+    for _ in range(2):                # capture every serving program
+        for f in calls.values():
+            f(g)
+    n_graphs, se0 = graph_count(g), g.index.shape_epoch
+
+    def check(sx, sy, svid, what):
+        fresh = T.Executor(build_index(sx, sy, part, vid=svid,
+                                       n_pad=g.index.n_pad, device=cuda),
+                           device=cuda)
+        fresh.cuda_graphs = False
+        fresh._sticky.update(g._sticky)
+        for name, f in calls.items():
+            _same_as_fresh(name, f(g), f(fresh))
+
+    ax = np.concatenate([x, u["ins"][0]])
+    ay = np.concatenate([y, u["ins"][1]])
+    g.run(T.InsertBatch(), *u["ins"])
+    assert g.index.shape_epoch == se0
+    captured = g.compile_ms_total
+    check(ax, ay, np.arange(len(ax)), "insert")
+    assert g.compile_ms_total == captured and graph_count(g) == n_graphs
+    assert g.run(T.DeleteBatch(), *u["dele"]) == u["removed"]
+    assert g.index.shape_epoch == se0
+    check(*u["surv"], "delete")
+    assert g.compile_ms_total == captured and graph_count(g) == n_graphs
+    g.run(T.Refit())
+    check(*u["surv"], "refit")
+    assert g.graph_recaptures == 0
+
+
+def test_gpu_serving_round_replays_graphs_without_sync(cuda):
+    """A steady q = 16 round through CUDA graphs under
+    torch.cuda.set_sync_debug_mode("error"): no synchronising call,
+    host_syncs +0, no capture, the kernels launched (by replays), and
+    every output bitwise an eager session's and the torch backend's."""
+    x, y = ds.make("taxi", 20000, seed=0)
+    part = fit("kdtree", x, y, 16, seed=0)
+    idx = build_index(x, y, part, device=cuda)
+    sess = SpatialServeSession(idx, device=cuda)
+    eager = SpatialServeSession(idx, device=cuda)
+    eager.executor.cuda_graphs = False
+    plain = SpatialServeSession(idx, EngineConfig(backend="torch"),
+                                device=cuda)
+    for s in (sess, eager, plain):
+        s.warmup(_serve_round(x, y, part.bounds, 16, 0, cuda))
+    sess.submit_batch(_serve_round(x, y, part.bounds, 16, 2, cuda))
+    rnd = _serve_round(x, y, part.bounds, 16, 1, cuda)
+    torch.cuda.synchronize()
+    st0, n0 = sess.stats(), graph_count(sess.executor)
+    KERN.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = sess.submit_batch(rnd)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    launched = KERN.launch_counts()
+    st = sess.stats()
+    assert st["host_syncs"] == st0["host_syncs"]
+    assert st["compile_ms_total"] == st0["compile_ms_total"]
+    assert st["cache_size"] == st0["cache_size"]
+    assert graph_count(sess.executor) == n0 > 0
+    for name in ("spline_search", "range_count", "point_probe", "knn_topk",
+                 "circle_count", "point_in_polygon"):
+        assert launched[name] > 0, name
+    for got, a, b in zip(out, eager.submit_batch(rnd),
+                         plain.submit_batch(rnd)):
+        assert _same(got, a) and _same(got, b)

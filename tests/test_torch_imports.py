@@ -33,15 +33,16 @@ def test_no_jax_or_repro_import_statement(path):
 
 def test_scan_covers_this_slice():
     """The import scan above sees the modules of the circle and join
-    path, of serving mode, of the morton kernel, of the serve scheduler
-    and of the launchers."""
+    path, of serving mode, of the morton kernel, of the serve scheduler,
+    of the launchers and of warm start's store."""
     scanned = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
     assert {"kernels/circle_filter.py", "kernels/point_in_polygon.py",
             "kernels/morton.py", "core/executor.py", "core/local_ops.py",
             "core/queries.py", "core/keys.py", "core/plan.py",
             "core/engine.py", "data/spatial.py", "serve/__init__.py",
             "serve/spatial.py", "serve/scheduler.py", "launch/__init__.py",
-            "launch/spatial.py", "launch/serve.py"} <= scanned
+            "launch/spatial.py", "launch/serve.py",
+            "core/compile_cache.py"} <= scanned
 
 
 def test_importing_the_port_loads_neither_jax_nor_repro():
@@ -56,7 +57,7 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "import repro_torch.core.executor, repro_torch.core.local_ops\n"
         "import repro_torch.core.queries, repro_torch.core.keys\n"
         "import repro_torch.serve.scheduler, repro_torch.launch.spatial\n"
-        "import repro_torch.launch.serve\n"
+        "import repro_torch.launch.serve, repro_torch.core.compile_cache\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n")

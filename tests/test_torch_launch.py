@@ -1,7 +1,8 @@
 """The port's launchers run to the end on the CPU at a tiny size:
 ``repro_torch.launch.spatial`` and ``repro_torch.launch.serve --spatial``
-with and without ``--scheduler``; the serve launcher refuses the LM mode,
-and both run on the card by default."""
+with and without ``--scheduler``, and with ``--compile-cache``; the
+serve launcher refuses the LM mode, and both run on the card by
+default."""
 import os
 import subprocess
 import sys
@@ -27,7 +28,7 @@ def test_spatial_launcher_runs_every_spec(capsys):
                  "join"):
         assert any(line.split()[0] == name and "us/query" in line
                    for line in out.splitlines()), name
-    assert "host syncs total" in out
+    assert "host syncs total" in out and "cached executables" in out
 
 
 def test_serve_rounds_after_warmup_add_no_host_sync(capsys):
@@ -35,7 +36,25 @@ def test_serve_rounds_after_warmup_add_no_host_sync(capsys):
     rounds = [line for line in capsys.readouterr().out.splitlines()
               if line.startswith("round ")]
     assert len(rounds) == 2
-    assert all("(host_syncs +0)" in line for line in rounds), rounds
+    assert all("(host_syncs +0, " in line for line in rounds), rounds
+    # steady rounds realize no new program: the cache size holds
+    caches = {line.split("cache ")[1] for line in rounds}
+    assert len(caches) == 1, rounds
+
+
+@pytest.mark.parametrize("run", [
+    lambda d: spatial.main(TINY + ["--queries", "8", "--partitions", "16",
+                                   "--compile-cache", d]),
+    lambda d: serve.main(["--spatial"] + TINY + ["--batch", "8", "--rounds",
+                                                 "1", "--compile-cache", d]),
+], ids=["spatial", "serve"])
+def test_launchers_take_a_compile_cache(run, tmp_path, capsys):
+    """--compile-cache reaches EngineConfig: the store's directory is
+    made (the CPU loads no kernel library, so it stays empty)."""
+    cache = tmp_path / "cache"
+    run(str(cache))
+    assert "executables" in capsys.readouterr().out
+    assert (cache / "entries").is_dir()
 
 
 def test_serve_scheduler_runs_to_the_end(capsys):

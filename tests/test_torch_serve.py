@@ -10,7 +10,9 @@ that ``maintain()`` returns.
 
 Ported from the reference's tests/test_plan.py (zero-sync steady state,
 the fused fallback on overflow, maintain() escalation, facade and plan
-API sharing one tier) and tests/test_compaction.py (demotion and its
+API sharing one tier, equal specs sharing one cached program, eviction
+of superseded cap variants; after every step the program-cache keys
+equal the JAX Executor's) and tests/test_compaction.py (demotion and its
 back-off), plus the pruned kNN's fixed-round serving form and a mixed
 serving round at q = 16 and at q = 64 (bucketed, and tier_buckets off).
 """
@@ -53,6 +55,13 @@ def assert_same(j_out, t_out, what=""):
         assert a.tobytes() == b.tobytes(), what
 
 
+def cache_keys(ex) -> set:
+    """An executor's program-cache keys, the JAX backend names mapped to
+    the port's (xla -> torch, pallas -> cuda)."""
+    names = {"xla": "torch", "pallas": "cuda"}
+    return {(names.get(k[0], k[0]),) + k[1:] for k in ex.cache_keys()}
+
+
 def specs(name, **kw):
     """The (JAX, port) QuerySpec pair of one spec class."""
     return getattr(J, name)(**kw), getattr(T, name)(**kw)
@@ -74,6 +83,9 @@ class Pair:
             assert getattr(j, name) == getattr(t, name), (name, what)
         assert ({b: v[0] for b, v in j._pending.items()} ==
                 {b: v[0] for b, v in t._pending.items()}), what
+        # the program caches hold the same keys (eviction included)
+        assert cache_keys(j) == cache_keys(t), what
+        assert j.stats()["cache_size"] == t.stats()["cache_size"], what
 
     def run(self, name, *args, strict=False, **kw):
         js, ts = specs(name, **kw)
@@ -136,6 +148,38 @@ def test_sticky_hit_runs_without_host_sync(gauss):
     want = np.sort((x[None, :] - qx[:, None]) ** 2 +
                    (y[None, :] - qy[:, None]) ** 2, axis=1)[:, :5]
     assert np.allclose(d2, want, rtol=1e-5, atol=1e-10)
+
+
+def test_equal_specs_share_one_executable(gauss):
+    x, y, part, _, _ = gauss
+    p = pair(gauss)
+    rects = ds.random_rects(8, 1e-4, part.bounds, seed=1, centers=(x, y))
+    n0 = p.t.stats()["cache_size"]
+    p.run("RangeQuery", rects, strict=True)
+    n1 = p.t.stats()["cache_size"]
+    assert n1 > n0                      # the first run caches a program
+    # a DIFFERENT but equal spec instance hits the same cached program
+    p.run("RangeQuery", rects, strict=True, cap=None)
+    p.run("RangeQuery", rects, strict=True)
+    assert p.t.stats()["cache_size"] == n1
+
+
+def test_cache_evicts_superseded_cap_variants(gauss):
+    """Escalation must not leak one cached program per tier: after the
+    sticky tier settles, at most the sticky and initial tiers remain."""
+    x, y, part, _, _ = gauss
+    p = pair(gauss, range_cap=2, range_cand=1)
+    base = T.RangeQuery().sticky_key()
+    for sel in (1e-6, 1e-4, 1e-3, 1e-2, 1e-1):   # repeated escalation
+        rects = ds.random_rects(6, sel, part.bounds, seed=int(sel * 1e7),
+                                centers=(x, y))
+        cnt, _, ok = p.run("RangeQuery", rects, strict=True)
+        assert bool(ok.all())
+        assert (cnt.numpy() == range_oracle(x, y, rects)).all()
+        tiers = {v for _, v in p.t.cache_variants(base)}
+        assert len(tiers) <= 2, tiers            # sticky + initial only
+        assert p.t.cache_variants(base) == p.j.cache_variants(base)
+    assert p.t._sticky[base] != (2, 1)           # escalation did happen
 
 
 def test_fused_fallback_stays_exact_on_overflow(gauss):

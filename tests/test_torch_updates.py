@@ -17,12 +17,11 @@ the ``shape_epoch`` half of the capacity-growth case. Added: each
 ``mutate`` step against the reference's on converted inputs; deletes of
 float32 denormal coordinates (read as zero, as XLA:CPU reads them); kNN
 with fewer live points than k; re-fits that grow the knot width and the
-probe, and ``n_pad``.
+probe, and ``n_pad``. The program cache (DESIGN.md §14):
+``test_update_executables_cache_like_queries`` and the ``cache_keys``
+half of the capacity-growth case, each against the JAX Executor's keys.
 
-Not ported: ``test_update_executables_cache_like_queries`` and the
-``cache_keys`` half of the capacity-growth case (the executable cache is
-ROADMAP item 16: the port compiles nothing per shape);
-``test_sharded_updates_match_unsharded`` (multi-GPU, item 17);
+Not ported: ``test_sharded_updates_match_unsharded`` (multi-GPU, item 17);
 ``test_postrefit_parity_pallas_backend`` (the Pallas kernels cannot run
 on this jax, ROADMAP §3; the port's cuda backend is held against its
 torch backend on mutated indexes in tests/test_torch_gpu.py).
@@ -332,11 +331,12 @@ def test_epoch_counters_track_updates():
         assert ex.index.epoch == 3
     st, js = tex.stats(), jex.stats()
     assert st["updates"] == 2 and st["refits"] == 1
-    for key in ("host_syncs", "probe_syncs", "dispatches", "sticky",
-                "epoch", "shape_epoch", "updates", "refits",
-                "pending_refit"):
+    for key in ("host_syncs", "probe_syncs", "dispatches", "cache_size",
+                "qshard_executables", "disk_cache_hits",
+                "disk_cache_misses", "async_compiles", "sticky", "epoch",
+                "shape_epoch", "updates", "refits", "pending_refit"):
         assert st[key] == js[key], key
-    assert len(st) == 10
+    assert set(st) == set(js) and len(st) == 16
     assert not tex.maintenance_due() and not jex.maintenance_due()
     assert_leaves(jex.index, tex.index)
 
@@ -356,17 +356,50 @@ def test_capacity_growth_bumps_shape_epoch():
     assert se0 == jex.index.shape_epoch == 0
     bx, by = ds.make("gaussian", 300, seed=27)
     jex.run(J.InsertBatch(), bx, by)
+    assert all(k[5] == se0 for k in tex.cache_keys())
     tex.run(T.InsertBatch(), bx, by)     # overflows delta_cap=64: grow
     assert tex.index.shape_epoch > se0
     assert tex.index.shape_epoch == jex.index.shape_epoch
     assert tex.index.delta_cap == jex.index.delta_cap
     assert_leaves(jex.index, tex.index)
+    # the stale-epoch sweep leaves no program of the old shapes
+    assert all(k[5] == tex.index.shape_epoch for k in tex.cache_keys())
+    assert cache_keys(jex) == set(tex.cache_keys())
     fresh = T.Executor(T.build_index(
         np.concatenate([x, bx]), np.concatenate([y, by]), part,
         n_pad=tex.index.n_pad, **CPU), **CPU)
     got = tex.run(T.RangeCount(), rects)
     assert_same(fresh.run(T.RangeCount(), rects), got, "post-growth")
     assert_same(jex.run(J.RangeCount(), rects), got, "post-growth vs JAX")
+
+
+def cache_keys(jex) -> set:
+    """The JAX executor's program-cache keys, xla named torch."""
+    return {(("torch",) if k[0] == "xla" else (k[0],)) + k[1:]
+            for k in jex.cache_keys()}
+
+
+def test_update_executables_cache_like_queries():
+    """Equal-shape inserts reuse one cached update program: the cache
+    neither grows nor changes, and holds the JAX Executor's keys."""
+    x, y = ds.make("gaussian", 3000, seed=21)
+    jex = J.Executor(J.build_index(x, y, J.fit("kdtree", x, y, 4, seed=0),
+                                   delta_cap=512))
+    tex = T.Executor(T.build_index(x, y, T.fit("kdtree", x, y, 4, seed=0),
+                                   delta_cap=512, **CPU), **CPU)
+    b1x, b1y = ds.make("gaussian", 64, seed=22)
+    b2x, b2y = ds.make("gaussian", 64, seed=23)
+    for ex, M in ((jex, J), (tex, T)):
+        ex.run(M.InsertBatch(), b1x, b1y)
+    n0 = tex.stats()["cache_size"]
+    keys0 = set(tex.cache_keys())
+    for ex, M in ((jex, J), (tex, T)):
+        ex.run(M.InsertBatch(), b2x, b2y)   # same shapes: cached program
+    assert tex.stats()["cache_size"] == n0 == jex.stats()["cache_size"]
+    assert set(tex.cache_keys()) == keys0 == cache_keys(jex)
+    assert any(k[3] == "u" and k[2] == ("insert",)
+               for k in tex.cache_keys())
+    assert_leaves(jex.index, tex.index)
 
 
 def test_out_of_domain_inserts_visible_to_all_queries():
