@@ -73,7 +73,15 @@ result line):
               pruned kNN's fixed-round cost against its early exit; no
               round makes a bucketing probe (probe_syncs stays 0); the
               same round and requests on a session running eagerly
-              (bitwise equal; wall and busy beside the graphs');
+              (bitwise equal; wall and busy beside the graphs'); last,
+              a new session warmed on the round's range query, with its
+              precompile worker: two escalations of the range family
+              through maintain(), forced by whole-domain rectangles;
+              after the first, the worker must have captured the tier
+              above the new sticky one at the round's signature before
+              any request needs it; the second makes it sticky, and the
+              range query then replays that graph (no capture on the
+              serving thread; counts equal the torch backend's);
   7. warm     warm start (DESIGN.md §14): (a) each of the seven
               launchers captured alone into a one-launch CUDA graph at
               the main path's shapes (tests/test_torch_gpu.py
@@ -158,12 +166,25 @@ result line):
               ok flag: host_syncs grows only by idle maintain()'s
               reads); (b) worker mode, 8 closed-loop client threads:
               every ticket bitwise serial, host_syncs as in (a), wall,
-              req/s, p50/p99 per request, mean and max batch; (c) the
-              same with the launcher's two InsertBatch requests of 64
-              points (one before the clients, one beside them): every
-              read submitted after an insert resolved carries an epoch
-              at or above it, maintain_busy 0, write_merges, maintain
-              runs; peak memory of the phase. Launch counts are set to
+              req/s, p50/p99/max per request, mean and max batch, run
+              twice: with the precompile worker (the default config:
+              new batch widths and the tiers next to a sticky one are
+              captured on the worker, which also ran through the
+              session's serial replay and drain, started by hand; a
+              batch pads to a larger captured width, or runs as a few
+              replays of a smaller one, meanwhile), and on a session
+              with serve_async_precompile=False given the same history
+              (warmup, two serial submits of each kind, drain; every
+              capture on the serving thread);
+              per run width_fallbacks, async_compiles, the worker's
+              capture failures (must be 0), the graphs and their pool's
+              bytes, and the capture ms on each thread (the serving
+              thread's must be 0 with the worker); (c) the same, with
+              the worker, with the launcher's two InsertBatch requests
+              of 64 points (one before the clients, one beside them):
+              every read submitted after an insert resolved carries an
+              epoch at or above it, maintain_busy 0, write_merges,
+              maintain runs; peak memory of the phase. Launch counts are set to
               0 before each scheduler run and read after it (the serial
               replay is not counted);
  11. kernels  each of the seven kernels against its plain version at the
@@ -900,7 +921,75 @@ def serve_phase(index, part, x, y, dev) -> tuple:
             "serve: a q = 16 round made a bucketing probe")
     report["stats"] = {k: (str(v) if k == "sticky" else v)
                        for k, v in sess.stats().items()}
+    report["precompiled_move"] = precompiled_sticky_move(index, reqs[2],
+                                                         plain)
     return report, launches, warm_tiers, sess, plain
+
+
+def precompiled_sticky_move(index, req, plain) -> dict:
+    """Phase 6's last step: a new session warmed on the round's range
+    query ``req``, its precompile worker started, then two escalations
+    of the range family through maintain(), each forced by a request of
+    whole-domain rectangles (every query overflows every tier below the
+    top). After the first move the worker must have captured the fused
+    program of the tier above the new sticky one, at the round's
+    signature, before any request needed it; the second move makes that
+    tier sticky, and the round's range query then replays the worker's
+    graph: the serving thread captures nothing, and the counts equal the
+    torch backend's."""
+    import torch
+    from repro_torch.core.executor import _Graph
+    from repro_torch.core.plan import RangeQuery
+    from repro_torch.serve import SpatialServeSession
+
+    mv = SpatialServeSession(index, device=DEVICE)
+    ex = mv.executor
+    base = ("range",)
+    mv.warmup([req])
+    sigs = ex._cache[ex._key(base, "fused", ex._sticky[base])].sigs()
+    require(ex.start_precompiler(), "serve: the precompile worker")
+    rects = req[1]
+    whole = torch.as_tensor(np.asarray(index.key_spec.bounds, np.float32),
+                            device=rects.device)
+    big = (RangeQuery(), whole.expand(rects.shape[0], 4).contiguous())
+    tiers = [ex._sticky[base]]
+    ahead = None
+    for step in (1, 2):
+        mv.submit(*big)                   # overflows the sticky tier
+        moved = mv.maintain()
+        require(base in moved, f"serve: move {step} did not happen: {moved}")
+        tiers.append(ex._sticky[base])
+        require(ex.precompile_quiesce(300.0), "serve: the worker hung")
+        if step == 1:
+            ahead = ex._escalators[base](*tiers[-1])
+            disp = ex._cache.get(ex._key(base, "fused", ahead))
+            require(disp is not None and all(
+                isinstance(disp._fns.get(sg), _Graph) for sg in sigs),
+                f"serve: the tier {ahead} above the new sticky "
+                f"{tiers[-1]} was not captured ahead of need")
+    require(tiers[2] == ahead, f"serve: the moves went {tiers}")
+    torch.cuda.synchronize()
+    serving, compiled = ex.capture_ms["serving"], ex.async_compiles
+    out = mv.submit(*req)
+    torch.cuda.synchronize()
+    require(ex.capture_ms["serving"] == serving == 0.0,
+            "serve: the serving thread captured at the precompiled tier")
+    require(same(out[0], plain.submit(*req)[0]),
+            "serve: counts at the precompiled tier vs the torch backend")
+    st = ex.stats()
+    require(st["async_capture_errors"] == 0, "serve: worker captures "
+            "failed")
+    ex.stop_precompiler()
+    rep = {"tiers": [list(t) for t in tiers], "ahead": list(ahead),
+           "async_compiles": compiled,
+           "worker_capture_ms": ex.capture_ms["worker"],
+           "graph_pool_bytes": pool_bytes(ex)}
+    release(ex)
+    log(f"[serve] precompiled sticky move: range tiers {rep['tiers']}, the "
+        f"tier {rep['ahead']} captured by the worker before the move to "
+        f"it ({compiled} worker captures, {rep['worker_capture_ms']:.1f} "
+        "ms on the worker, 0 on the serving thread)")
+    return rep
 
 
 def wide_serve_phase(index, part, x, y, dev) -> tuple:
@@ -1572,7 +1661,7 @@ def scheduler_phase(index, part, x, y, card) -> tuple:
     scheduler's own dispatches})."""
     import torch
     from repro_torch import kernels as KERN
-    from repro_torch.core.plan import InsertBatch
+    from repro_torch.core.plan import EngineConfig, InsertBatch
     from repro_torch.launch.serve import insert_stream, scheduler_requests
     from repro_torch.serve import SpatialServeSession
     sys.path.insert(0, str(ROOT / "tests"))
@@ -1596,31 +1685,27 @@ def scheduler_phase(index, part, x, y, card) -> tuple:
                                      for k, v in ex._sticky.items()}}
     launches = {n: 0 for n in KERN.KERNELS}
 
-    def counted(fn):
-        KERN.reset_launch_counts()
-        out = fn()
-        torch.cuda.synchronize()
-        got = KERN.launch_counts()
-        for n, c in got.items():
-            launches[n] += c
-        return out, {n: c for n, c in got.items() if c}
-
     # the serial replay: each request alone through session.submit. The
     # first 64 of each kind first; the rest only if the whole replay
     # stays within SCHED_SERIAL_S
-    def replay(lo, hi):
-        out = []
-        for r in reqs[lo:hi]:
-            out.append(sess.submit(*r))
+    def replay(s, lo, hi):
+        out = [s.submit(*r) for r in reqs[lo:hi]]
+        # a device-wide sync fails while the worker captures: quiet first
+        require(s.executor.precompile_quiesce(300.0),
+                "scheduler: the precompile worker hung")
         torch.cuda.synchronize()
         return out
 
+    # the precompile worker runs through this session's whole history,
+    # the serial replay and the drain too, as a live server's would
+    # (started by hand until (b)'s scheduler starts its own)
+    require(ex.start_precompiler(), "scheduler: the precompile worker")
     st0 = ex.stats()
     t0 = time.perf_counter()
-    serial = replay(0, 4 * 64)
+    serial = replay(sess, 0, 4 * 64)
     first_s = time.perf_counter() - t0
     if first_s * n_req / (4 * 64) <= SCHED_SERIAL_S:
-        serial += replay(4 * 64, n_req)
+        serial += replay(sess, 4 * 64, n_req)
     serial_s = time.perf_counter() - t0
     st1 = ex.stats()
     report["serial"] = {
@@ -1644,9 +1729,18 @@ def scheduler_phase(index, part, x, y, card) -> tuple:
     sched = sess.scheduler(start=False)
     tickets = [sched.submit(*r) for r in reqs]
     m0, st0 = maint_syncs[0], ex.stats()
+    cap0 = dict(ex.capture_ms)
+    KERN.reset_launch_counts()
     t0 = time.perf_counter()
-    _, got = counted(sched.drain)
+    sched.drain()
     drain_s = time.perf_counter() - t0
+    # the worker's backlog (the widths and tiers the drain handed over)
+    require(ex.precompile_quiesce(300.0), "scheduler drain: the worker hung")
+    quiet_s = time.perf_counter() - t0 - drain_s
+    torch.cuda.synchronize()
+    got = {n: c for n, c in KERN.launch_counts().items() if c}
+    for n, c in got.items():
+        launches[n] += c
     st1 = ex.stats()
     batches = [e for e in sched.events if e[0] == "batch"]
     require([(e[1], e[2], e[3]) for e in batches] ==
@@ -1665,21 +1759,41 @@ def scheduler_phase(index, part, x, y, card) -> tuple:
             "scheduler drain: a dispatch read ok flags on the host")
     require(sched.stats()["maintain_busy"] == 0, "scheduler drain: busy")
     sched.close()
+    ex.stop_precompiler()
+    report["drain"].update(
+        async_compiles=ex.async_compiles, worker_quiesce_s=quiet_s,
+        capture_ms={k: ex.capture_ms[k] - cap0[k] for k in cap0},
+        graphs=graph_count(ex), graph_pool_bytes=pool_bytes(ex))
+    log(f"[scheduler] {card}: the precompile worker since warmup: "
+        f"{ex.async_compiles} captures; after the drain it went quiet in "
+        f"{quiet_s:.2f} s; capture ms in the drain serving "
+        f"{report['drain']['capture_ms']['serving']:.1f} worker "
+        f"{report['drain']['capture_ms']['worker']:.1f}; "
+        f"{report['drain']['graphs']} graphs, pool "
+        f"{report['drain']['graph_pool_bytes']} bytes")
+    report["tiers_before_worker"] = {str(k): v
+                                     for k, v in ex._sticky.items()}
     log(f"[scheduler] {card}: drain of {n_req} requests in {drain_s:.2f} s,"
         f" batches {[(e[1], e[2], e[3]) for e in batches]}, every ticket "
         f"bitwise serial; host_syncs +{report['drain']['host_syncs_added']}"
         f" (all {maint} of idle maintain()), probe_syncs "
         f"+{report['drain']['probe_syncs_added']}, launches {got}")
 
-    def worker(what, with_inserts):
+    def worker(sess, tally, what, with_inserts):
         """Worker mode: SCHED_CLIENTS closed-loop clients, and with
-        ``with_inserts`` the launcher's two InsertBatch requests."""
+        ``with_inserts`` the launcher's two InsertBatch requests; the
+        precompile worker runs when the session's config asks for it."""
+        ex = sess.executor
         out = {}
-        m0, st0 = maint_syncs[0], ex.stats()
+        m0, st0 = tally[0], ex.stats()
+        cap0 = dict(ex.capture_ms)
         torch.cuda.reset_peak_memory_stats()
         ins = []
         KERN.reset_launch_counts()
         with sess.scheduler() as sched:
+            require(ex.precompiling == ex.cfg.serve_async_precompile,
+                    f"scheduler {what}: precompile worker "
+                    f"{ex.precompiling}")
             stream = None
             if with_inserts:
                 bx, by = insert_stream(x, y, SCHED_BATCH)
@@ -1694,6 +1808,11 @@ def scheduler_phase(index, part, x, y, card) -> tuple:
             wall, done = closed_loop_clients(sched, reqs, SCHED_CLIENTS,
                                              stream)
             sched.drain()
+            quiet = ex.precompile_quiesce(300.0)
+        require(quiet, f"scheduler {what}: the precompile worker never "
+                "went quiet")
+        require(not ex.precompiling, f"scheduler {what}: close() left the "
+                "precompile worker running")
         st = sched.stats()            # closed: idle maintenance counted
         events = list(sched.events)
         torch.cuda.synchronize()
@@ -1706,20 +1825,39 @@ def scheduler_phase(index, part, x, y, card) -> tuple:
             wall_s=wall, req_per_s=n_req / wall,
             p50_us=float(np.percentile(lat, 50)),
             p99_us=float(np.percentile(lat, 99)),
+            max_us=float(lat.max()),
             mean_batch=st["mean_batch"], max_batch=st["max_batch"],
             read_batches=st["read_batches"],
             batch_widths=sorted({e[3] for e in events if e[0] == "batch"}),
             maintain_runs=st["maintain_runs"],
             maintain_busy=st["maintain_busy"],
             write_merges=st["write_merges"], writes=st["writes"],
+            width_fallbacks=st["width_fallbacks"],
+            async_compiles=st1["async_compiles"] - st0["async_compiles"],
+            async_capture_errors=(st1["async_capture_errors"]
+                                  - st0["async_capture_errors"]),
+            capture_ms={k: ex.capture_ms[k] - cap0[k] for k in cap0},
+            graphs=graph_count(ex), graph_pool_bytes=pool_bytes(ex),
             host_syncs_added=st1["host_syncs"] - st0["host_syncs"],
-            host_syncs_added_by_maintain=maint_syncs[0] - m0,
+            host_syncs_added_by_maintain=tally[0] - m0,
             probe_syncs_added=st1["probe_syncs"] - st0["probe_syncs"],
             max_memory_allocated=torch.cuda.max_memory_allocated(),
             launches={n: c for n, c in got.items() if c}, stats=st)
         require(st["maintain_busy"] == 0, f"scheduler {what}: busy")
         require(out["host_syncs_added"] == out["host_syncs_added_by_maintain"],
                 f"scheduler {what}: a dispatch read ok flags on the host")
+        require(out["async_capture_errors"] == 0,
+                f"scheduler {what}: {out['async_capture_errors']} of the "
+                "precompile worker's captures failed")
+        if ex.cfg.serve_async_precompile:
+            # no capture on the serving thread while the worker runs
+            require(out["capture_ms"]["serving"] == 0.0,
+                    f"scheduler {what}: the serving thread captured for "
+                    f"{out['capture_ms']['serving']} ms")
+        else:
+            require(out["width_fallbacks"] == 0 == out["async_compiles"]
+                    and out["capture_ms"]["worker"] == 0.0,
+                    f"scheduler {what}: a handoff without the worker")
         tickets = [d[2] for d in done]
         if not with_inserts:
             check(tickets, what)
@@ -1738,25 +1876,56 @@ def scheduler_phase(index, part, x, y, card) -> tuple:
         log(f"[scheduler] {card}: {what}: {n_req} requests from "
             f"{SCHED_CLIENTS} clients in {wall:.2f} s ({out['req_per_s']:.1f}"
             f" req/s), p50 {out['p50_us']:.0f} us, p99 {out['p99_us']:.0f} "
-            f"us, mean batch {st['mean_batch']}, max {st['max_batch']}, "
-            f"widths {out['batch_widths']}, maintain {st['maintain_runs']} "
-            f"runs ({st['maintain_busy']} busy), write_merges "
-            f"{st['write_merges']}, host_syncs +{out['host_syncs_added']} "
-            f"(all of idle maintain()), probe_syncs "
-            f"+{out['probe_syncs_added']}, max_memory_allocated "
-            f"{out['max_memory_allocated']}, launches {out['launches']}")
+            f"us, max {out['max_us']:.0f} us, mean batch {st['mean_batch']},"
+            f" max {st['max_batch']}, widths {out['batch_widths']}, "
+            f"width_fallbacks {out['width_fallbacks']}, async_compiles "
+            f"{out['async_compiles']}, worker capture failures "
+            f"{out['async_capture_errors']}, capture ms serving "
+            f"{out['capture_ms']['serving']:.1f} worker "
+            f"{out['capture_ms']['worker']:.1f}, {out['graphs']} graphs, "
+            f"graph pool {out['graph_pool_bytes']} bytes, maintain "
+            f"{st['maintain_runs']} runs ({st['maintain_busy']} busy), "
+            f"write_merges {st['write_merges']}, host_syncs "
+            f"+{out['host_syncs_added']} (all of idle maintain()), "
+            f"probe_syncs +{out['probe_syncs_added']}, max_memory_allocated"
+            f" {out['max_memory_allocated']}, launches {out['launches']}")
         return out
 
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()    # warmup, replay, drain
-    # (b) worker mode, reads only: every ticket bitwise serial
-    report["worker"] = worker("worker", False)
-    # (c) worker mode with the insert stream: read-your-writes epochs
-    report["worker_inserts"] = worker("worker + inserts", True)
+    # (b) worker mode, reads only, with the precompile worker (the
+    # default config): every ticket bitwise serial
+    report["worker"] = worker(sess, maint_syncs, "worker", False)
+    # (b) again on a session whose config keeps every capture on the
+    # serving thread (serve_async_precompile=False), with the first
+    # one's history: warmup, serial submits (two of each kind capture
+    # width 1; no maintain() runs among them), the drain
+    inline = SpatialServeSession(
+        index, EngineConfig(serve_async_precompile=False), device=DEVICE)
+    inline_syncs = maintain_syncs(inline.executor)
+    inline.warmup(reqs[:4])
+    replay(inline, 0, 8)
+    isched = inline.scheduler(start=False)
+    for r in reqs:
+        isched.submit(*r)
+    isched.drain()
+    isched.close()
+    torch.cuda.synchronize()
+    report["tiers_before_worker_inline"] = {
+        str(k): v for k, v in inline.executor._sticky.items()}
+    report["worker_inline_captures"] = worker(
+        inline, inline_syncs, "worker, no precompile worker", False)
+    release(inline.executor)
+    del inline
+    # (c) worker mode with the insert stream, with the precompile worker:
+    # read-your-writes epochs
+    report["worker_inserts"] = worker(sess, maint_syncs, "worker + inserts",
+                                      True)
     report["phase_s"] = time.perf_counter() - t_phase
     report["max_memory_allocated"] = max(
         peak, *(report[k]["max_memory_allocated"]
-                for k in ("worker", "worker_inserts")))
+                for k in ("worker", "worker_inline_captures",
+                          "worker_inserts")))
     del sess
     torch.cuda.empty_cache()
     require(all(launches[n] > 0 for n in SCHED_KERNELS),

@@ -56,6 +56,17 @@ moved. ``manifest()`` records every
 realized (exec_key, signature) and ``prewarm()`` realizes them in
 another executor or process. With ``EngineConfig.compile_cache_dir``,
 the CUDA kernel libraries are kept on disk (core/compile_cache.py).
+
+The precompile worker (``start_precompiler``; the serve scheduler starts
+it in worker mode when ``EngineConfig.serve_async_precompile``) moves
+captures off the serving thread: it captures the tier above sticky and
+the demotion target after a sticky move, each (spec, width) the
+scheduler hands over (``precompile_async``), and each signature met for
+the second time, which meanwhile runs eagerly. It captures on its own
+stream, outside the executor lock, and installs a graph under the lock
+only if its program is still cached at the same shape epoch. Every
+capture of an executor, on either thread, holds the capture lock, and
+no graph is destroyed while one is open (``_retire``).
 """
 from __future__ import annotations
 
@@ -64,12 +75,14 @@ import gc
 import math
 import threading
 import time
+import weakref
+from contextlib import contextmanager
+from functools import partial
 from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch import kernels as KERN
 from repro_torch._num import (flush_denormals, mul_f32, resolve_device,
                               sub_f32)
 from repro_torch.core import keys as K
@@ -81,7 +94,8 @@ from repro_torch.core.build import LearnedSpatialIndex
 from repro_torch.core.plan import (CircleQuery, DeleteBatch, EngineConfig,
                                    InsertBatch, Knn, PointQuery, QuerySpec,
                                    RangeCount, RangeQuery, Refit,
-                                   SpatialJoin, exec_key)
+                                   SpatialJoin, UpdateSpec, exec_key)
+from repro_torch.kernels import _launches as KL
 
 # partition leaf -> the index field it holds (keys_f is derived: a cast)
 _LEAF_FIELDS = {"x": "x", "y": "y", "vid": "vid", "count": "count",
@@ -160,6 +174,31 @@ class GraphCaptureError(RuntimeError):
     """A query program could not be captured as a CUDA graph."""
 
 
+# the cyclic garbage collector stays off while any capture of any
+# executor is open (collecting another executor's graphs there would
+# free device memory inside the capture, which invalidates it);
+# gc.disable() is process-wide, so overlapping captures on two threads
+# count their holds and the last one out restores the collector
+_gc_lock = threading.Lock()
+_gc_hold = {"captures": 0, "was_on": False}
+
+
+@contextmanager
+def _gc_paused():
+    with _gc_lock:
+        if _gc_hold["captures"] == 0:
+            _gc_hold["was_on"] = gc.isenabled()
+            gc.disable()
+        _gc_hold["captures"] += 1
+    try:
+        yield
+    finally:
+        with _gc_lock:
+            _gc_hold["captures"] -= 1
+            if _gc_hold["captures"] == 0 and _gc_hold["was_on"]:
+                gc.enable()
+
+
 class _Graph:
     """One query program at one argument signature as a CUDA graph:
     static inputs, the captured launches, static outputs, the kernel
@@ -171,82 +210,86 @@ class _Graph:
     clones of the static outputs before the next replay can write them,
     so any replay order is safe."""
 
-    __slots__ = ("key", "inputs", "graph", "outputs", "launches", "ptrs")
+    __slots__ = ("key", "inputs", "graph", "outputs", "launches", "ptrs",
+                 "__weakref__")
 
-    def __init__(self, ex, key, fn, inputs):
+    def __init__(self, ex, key, fn, inputs, parts, bounds, stream=None):
         self.key = key
         self.inputs = inputs
         self.graph = self.outputs = None
         self.launches = {}
         self.ptrs = None
-        self.capture(ex, fn)
+        self.capture(ex, fn, parts, bounds, stream)
 
-    def capture(self, ex, fn) -> None:
-        """Record ``fn`` on the executor's capture stream into its pool.
-        Raises when the program cannot be captured (never falls back to
-        running it eagerly). The cyclic garbage collector is off during
-        the capture: collecting another executor's graphs there would
-        free device memory inside the capture, which invalidates it."""
-        self.graph = self.outputs = None    # the old graph goes first
-        with torch.cuda.device(ex.device):
+    def capture(self, ex, fn, parts, bounds, stream=None) -> None:
+        """Record ``fn`` on ``parts``/``bounds`` into the executor's pool:
+        on ``stream`` (the precompile worker's own, current on its
+        thread), or by default on the executor's capture stream, ordered
+        after the current one. Raises when the program cannot be
+        captured (never falls back to running it eagerly).
+
+        Every capture of an executor runs under its capture lock, so no
+        two captures into one pool or on one stream are ever open at
+        once, and no graph of the executor is destroyed meanwhile
+        (``Executor._retire``). The kernels' launches during the capture
+        go to this thread's tally, not to the global counts: the
+        capture ran none, and each replay adds them."""
+        with ex._capture_lock, _gc_paused(), torch.cuda.device(ex.device):
+            self.graph = self.outputs = None    # the old graph goes first
             cur = torch.cuda.current_stream()
-            side = ex._capture_stream()
-            side.wait_stream(cur)
+            side = ex._capture_stream() if stream is None else stream
+            if side != cur:
+                side.wait_stream(cur)
             pool = ex._graph_pool()
             g = torch.cuda.CUDAGraph()
-            before = KERN.launch_counts()
-            collecting = gc.isenabled()
-            gc.disable()
-            try:
-                with torch.cuda.stream(side):
-                    g.capture_begin(pool=pool,
-                                    capture_error_mode="thread_local")
-                    try:
-                        out = fn(ex.parts, ex.bounds, *self.inputs)
-                    except BaseException:
+            with KL.tally() as launched:
+                try:
+                    with torch.cuda.stream(side):
+                        g.capture_begin(pool=pool,
+                                        capture_error_mode="thread_local")
                         try:
-                            g.capture_end()
-                        except Exception:
-                            pass
-                        raise
-                    g.capture_end()
-            except Exception as e:
-                raise GraphCaptureError(f"CUDA graph capture of "
-                                        f"{self.key} failed: {e}") from e
-            finally:
-                if collecting:
-                    gc.enable()
-                # the capture recorded its launches and ran none: they
-                # count when a replay runs them
-                after = KERN.launch_counts()
-                delta = {n: after[n] - before[n] for n in after
-                         if after[n] != before[n]}
-                for n, d in delta.items():
-                    KERN.KERNELS[n].launches -= d
-            cur.wait_stream(side)
-        self.graph, self.outputs, self.launches = g, out, delta
-        self.ptrs = _plane_ptrs(ex)
+                            out = fn(parts, bounds, *self.inputs)
+                        except BaseException:
+                            try:
+                                g.capture_end()
+                            except Exception:
+                                pass
+                            raise
+                        g.capture_end()
+                except Exception as e:
+                    g = None        # destroyed here, under the lock
+                    raise GraphCaptureError(f"CUDA graph capture of "
+                                            f"{self.key} failed: {e}") from e
+            if side != cur:
+                cur.wait_stream(side)
+            self.graph, self.outputs, self.launches = g, out, launched
+            self.ptrs = _plane_ptrs(parts, bounds)
+            ex._graphs.add(self)
+            ex._reap()
 
     def __call__(self, ex, fn, args):
-        if self.ptrs != _plane_ptrs(ex):
+        if self.ptrs != _plane_ptrs(ex.parts, ex.bounds):
             # a plane was swapped, not written in place: capture again
             t0 = time.perf_counter()
-            self.capture(ex, fn)
-            ex.compile_ms_total += (time.perf_counter() - t0) * 1e3
+            self.capture(ex, fn, ex.parts, ex.bounds)
+            ex._captured((time.perf_counter() - t0) * 1e3, worker=False)
             ex.graph_recaptures += 1
         for static, a in zip(self.inputs, args):
             static.copy_(a)
         self.graph.replay()
-        for n, d in self.launches.items():
-            KERN.KERNELS[n].launches += d
+        KL.add(self.launches)
         return _tree(torch.clone, self.outputs)
 
 
-def _plane_ptrs(ex) -> tuple:
+def _plane_ptrs(parts, bounds) -> tuple:
     """(name, pointer, shape) of every partition plane and the boxes."""
     return tuple((k, v.data_ptr(), tuple(v.shape))
-                 for k, v in sorted(ex.parts.items())) + \
-        (("bounds", ex.bounds.data_ptr(), tuple(ex.bounds.shape)),)
+                 for k, v in sorted(parts.items())) + \
+        (("bounds", bounds.data_ptr(), tuple(bounds.shape)),)
+
+
+# the executor whose precompile worker runs on this thread
+_PC_THREAD = threading.local()
 
 
 class _Dispatch:
@@ -262,10 +305,13 @@ class _Dispatch:
     set-up of its launchers happens outside a capture); the second
     copies its arguments into static inputs, captures the program on
     them and replays it (that call's result); each later call copies
-    in, replays and returns clones of the outputs. Update
-    programs, programs that read the host (``host_reads``) and calls
-    with an empty argument run eagerly; on the CPU every realization is
-    the program itself. ``compile_ms_total`` counts capture time."""
+    in, replays and returns clones of the outputs. While the executor's
+    precompile worker runs, the second call captures nothing on the
+    calling thread: it hands the capture to the worker and runs eagerly
+    until the worker installs the graph. Update programs, programs that
+    read the host (``host_reads``) and calls with an empty argument run
+    eagerly; on the CPU every realization is the program itself.
+    ``compile_ms_total`` counts capture time."""
 
     __slots__ = ("ex", "key", "fn", "prefix", "_fns")
 
@@ -290,10 +336,20 @@ class _Dispatch:
                 and not self.fn.host_reads
                 and all(math.prod(s) > 0 for s, _ in sig))
 
+    def warmed(self, sig) -> bool:
+        """Whether a call at ``sig`` runs a finished realization: its
+        CUDA graph where the signature is graphed, else the program."""
+        real = self._fns.get(sig)
+        if isinstance(real, _Graph):
+            return True
+        return real is not None and not self._graphed(sig)
+
     def _capture(self, sig, inputs) -> None:
+        ex = self.ex
         t0 = time.perf_counter()
-        self._fns[sig] = _Graph(self.ex, self.key, self.fn, inputs)
-        self.ex.compile_ms_total += (time.perf_counter() - t0) * 1e3
+        self._fns[sig] = _Graph(ex, self.key, self.fn, inputs, ex.parts,
+                                ex.bounds)
+        ex._captured((time.perf_counter() - t0) * 1e3, worker=False)
 
     def __call__(self, *args):
         q = args[self.prefix:]
@@ -302,6 +358,10 @@ class _Dispatch:
         if isinstance(real, _Graph):
             return real(self.ex, self.fn, q)
         if real is not None and self._graphed(sig):
+            if self.ex.precompiling:
+                # the worker captures; this call stays eager
+                self.ex._pc_capture(self, sig)
+                return self.fn(*args)
             # the signature's second call: capture, then replay
             inputs = tuple(torch.empty_like(a) for a in q)
             self._capture(sig, inputs)
@@ -311,16 +371,20 @@ class _Dispatch:
 
     def warm(self, sig: Tuple) -> bool:
         """Realize one signature without a query: on the card, capture
-        from zero-filled inputs (after one eager run on them, so every
-        first-use set-up happens before the capture). Returns True when
-        work actually happened."""
+        its CUDA graph from zero-filled inputs (after one eager run on
+        them, so every first-use set-up happens before the capture),
+        also where the signature already ran eagerly. On the precompile
+        worker's thread the capture runs there (``Executor._warm_async``).
+        Returns True when work actually happened."""
         sig = tuple((tuple(int(d) for d in s), str(d)) for s, d in sig)
-        if sig in self._fns:
+        ex = self.ex
+        if ex._on_worker():
+            return ex._warm_async(self, sig)
+        if self.warmed(sig):
             return False
         if not self._graphed(sig):
             self._fns[sig] = self.fn
             return True
-        ex = self.ex
         inputs = tuple(torch.zeros(s, dtype=getattr(torch, d),
                                    device=ex.device) for s, d in sig)
         self.fn(ex.parts, ex.bounds, *inputs)
@@ -328,8 +392,11 @@ class _Dispatch:
         return True
 
     def drop(self) -> None:
-        """Drop every realization (an evicted key frees its graphs)."""
+        """Drop every realization (an evicted key frees its graphs, once
+        no capture of the executor is open)."""
+        dead = list(self._fns.values())
         self._fns.clear()
+        self.ex._retire(dead)
 
 
 def _pad_rows(args, n: int):
@@ -391,9 +458,29 @@ class Executor:
         # -- the program cache (DESIGN.md §14) ----------------------------
         self._cache = {}      # exec_key -> _Dispatch
         self.compile_ms_total = 0.0  # wall spent capturing CUDA graphs
+        # the same wall by the thread that captured: the serving side's
+        # (the caller of run) and the precompile worker's
+        self.capture_ms = {"serving": 0.0, "worker": 0.0}
         self.graph_recaptures = 0    # captures redone: a plane moved
         self._pool = None     # the graphs' shared memory pool
         self._stream = None   # the side stream graphs are captured on
+        # every capture of this executor, on any thread, holds this lock
+        # (ordered after self._lock: a thread holding it never waits on
+        # self._lock), and so does every destruction of its graphs
+        self._capture_lock = threading.RLock()
+        self._graphs = weakref.WeakSet()  # live _Graphs (they hold the pool)
+        self._graveyard = []  # dropped _Graphs awaiting the capture lock
+        # -- the precompile worker (DESIGN.md §14, async precompilation) -
+        self.async_compiles = 0      # realizations done by the worker
+        self.async_capture_errors = 0  # its captures that raised
+        self._pc_thread = None
+        self._pc_stop = None
+        self._pc_q = None
+        self._pc_seen = set()
+        self._pc_done = set()
+        self._pc_stream = None  # the worker's own stream (on the card)
+        self._serve_stream = None  # the stream of the thread that last
+                                   # handed the worker a job
         self._disk = None     # the on-disk kernel-library store
         if self.cfg.compile_cache_dir:
             from repro_torch.core.compile_cache import (CompileCache,
@@ -446,14 +533,37 @@ class Executor:
         return self._stream
 
     def _graph_pool(self):
-        """The memory pool every graph of this executor shares. A pool
-        lives while a graph holds it: once the last one is gone (evicted,
-        or a capture failed), the next capture opens a new pool."""
+        """The memory pool every graph of this executor shares (capture
+        lock held). A pool lives while a graph holds it: once the last
+        one is gone (evicted, or a capture failed), the next capture
+        opens a new pool."""
         if self._pool is None or not any(
-                isinstance(r, _Graph) and r.graph is not None
-                for d in self._cache.values() for r in d._fns.values()):
+                g.graph is not None for g in list(self._graphs)):
             self._pool = torch.cuda.graph_pool_handle()
         return self._pool
+
+    def _captured(self, ms: float, worker: bool) -> None:
+        self.compile_ms_total += ms
+        self.capture_ms["worker" if worker else "serving"] += ms
+
+    def _retire(self, dead: list) -> None:
+        """Destroy the _Graphs of ``dead`` (a list it empties) where no
+        capture of this executor is open: at once when the capture lock
+        is free, else when the open capture closes (``_reap``). So a
+        drop, an eviction or a release never frees graph memory, or
+        decides the pool is unused, under the worker's open capture."""
+        self._graveyard.extend(r for r in dead if isinstance(r, _Graph))
+        dead.clear()
+        if self._capture_lock.acquire(blocking=False):
+            try:
+                self._reap()
+            finally:
+                self._capture_lock.release()
+
+    def _reap(self) -> None:
+        """Destroy the retired graphs (capture lock held)."""
+        while self._graveyard:
+            self._graveyard.pop()
 
     def _drop(self, key) -> None:
         self._cache.pop(key).drop()
@@ -462,13 +572,18 @@ class Executor:
         """Drop every cached program with its CUDA graphs and give their
         memory pool back to the card. The next call at each signature
         realizes its program again (eager first, captured second);
-        sticky tiers and the index stay."""
+        sticky tiers and the index stay. Waits for an open capture of
+        the precompile worker to close before it empties the
+        allocator's cache; a graph the worker captured meanwhile is not
+        installed."""
         with self._lock:
             for key in list(self._cache):
                 self._drop(key)
-            self._pool = None
-            if self.device.type == "cuda":
-                torch.cuda.empty_cache()
+            with self._capture_lock:
+                self._reap()
+                self._pool = None
+                if self.device.type == "cuda":
+                    torch.cuda.empty_cache()
 
     def _evict(self, base):
         """Drop superseded cap-variants: keep the sticky and initial
@@ -701,7 +816,8 @@ class Executor:
             for sig in sigs.values():
                 self._exercise_one(base, sig)
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            with self._capture_lock:    # a device-wide wait: never
+                torch.cuda.synchronize(self.device)  # inside a capture
         self._pending = pending
 
     def _exercise_one(self, base, sig) -> None:
@@ -784,6 +900,43 @@ class Executor:
         return [self.run(req[0], *req[1:], strict=strict)
                 for req in requests]
 
+    def run_rows(self, spec: QuerySpec, *args, rows: int):
+        """``run(spec, *args)`` in serving mode as consecutive calls on
+        ``rows``-row slices of the batch (tensors), the last slice
+        padded with its own row 0 (a real query) and trimmed, outputs
+        concatenated: bitwise one call, because each output row depends
+        only on its row and the tier (as ``_fused_chunked`` relies on).
+        The serve scheduler runs a batch this way at a width whose CUDA
+        graphs are captured. The ok flags the slices stash are merged,
+        so ``maintain()`` sees the whole batch's. An adaptive family
+        with no sticky tier yet runs as one call (its strict loop could
+        settle a tier per slice). Thread-safe."""
+        if isinstance(spec, UpdateSpec):
+            raise TypeError("run_rows serves queries, not updates")
+        base = spec.sticky_key()
+        with self._lock:
+            n = int(args[0].shape[0])
+            adaptive = not isinstance(spec, (PointQuery, RangeCount)) and \
+                getattr(spec, "mode", "windowed") not in ("exact", "full")
+            if rows >= n or (adaptive and base not in self._sticky):
+                return self.run(spec, *args)
+            outs, oks = [], []
+            for s in range(0, n, rows):
+                part = tuple(a[s:s + rows] for a in args)
+                tail = rows - int(part[0].shape[0])
+                if tail:
+                    part = _pad_rows(part, tail)
+                self._pending.pop(base, None)
+                out = self.run(spec, *part)
+                outs.append(_tree(lambda a: a[:rows - tail], out)
+                            if tail else out)
+                if base in self._pending:
+                    oks.append(self._pending[base])
+            if oks and all(t == oks[0][0] for t, _ in oks):
+                self._pending[base] = (oks[0][0],
+                                       torch.cat([ok for _, ok in oks]))
+            return _tree(lambda *a: torch.cat(a), *outs)
+
     def maintain(self) -> dict:
         """Deferred re-tuning, off the serving hot path: read the ok
         flags that serving calls stashed; escalate a sticky tier that
@@ -844,10 +997,14 @@ class Executor:
         cached programs), backend, qshard_executables (0 until
         multi-GPU, ROADMAP item 17), compile_ms_total (capture time),
         disk_cache_hits and disk_cache_misses (the kernel-library store's,
-        process-level; 0 without a cache directory), async_compiles (0
-        until the precompile worker, item 16b), sticky tiers, the
-        index's epoch and shape_epoch, applied updates and re-fits, and
-        the partitions with a re-fit pending."""
+        process-level; 0 without a cache directory), async_compiles (the
+        precompile worker's realizations: CUDA graphs on the card),
+        sticky tiers, the index's epoch and shape_epoch, applied updates
+        and re-fits, and the partitions with a re-fit pending: the
+        reference's 16 keys. One more, async_capture_errors, counts the
+        worker's captures that raised (the reference has no captures);
+        a serving run never sees them, it stays eager at that
+        signature."""
         hits = misses = 0
         if self._disk is not None:
             from repro_torch.kernels import _build
@@ -861,13 +1018,14 @@ class Executor:
                 "compile_ms_total": round(self.compile_ms_total, 1),
                 "disk_cache_hits": hits,
                 "disk_cache_misses": misses,
-                "async_compiles": 0,
+                "async_compiles": self.async_compiles,
                 "sticky": dict(self._sticky),
                 "epoch": self.index.epoch,
                 "shape_epoch": self.index.shape_epoch,
                 "updates": self.updates,
                 "refits": self.refits,
-                "pending_refit": sorted(self._refit_pending)}
+                "pending_refit": sorted(self._refit_pending),
+                "async_capture_errors": self.async_capture_errors}
 
     @property
     def epoch(self) -> int:
@@ -880,13 +1038,345 @@ class Executor:
         calls, or occupancy-scheduled re-fits."""
         return bool(self._pending) or bool(self._refit_pending)
 
+    # -- the precompile worker (DESIGN.md §14, async precompilation) ----
+
     @property
     def precompiling(self) -> bool:
-        """Whether a background precompile worker is running: never yet
-        (the worker and the scheduler's warm-width handoff are ROADMAP
-        item 16b). The serve scheduler reads it to decide its batch
-        width."""
+        """Whether the precompile worker is running. The serve scheduler
+        reads it to decide its batch width."""
+        return self._pc_thread is not None
+
+    def start_precompiler(self) -> bool:
+        """Start the background thread that realizes the predictable
+        next programs off the serving thread: the escalation tier above
+        sticky and the demotion target after a sticky move, each (spec,
+        width) the serve scheduler hands over, and each signature met
+        for the second time. On the card a realization is a CUDA graph
+        capture, on the worker's own stream, under the capture lock;
+        meanwhile no capture runs on the serving thread. While it runs,
+        a device-wide ``torch.cuda.synchronize()`` fails during its
+        captures: callers wait on events or streams, or quiesce first.
+        Idempotent: returns True when a thread was actually started."""
+        if self._pc_thread is not None:
+            return False
+        import queue
+        self._pc_q = queue.Queue()
+        self._pc_stop = threading.Event()
+        t = threading.Thread(target=self._pc_loop, daemon=True,
+                             name="executor-precompile")
+        self._pc_thread = t
+        t.start()
+        return True
+
+    def stop_precompiler(self) -> None:
+        """Stop the worker and join it: a capture it has open finishes
+        first (and installs only if its program is still cached). Jobs
+        still queued are dropped."""
+        if self._pc_thread is None:
+            return
+        self._pc_stop.set()
+        self._pc_q.put(None)
+        self._pc_thread.join(timeout=60)
+        self._pc_thread = None
+        self._pc_seen = set()
+
+    def _on_worker(self) -> bool:
+        return getattr(_PC_THREAD, "ex", None) is self
+
+    def _pc_submit(self, label, thunk):
+        if self._pc_thread is None or label in self._pc_seen:
+            return None
+        if self.device.type == "cuda":
+            # the worker's device work is ordered after what this
+            # thread queued so far (the planes it reads)
+            self._serve_stream = torch.cuda.current_stream(self.device)
+        self._pc_seen.add(label)
+        self._pc_q.put((label, thunk))
+        return label
+
+    def precompile_done(self, label) -> bool:
+        """Has a precompile job (by the label ``precompile_async``
+        returned) finished?"""
+        return label in self._pc_done
+
+    def precompile_quiesce(self, timeout: float = 60.0) -> bool:
+        """Block until every enqueued precompile job has finished (or
+        the timeout passes; returns False then)."""
+        if self._pc_thread is None:
+            return True
+        deadline = time.perf_counter() + timeout
+        while time.perf_counter() < deadline:
+            if all(lbl in self._pc_done for lbl in tuple(self._pc_seen)):
+                return True
+            time.sleep(0.002)
         return False
+
+    def _pc_loop(self):
+        _PC_THREAD.ex = self
+        while not self._pc_stop.is_set():
+            item = self._pc_q.get()
+            if item is None or self._pc_stop.is_set():
+                break
+            label, thunk = item
+            try:
+                # the job captures OUTSIDE the executor lock (it takes it
+                # briefly to find its programs and to install a graph);
+                # a failed speculative job never takes serving down
+                self.async_compiles += int(thunk() or 0)
+            except GraphCaptureError:
+                self.async_capture_errors += 1
+            except Exception:
+                pass
+            self._pc_done.add(label)
+
+    def precompile_async(self, spec: QuerySpec, *args):
+        """Feed one predicted next (spec, argument shapes) to the worker,
+        which realizes exactly the programs the steady path would run at
+        those shapes (``_warm_targets``: only the arguments' shapes and
+        dtypes are read, so a zero-stride array will do). It runs no
+        query, so results are unaffected; only WHERE the capture happens
+        moves. Returns a label to poll with ``precompile_done``, or None
+        (no worker, or already enqueued)."""
+        if (self._pc_thread is None or not isinstance(spec, QuerySpec)
+                or isinstance(spec, UpdateSpec)):
+            return None
+        shapes = _Dispatch.sig_of(args)
+        epoch = self.index.shape_epoch
+        return self._pc_submit(("spec", spec, shapes, epoch),
+                               partial(self._pc_warm_spec, spec, shapes,
+                                       epoch))
+
+    def _pc_capture(self, disp: _Dispatch, sig) -> None:
+        """Hand a signature's capture to the worker (its second call)."""
+        self._pc_submit(("sig", disp.key, sig), partial(disp.warm, sig))
+
+    def _pc_warm_spec(self, spec, shapes, epoch) -> int:
+        with self._lock:
+            if self.index.shape_epoch != epoch:
+                return 0                    # stale: install nothing
+            targets = [(self._compile(key, make_fn), sig) for key, make_fn,
+                       sig in self._warm_targets(spec, shapes)]
+        return sum(bool(d.warm(sig)) for d, sig in targets)
+
+    def _pc_neighbors(self, base) -> None:
+        """After a sticky move: warm the adjacent ladder tiers (the next
+        escalation and the demotion target) at the signatures this
+        base's fused programs have seen, so the NEXT tier change finds
+        them realized (captured, on the card). On the card the new
+        sticky tier itself too, first: there a program not yet captured
+        runs eagerly, at about a capture's host time per call, where the
+        reference's next request compiles it once."""
+        sticky = self._sticky.get(base)
+        if sticky is None:
+            return
+        sigs = set()
+        for k, v in self._cache.items():
+            if k[2] == tuple(base) and k[3] == "fused":
+                sigs.update(v.sigs())
+        if not sigs:
+            return
+        epoch = self.index.shape_epoch
+        tiers = [rule(*sticky) for rule in (self._escalators.get(base),
+                                            self._demoters.get(base))
+                 if rule is not None]
+        tiers = [t for t in tiers if t != sticky]
+        if self.cuda_graphs:
+            tiers.insert(0, sticky)
+        for tier in tiers:
+            self._pc_submit(("tier", tuple(base), tier, epoch,
+                             tuple(sorted(sigs))),
+                            partial(self._pc_warm_tier, tuple(base), tier,
+                                    sorted(sigs), epoch))
+
+    def _pc_warm_tier(self, base, tier, sigs, epoch) -> int:
+        with self._lock:
+            op = self._op_for(base)
+            if op is None or self.index.shape_epoch != epoch:
+                return 0
+            disp = self._compile(self._key(base, "fused", tier),
+                                 lambda: op.fused(*tier))
+        return sum(bool(disp.warm(sig)) for sig in sigs)
+
+    def _worker_stream(self):
+        """The worker's own stream, at the least priority the card
+        offers (the default stream's, which serving runs on: CUDA has
+        none lower); a stream of its own, so serving kernels never queue
+        behind the worker's work."""
+        if self._pc_stream is None:
+            least, _greatest = torch.cuda.Stream.priority_range()
+            self._pc_stream = torch.cuda.Stream(self.device, priority=least)
+        return self._pc_stream
+
+    def _live(self, disp: _Dispatch) -> bool:
+        """Is ``disp`` still this executor's, at the current shape epoch
+        (executor lock held)?"""
+        return (self._cache.get(disp.key) is disp
+                and disp.key[5] == self.index.shape_epoch)
+
+    def _warm_async(self, disp: _Dispatch, sig) -> bool:
+        """``disp.warm(sig)`` on the worker's thread. Under the executor
+        lock: is the program still cached, and what is left to do; a
+        graph needs the planes, taken as they are. Outside it, on the
+        worker's stream: one eager run on zero inputs where the program
+        never ran at these shapes (a neighbour tier, a new width) or the
+        worker has not run any program yet (every first-use set-up, of
+        the process and of this thread, happens outside a capture), then
+        the capture, under the capture lock. A signature the serving
+        thread already ran needs no eager run: an eager run costs about
+        a capture's host time, and the serving thread runs eagerly until
+        the graph is installed. Under the executor lock again: install
+        the graph, if its program is still cached at the same shape
+        epoch and the planes have not moved; else it is dropped."""
+        with self._lock:
+            if not self._live(disp) or disp.warmed(sig):
+                return False
+            if not disp._graphed(sig):
+                disp._fns[sig] = disp.fn
+                return True
+            ran = sig in disp._fns           # eagerly, on the serving side
+            parts, bounds = dict(self.parts), self.bounds
+        ws = self._worker_stream()
+        serve = self._serve_stream or torch.cuda.default_stream(self.device)
+        with torch.cuda.device(self.device):
+            # static inputs belong to the stream the graph replays on
+            with torch.cuda.stream(serve):
+                inputs = tuple(torch.empty(s, dtype=getattr(torch, d),
+                                           device=self.device)
+                               for s, d in sig)
+            with torch.cuda.stream(ws):
+                ws.wait_stream(serve)
+                if not ran or not getattr(_PC_THREAD, "primed", False):
+                    zeros = tuple(torch.zeros(s, dtype=getattr(torch, d),
+                                              device=self.device)
+                                  for s, d in sig)
+                    disp.fn(parts, bounds, *zeros)
+                    del zeros
+                    _PC_THREAD.primed = True
+                t0 = time.perf_counter()
+                g = _Graph(self, disp.key, disp.fn, inputs, parts, bounds,
+                           stream=ws)
+                ms = (time.perf_counter() - t0) * 1e3
+                done = torch.cuda.Event()
+                done.record(ws)
+            # the worker's stream idle before the graph is installed (an
+            # event wait: a host wait on this thread alone, which the
+            # serving thread's sync-debug mode does not count)
+            done.synchronize()
+        with self._lock:
+            self._captured(ms, worker=True)
+            if (self._live(disp) and not disp.warmed(sig)
+                    and g.ptrs == _plane_ptrs(self.parts, self.bounds)):
+                disp._fns[sig] = g
+                return True
+            dead = [g]
+            del g
+            self._retire(dead)
+            return False
+
+    def _warm_targets(self, spec: QuerySpec, shapes) -> list:
+        """(exec_key, make_fn, signature) of each program the steady path
+        would run for ``spec`` on arguments of ``shapes`` (the raw
+        arguments' (shape, dtype) signature). Derived from the shapes
+        alone, as each ``_run_*`` prepares its arguments, so building
+        the targets launches nothing on the device. Executor lock
+        held."""
+        out = []
+        idx, cfg, bk = self.index, self.cfg, self.backend
+        f32 = "float32"
+
+        def add(key, make_fn, sig):
+            out.append((key, make_fn, sig))
+
+        def rows(shape, width):             # (n, width) of a reshape
+            return (math.prod(shape) // width, width)
+
+        if isinstance(spec, PointQuery):
+            q = tuple(shapes[0][0])
+            add(self._key(("point",)), lambda: L._PointLocal(idx, cfg, bk),
+                ((q, f32), (tuple(shapes[1][0]), f32), (q, f32)))
+            return out
+        if isinstance(spec, (RangeCount, RangeQuery)):
+            r = rows(shapes[0][0], 4)
+            sig = ((r, f32), (r[:1], f32), (r[:1], f32))
+            if isinstance(spec, RangeCount):
+                add(self._key(("range_count",)),
+                    lambda: L._RangeCountLocal(idx, cfg, bk), sig)
+            else:
+                self._warm_adaptive(self._op_range(spec.sticky_key()), sig,
+                                    add)
+            return out
+        if isinstance(spec, CircleQuery):
+            q = tuple(shapes[0][0])
+            sig = ((q + (4,), f32), (q, f32), (q, f32), (q + (3,), f32))
+            self._warm_adaptive(
+                self._op_circle(spec.sticky_key(), spec.materialize), sig,
+                add)
+            return out
+        if isinstance(spec, Knn):
+            q = tuple(shapes[0][0])
+            if spec.mode == "exact":
+                add(self._key(("knn_exact", spec.k)),
+                    lambda: L._KnnExactLocal(idx, cfg, bk, spec.k),
+                    ((q, f32), (tuple(shapes[1][0]), f32)))
+                return out
+            self._warm_adaptive(self._op_knn(spec.sticky_key(), spec.k),
+                                ((q, f32), (tuple(shapes[1][0]), f32),
+                                 (q[:1], f32)), add)
+            return out
+        if isinstance(spec, SpatialJoin):
+            p = tuple(shapes[0][0])
+            sig = ((p, f32), (tuple(shapes[1][0]), "int32"),
+                   ((p[0], 6), f32))
+            if spec.mode == "full":
+                add(self._key(("join_full",)),
+                    lambda: L._JoinFullLocal(idx, cfg, bk), sig)
+                return out
+            self._warm_adaptive(self._op_join(spec.sticky_key()), sig, add)
+        return out
+
+    def _warm_adaptive(self, op: _AdaptiveOp, sig, add) -> None:
+        """Warm targets of one adaptive family at this signature, as
+        ``_adaptive`` dispatches: the sticky fused program (at the
+        row-chunked width the bucketed dispatch runs), plus the need
+        probe when the width takes the bucketed dispatch; the initial
+        strict window tier when no tier is sticky yet."""
+        sticky = self._sticky.get(op.base)
+        qn = int(sig[0][0][0])
+        if sticky is None:
+            tier = self._initial.get(op.base, op.initial)
+            add(self._key(op.base, "w", tier), lambda: op.window(*tier),
+                sig)
+            return
+        use_bucket = (self.cfg.tier_buckets and op.probe is not None
+                      and qn >= self.cfg.tier_bucket_min
+                      and (op.feasible is not None
+                           or op.bucketer is not None))
+        if use_bucket:
+            cand_p = (self.cfg.knn_cand if op.bucketer is not None
+                      else sticky[1])
+            add(self._key(op.base, "p", (cand_p,)),
+                lambda: op.probe(cand_p), sig)
+        cw = self._row_chunk(sticky, qn) if use_bucket else qn
+        add(self._key(op.base, "fused", sticky), lambda: op.fused(*sticky),
+            tuple(((cw,) + s[1:], d) for s, d in sig))
+
+    def warm_for(self, spec: QuerySpec, *args) -> bool:
+        """Whether a dispatch of ``spec`` at these arguments' shapes runs
+        finished realizations. The serve scheduler asks it after each
+        dispatch, to count the width warm: on the CPU always (the
+        dispatch realized its programs, as the reference's compile
+        does); on the card only when each program of ``_warm_targets``
+        is a captured CUDA graph (or one that never graphs), not after
+        a dispatch that ran eagerly."""
+        if not self.cuda_graphs:
+            return True
+        with self._lock:
+            for key, _make, sig in self._warm_targets(
+                    spec, _Dispatch.sig_of(args)):
+                disp = self._cache.get(key)
+                if disp is None or not disp.warmed(sig):
+                    return False
+        return True
 
     # -- the mutable index (DESIGN.md §11) ---------------------------------
 
@@ -1306,6 +1796,10 @@ class Executor:
             # a new tier starts its demotion clock from zero
             self._ok_streak[base] = 0
             self._evict(base)
+            if self._pc_thread is not None:
+                # the adjacent ladder tiers to the worker, so the NEXT
+                # move finds them captured
+                self._pc_neighbors(base)
 
     def _maxed_both(self, cap, cand):
         return (cap >= self.index.n_pad and

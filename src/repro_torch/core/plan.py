@@ -80,6 +80,15 @@ class EngineConfig:
     compile_cache_bytes: int = 1 << 30  # size cap of the store's
                                  # entries; LRU-by-mtime eviction runs
                                  # after each store
+    serve_async_precompile: bool = True  # the scheduler's worker mode
+                                 # starts the executor's precompile
+                                 # worker, which captures the predicted
+                                 # next CUDA graphs off the serving
+                                 # thread; a batch pads to the nearest
+                                 # larger warm width until its own is
+                                 # captured. Not part of any program
+                                 # (the kernel store's fingerprint never
+                                 # reads the config)
 
     def __post_init__(self):
         if self.backend not in BACKENDS:

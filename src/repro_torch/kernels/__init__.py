@@ -2,15 +2,16 @@
 
 Every module holds the kernel's wrapper (which launches the kernel on
 CUDA tensors and runs the plain version on CPU tensors), its plain
-PyTorch version, and ``launches``, the number of kernel launches so far.
-The CUDA sources live in ``csrc/`` and are built on first use
-(``_build``).
+PyTorch version, and ``launches``, the number of kernel launches so far
+(counted through ``_launches``, exact under threads; a thread capturing
+a CUDA graph tallies its launches apart). The CUDA sources live in
+``csrc/`` and are built on first use (``_build``).
 """
 from __future__ import annotations
 
-from repro_torch.kernels import (circle_filter, knn_topk, morton,
-                                 point_in_polygon, point_probe, range_filter,
-                                 spline_search)
+from repro_torch.kernels import (_launches, circle_filter, knn_topk,
+                                 morton, point_in_polygon, point_probe,
+                                 range_filter, spline_search)
 
 # kernel name -> module holding its wrapper and launch count
 KERNELS = {
@@ -26,9 +27,9 @@ KERNELS = {
 
 def launch_counts() -> dict:
     """{kernel name: launches so far}."""
-    return {name: mod.launches for name, mod in KERNELS.items()}
+    by_module = _launches.read(KERNELS.values())
+    return {name: by_module[mod.__name__] for name, mod in KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in KERNELS.values():
-        mod.launches = 0
+    _launches.reset(KERNELS.values())

@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch._num import dist2_f32, mul_f32
+from repro_torch.kernels import _launches
 from repro_torch.kernels._args import I, P, on_cpu, ptr, stream
 from repro_torch.kernels.range_filter import range_mask
 
@@ -77,7 +78,6 @@ def circle_count(rects, s, e, circ, active, count, x, y):
     err = lib.circle_count_launch(*ptrs, nq, n_pad, c,
                                   ptr(out, "out", i32, (c, nq)), stream())
     _build.check(lib, "circle_count", err)
-    global launches
-    launches += 1
+    _launches.count(__name__)
     return out
 

@@ -34,6 +34,7 @@ import ctypes
 import torch
 
 from repro_torch._num import dist2_f32, stable_topk
+from repro_torch.kernels import _launches
 from repro_torch.kernels._args import I, P, on_cpu, ptr, stream
 
 launches = 0        # kernel launches (not plain-version calls)
@@ -109,8 +110,7 @@ def knn_topk(qx, qy, count, x, y, *, k: int):
         ptr(neg, "neg", f32, (c, nq, k)), ptr(idx, "idx", i32, (c, nq, k)),
         stream())
     _build.check(lib, "knn_topk", err)
-    global launches
-    launches += 1
+    _launches.count(__name__)
     return neg, idx
 
 

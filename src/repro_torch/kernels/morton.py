@@ -22,6 +22,7 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels import _launches
 from repro_torch.kernels._args import P, on_cpu, ptr, stream
 
 launches = 0        # kernel launches (not plain-version calls)
@@ -66,6 +67,5 @@ def morton_encode(qx: torch.Tensor, qy: torch.Tensor) -> torch.Tensor:
     err = lib.morton_encode_launch(*ptrs, ptr(out, "out", i64, (n,)), n,
                                    stream())
     _build.check(lib, "morton", err)
-    global launches
-    launches += 1
+    _launches.count(__name__)
     return out

@@ -32,6 +32,7 @@ import torch
 
 from repro_torch._num import (div_f32, flush_denormals, fma_f32,
                               sub_f32)
+from repro_torch.kernels import _launches
 from repro_torch.kernels._args import I, P, on_cpu, ptr, stream
 from repro_torch.kernels.range_filter import range_mask
 
@@ -112,6 +113,5 @@ def join_count(polys, n_edges, mbrs, s, e, active, count, x, y):
     err = lib.join_count_launch(*ptrs, pg, e_max, n_pad, c,
                                 ptr(out, "out", i32, (c, pg)), stream())
     _build.check(lib, "join_count", err)
-    global launches
-    launches += 1
+    _launches.count(__name__)
     return out

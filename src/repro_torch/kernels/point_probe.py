@@ -29,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch._num import flush_denormals
+from repro_torch.kernels import _launches
 from repro_torch.kernels._args import I, P, on_cpu, ptr, stream
 from repro_torch.kernels.spline_search import interpolate
 
@@ -164,6 +165,5 @@ def point_query(bounds, knot_keys, knot_pos, keys_f, x, y, count, qx, qy,
                                  probe, ptr(out, "out", i32, (nq,)),
                                  stream())
     _build.check(lib, "point_query", err)
-    global launches
-    launches += 1
+    _launches.count(__name__)
     return out

@@ -20,6 +20,7 @@ import ctypes
 import torch
 
 from repro_torch._num import flush_denormals
+from repro_torch.kernels import _launches
 from repro_torch.kernels._args import I, P, on_cpu, ptr, stream
 
 launches = 0        # kernel launches (not plain-version calls)
@@ -79,8 +80,7 @@ def range_count(rects, s, e, active, count, x, y):
     err = lib.range_count_launch(*ptrs, nq, n_pad, c,
                                  ptr(out, "out", i32, (c, nq)), stream())
     _build.check(lib, "range_count", err)
-    global launches
-    launches += 1
+    _launches.count(__name__)
     return out
 
 

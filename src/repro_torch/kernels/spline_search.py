@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch._num import fma_f32
+from repro_torch.kernels import _launches
 from repro_torch.kernels._args import I, P, on_cpu, ptr, stream
 
 launches = 0        # kernel launches (not plain-version calls)
@@ -138,6 +139,5 @@ def spline_search(q, knot_keys, knot_pos, radix_table, keys_f, kmin,
                                    kf, n_pad, c, probe, radix_bits,
                                    ptr(out, "out", i32, (c, nq)), stream())
     _build.check(lib, "spline_search", err)
-    global launches
-    launches += 1
+    _launches.count(__name__)
     return out

@@ -29,10 +29,31 @@ Scheduling rules:
     up to a per-spec cap (``micro_batch_caps``) clamped to
     ``serve_max_batch``. Batch widths are padded to the next power of
     two by repeating row 0 (a real, resolvable query), so results stay
-    bitwise those of serial ``submit()``. The port compiles no program
-    per width, but the width decides whether the executor takes the
-    tier-bucketed dispatch (``tier_bucket_min``) and so how the sticky
-    tiers move: the padding keeps that state the reference's.
+    bitwise those of serial ``submit()``. On the card each width is a
+    CUDA graph per program, so the padding keeps the graphs logarithmic
+    in ``serve_max_batch``; the width also decides whether the executor
+    takes the tier-bucketed dispatch (``tier_bucket_min``) and so how
+    the sticky tiers move: the padding keeps that state the reference's.
+  - Warm-width handoff (DESIGN.md §14, async precompilation): in worker
+    mode with ``EngineConfig.serve_async_precompile`` (the default) the
+    scheduler starts the executor's precompile worker. A (spec, width)
+    not yet warm is handed to the worker (``precompile_async``) and the
+    batch pads to the nearest LARGER warm width meanwhile (counted in
+    ``width_fallbacks``; ``precompile_pending`` counts the handed-over
+    widths not yet done). A width counts as warm once the worker
+    finished it, or after a dispatch at it ran finished realizations
+    (``Executor.warm_for``: on the card only a captured CUDA graph, not
+    an eager run; on the CPU every dispatch); on the card the widths the
+    executor captured before the scheduler met the signature are warm
+    from its first batch. On the card a batch pads at most
+    ``_MAX_CHUNKS``-fold, and one that no such larger warm width holds
+    runs as at most ``_MAX_CHUNKS`` replays at the largest warm width
+    below it (``Executor.run_rows``), since there an uncaptured width
+    runs eagerly, which costs about what its capture would. Extra row-0 padding and row chunks are bitwise
+    neutral, so only WHERE the capture happens moves: never on the
+    serving thread. The worker's failed captures are counted in the
+    executor's ``stats()["async_capture_errors"]``. Drain mode
+    (``start=False``) starts no worker.
   - Consecutive ``InsertBatch`` writes merge into one update dispatch
     (the ingest-stream fast path); the assigned vids are routed back per
     request. Deletes return one count each and never merge.
@@ -53,10 +74,13 @@ the scheduler safely). With ``start=False`` no thread is created and
 ``drain()`` pumps the same batch-forming code on the caller's thread.
 
 Differences from the reference: with ``bench=None`` no file is read (no
-caps: every spec coalesces to ``serve_max_batch``); there is no
-precompile handoff (``Executor.precompiling`` is False until warm
-start, ROADMAP item 16), so the width is always the power-of-two bucket
-and ``width_fallbacks`` and ``precompile_pending`` stay 0.
+caps: every spec coalesces to ``serve_max_batch``); the width handed to
+the worker is given by its shape alone (zero-stride host arrays), so
+handing it over copies nothing to the device; on the card a width is
+warm only once captured (and warm at once if the executor captured it
+before), a batch pads at most 4-fold, and it may run as a few calls at
+a smaller warm width (counted in ``width_fallbacks``; its event's width
+is the rows the calls ran).
 """
 from __future__ import annotations
 
@@ -124,6 +148,12 @@ def micro_batch_caps(bench: Union[str, dict, None], backend: str,
     return caps
 
 
+# on the card: the most replays a batch is cut into at a smaller warm
+# width (``SpatialScheduler._chunk_rows``), and the most a batch is
+# padded at a larger one (``_pick_width``)
+_MAX_CHUNKS = 4
+
+
 def _bucket(n: int) -> int:
     """Next power-of-two batch width."""
     return 1 if n <= 1 else 1 << (n - 1).bit_length()
@@ -133,6 +163,15 @@ def _dtype_name(a) -> str:
     """A numpy array's or a tensor's dtype by one name ("float32" for
     both ``np.float32`` and ``torch.float32``), so the two coalesce."""
     return str(a.dtype).removeprefix("torch.")
+
+
+def _shaped(sig, width: int) -> tuple:
+    """Stand-ins for a batch of coalescing signature ``sig`` padded to
+    ``width`` rows: zero-stride host arrays of its shapes and dtypes
+    (the executor reads only those)."""
+    return tuple(np.broadcast_to(np.zeros((), np.dtype(d)),
+                                 (width,) + tuple(shape))
+                 for shape, d in sig[1:])
 
 
 class Ticket:
@@ -195,7 +234,9 @@ class SpatialScheduler:
 
     ``bench``: a benchmark record (dict or JSON path) for the per-spec
     caps, or None for none; ``start=False``: no worker thread, the
-    caller pumps ``drain()``."""
+    caller pumps ``drain()``. ``stats()`` has the reference's keys; the
+    worker's failed captures are the executor's
+    ``stats()["async_capture_errors"]``."""
 
     def __init__(self, executor: Executor,
                  bench: Union[str, dict, None] = None,
@@ -217,8 +258,19 @@ class SpatialScheduler:
         self.write_merges = 0     # insert requests merged into a run
         self.maintain_runs = 0
         self.maintain_busy = 0    # maintain with a non-empty queue (BAD)
+        # -- the warm-width handoff (DESIGN.md §14) -------------------------
+        self.width_fallbacks = 0  # dispatches at a warm width not the
+                                  # batch's own: a larger one, or on the
+                                  # card a few calls at a smaller one
+        self._warm = {}           # coalescing sig -> warm pow2 widths
+        self._warm_epoch = executor.index.shape_epoch
+        self._pc_pending = {}     # (sig, width) -> precompile label
+        self._pc_started = False
         self._thread = None
         if start:
+            if self.cfg.serve_async_precompile:
+                # worker mode only: drain() mode stays deterministic
+                self._pc_started = executor.start_precompiler()
             self._thread = threading.Thread(
                 target=self._worker, daemon=True,
                 name="spatial-serve-scheduler")
@@ -278,15 +330,101 @@ class SpatialScheduler:
         return max(1, min(self.cfg.serve_max_batch, cap))
 
     def _pick_width(self, reqs, total: int) -> int:
-        """Batch width for a read dispatch: the power-of-two bucket. The
-        reference hands a width never dispatched before to the
-        executor's precompile worker and pads to a larger warm width
-        meanwhile; that handoff comes with the worker (ROADMAP item 16),
-        and an executor that runs one is refused until then."""
-        if self.ex.precompiling:
-            raise NotImplementedError(
-                "the scheduler's precompile handoff is not ported")
-        return _bucket(total)
+        """Batch width for a read dispatch. Default: the power-of-two
+        bucket. While the executor's precompile worker runs and this
+        (sig, bucket) is not warm yet, hand the width to the worker and
+        dispatch at the nearest LARGER warm width instead (extra row-0
+        padding is bitwise neutral: each ticket slices only its own
+        rows). Once the worker reports the width done, later batches
+        take it."""
+        width = _bucket(total)
+        if not self.ex.precompiling:
+            return width
+        self._check_epoch()
+        pend = self._pc_pending
+        for k in [k for k, lbl in pend.items()
+                  if self.ex.precompile_done(lbl)]:
+            self._warm.setdefault(k[0], set()).add(k[1])
+            del pend[k]
+        sig = reqs[0].sig
+        warm = self._warm.get(sig)
+        if warm is None:
+            warm = self._warm[sig] = self._captured_widths(sig)
+        if width in warm:
+            return width
+        if (sig, width) not in pend:
+            label = self.ex.precompile_async(reqs[0].spec,
+                                             *_shaped(sig, width))
+            if label is not None:
+                pend[(sig, width)] = label
+        bigger = [w for w in warm if w > width]
+        if self.ex.cuda_graphs:
+            # on the card padding multiplies the fused programs' device
+            # work (and from tier_bucket_min on adds the bucketed
+            # dispatch's host read): pad at most _MAX_CHUNKS-fold, else
+            # run in chunks of a smaller warm width (_chunk_rows)
+            bigger = [w for w in bigger if w <= _MAX_CHUNKS * width]
+        if bigger:
+            self.width_fallbacks += 1
+            return min(bigger)
+        return width                     # nothing warm above: as it is
+
+    def _captured_widths(self, sig) -> set:
+        """On the card, the power-of-two widths of ``sig`` whose graphs
+        the executor already holds (captured before this scheduler
+        started, by serial submits or an earlier scheduler), so a new
+        scheduler pads or chunks to them from its first batch. On the
+        CPU none: a width is warm once dispatched, as in the
+        reference."""
+        if not self.ex.cuda_graphs:
+            return set()
+        out, w = set(), 1
+        while w <= self.cfg.serve_max_batch:
+            if self.ex.warm_for(sig[0], *_shaped(sig, w)):
+                out.add(w)
+            w *= 2
+        return out
+
+    def _chunk_rows(self, sig, width: int) -> Optional[int]:
+        """On the card, for a batch whose width is not warm and that no
+        warm width up to ``_MAX_CHUNKS``-fold larger holds (``_pick_width``
+        pads to those): the largest warm width below it, when
+        at most ``_MAX_CHUNKS`` calls at it cover the batch; else None.
+        There the executor runs a width eagerly until the worker has
+        captured it, and an eager run costs about as much host time as
+        the capture the worker avoids, so the batch runs as a few
+        replays instead (``Executor.run_rows``: bitwise one call). On
+        the CPU a dispatch realizes its width at once, as the
+        reference's compile does: no chunks there."""
+        if not (self.ex.precompiling and self.ex.cuda_graphs):
+            return None
+        warm = self._warm.get(sig, ())
+        if width in warm or any(width < w <= _MAX_CHUNKS * width
+                                for w in warm):
+            return None
+        smaller = [w for w in warm if w < width]
+        if not smaller or width > _MAX_CHUNKS * max(smaller):
+            return None
+        self.width_fallbacks += 1
+        return max(smaller)
+
+    def _check_epoch(self) -> None:
+        """A shape-epoch bump evicted the programs: forget every warm
+        width and pending label."""
+        se = self.ex.index.shape_epoch
+        if se != self._warm_epoch:
+            self._warm.clear()
+            self._pc_pending.clear()
+            self._warm_epoch = se
+
+    def _mark_warm(self, sig, width: int) -> None:
+        """After a dispatch at ``width``: the width is warm if the
+        dispatch ran finished realizations (``Executor.warm_for``)."""
+        if not self.ex.precompiling:
+            return
+        self._check_epoch()
+        if self.ex.warm_for(sig[0], *_shaped(sig, width)):
+            self._warm.setdefault(sig, set()).add(width)
 
     def _pop(self, timeout: Optional[float] = None):
         with self._cv:
@@ -401,10 +539,16 @@ class SpatialScheduler:
         total = sum(r.qlen for r in reqs)
         try:
             width = self._pick_width(reqs, total)
+            rows = self._chunk_rows(reqs[0].sig, width)
+            if rows is not None:           # a few replays at a warm width
+                width = -(-total // rows) * rows
             pad = width - total
-            whole = len(reqs) == 1 and pad == 0
+            whole = len(reqs) == 1 and pad == 0 and rows is None
             args = reqs[0].args if whole else self._concat_pad(reqs, width)
-            out = self.ex.run(spec, *args)
+            if rows is None:
+                out = self.ex.run(spec, *args)
+            else:
+                out = self.ex.run_rows(spec, *args, rows=rows)
             self._device_done()
         except Exception as e:           # route the failure per request
             for r in reqs:
@@ -424,6 +568,8 @@ class SpatialScheduler:
         self.reads += total
         self.read_batches += 1
         self.max_batch = max(self.max_batch, total)
+        if rows is None:
+            self._mark_warm(reqs[0].sig, width)
         self.events.append(("batch", bench_spec_name(spec), total,
                             width, len(reqs)))
         self._finish(len(reqs))
@@ -521,6 +667,9 @@ class SpatialScheduler:
             self._thread = None
         else:
             self._form_and_run()         # flush manual-mode leftovers
+        if self._pc_started:
+            self.ex.stop_precompiler()
+            self._pc_started = False
 
     def __enter__(self):
         return self
@@ -547,10 +696,8 @@ class SpatialScheduler:
             "write_merges": self.write_merges,
             "maintain_runs": self.maintain_runs,
             "maintain_busy": self.maintain_busy,
-            # the precompile handoff's counters (no handoff: see
-            # _pick_width), kept for the reference's stats() keys
-            "width_fallbacks": 0,
-            "precompile_pending": 0,
+            "width_fallbacks": self.width_fallbacks,
+            "precompile_pending": len(self._pc_pending),
             "caps": dict(self.caps),
             "epoch": self.ex.epoch,
         }

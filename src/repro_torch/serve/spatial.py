@@ -13,7 +13,7 @@ through ``Executor.run``, so:
   - ``insert``, ``delete`` and ``refit`` mutate the resident index
     (DESIGN.md §11); queries stay exact at once;
   - ``scheduler`` opens the streaming front door over the same executor
-    (serve/scheduler.py);
+    (serve/scheduler.py), and in worker mode its precompile worker;
   - ``manifest`` and ``prewarm`` carry the realized programs (on the
     card, CUDA graphs) and sticky tiers over to another session or
     process (DESIGN.md §14).
@@ -45,7 +45,13 @@ class SpatialServeSession:
         record (dict or JSON path) for the per-spec batch caps (default:
         none, every spec coalesces to ``serve_max_batch``);
         ``start=False`` skips the worker thread: callers pump
-        ``drain()``."""
+        ``drain()``. In worker mode, with
+        ``EngineConfig.serve_async_precompile`` (the default), the
+        scheduler starts this session's executor's precompile worker,
+        which captures the CUDA graphs of new batch widths and tiers off
+        the serving thread, and its ``close()`` stops it; pass a config
+        with ``serve_async_precompile=False`` to keep every capture on
+        the serving thread."""
         return SpatialScheduler(self.executor, bench=bench, start=start)
 
     def warmup(self, requests: Sequence[Tuple]) -> None:

@@ -29,9 +29,9 @@ one dtype mapping, the index key: int64 in the port, uint32 in the
 reference (ROADMAP "Bitwise hazards"), in the update programs' key
 arguments.
 
-Not ported: ``test_async_precompile_is_bitwise_neutral`` (the precompile
-worker, ROADMAP item 16b); the reference's restart case on the pallas
-backend (the Pallas kernels cannot run on this jax, ROADMAP §3). On the
+Ported elsewhere: ``test_async_precompile_is_bitwise_neutral`` (the
+precompile worker) is in tests/test_torch_precompile.py. Not ported: the
+reference's restart case on the pallas backend (the Pallas kernels cannot run on this jax, ROADMAP §3). On the
 CPU no kernel library is loaded, so the prewarm and restart tests do not
 count disk hits (the card's restart in chip_smoke.py does).
 """

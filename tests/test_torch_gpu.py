@@ -7,8 +7,10 @@ where there is no card:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
+import gc
 import json
 import os
+import threading
 
 import numpy as np
 import pytest
@@ -1575,3 +1577,362 @@ def test_gpu_serving_round_replays_graphs_without_sync(cuda):
     for got, a, b in zip(out, eager.submit_batch(rnd),
                          plain.submit_batch(rnd)):
         assert _same(got, a) and _same(got, b)
+
+
+# -- the precompile worker (DESIGN.md §14, async precompilation) ----------
+
+class _Gate:
+    """A local program that, while it is being captured, holds the
+    capture open after recording its launches until ``go`` is set
+    (``inside`` is set once it holds); run eagerly it just runs."""
+    host_reads = False
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.inside = threading.Event()
+        self.go = threading.Event()
+
+    def __call__(self, *args):
+        out = self.fn(*args)
+        if torch.cuda.is_current_stream_capturing():
+            self.inside.set()
+            assert self.go.wait(120.0)
+        return out
+
+
+def _worker_case(dev, seed=0):
+    """A graphs-on executor on a small index, an eager executor on the
+    same index, and two request kinds at width 64 on the card: a point
+    batch and a range-count batch."""
+    x, y = ds.make("taxi", 20000, seed=0)
+    part = fit("kdtree", x, y, 16, seed=0)
+    idx = build_index(x, y, part, device=dev)
+    ex = T.Executor(idx, device=dev)
+    eager = T.Executor(idx, device=dev)
+    eager.cuda_graphs = False
+    rng = np.random.default_rng(seed)
+    ix = rng.integers(0, len(x), 64)
+    pq = (T.PointQuery(), *_on(dev, x[ix], y[ix]))
+    rq = (T.RangeCount(), *_on(dev, ds.random_rects(
+        64, 1e-4, part.bounds, seed=seed + 1, centers=(x, y))))
+    return ex, eager, pq, rq
+
+
+def _gated_worker_capture(ex, req):
+    """Start ``ex``'s precompile worker and have it capture the program
+    of ``req`` at its signature (run once eagerly first, so the worker
+    captures a signature the serving thread has seen), held open by a
+    _Gate. Returns (gate, dispatcher, signature) once the capture
+    holds."""
+    ex.run(*req)
+    spec = req[0]
+    key = ex._key(("range_count",) if isinstance(spec, T.RangeCount)
+                  else ("point",))
+    disp = ex._cache[key]
+    sig = next(iter(disp._fns))
+    gate = _Gate(disp.fn)
+    disp.fn = gate
+    ex.start_precompiler()
+    assert ex.precompile_async(*req) is not None
+    assert gate.inside.wait(120.0), "the worker's capture did not start"
+    return gate, disp, sig
+
+
+def _by_kernel(by_module) -> dict:
+    """A _Graph's launch tally {module name: n} by kernel name."""
+    return {n: by_module.get(m.__name__, 0)
+            for n, m in KERN.KERNELS.items()}
+
+
+def _pool_bytes(pool) -> int:
+    return sum(seg["total_size"]
+               for seg in torch.cuda.memory._snapshot()["segments"]
+               if tuple(seg.get("segment_pool_id", ())) == tuple(pool))
+
+
+@pytest.mark.parametrize("op", ["replay", "host_read", "event_sync",
+                                "alloc", "device_sync"])
+def test_gpu_worker_captures_while_serving_runs(cuda, op):
+    """The worker captures the range count at a signature the serving
+    thread ran once, while the serving thread, with the capture open,
+    replays the point graph (under sync-debug "error": host_syncs +0),
+    reads the host, waits on an event, allocates 256 MiB, or
+    synchronizes the device under the capture lock (a bare device-wide
+    sync fails during any capture). The capture succeeds; its graph replays bitwise the
+    eager launch; the launch counts are exact on both threads (the
+    serving thread's replays and eager run, the worker's eager run, and
+    nothing of the capture); the collector is off only while the
+    capture is open."""
+    from repro_torch.core.executor import _Graph
+    ex, eager, pq, rq = _worker_case(cuda)
+    ex.run(*pq)
+    ex.run(*pq)                           # the point graph, inline
+    gp = [d._fns for k, d in ex._cache.items() if k[2] == ("point",)][0]
+    gp = next(iter(gp.values()))
+    assert isinstance(gp, _Graph)
+    serving_ms = ex.capture_ms["serving"]
+    torch.cuda.synchronize()
+    KERN.reset_launch_counts()
+    # the serving thread's eager first call, then the worker's eager
+    # zero-input run and its capture, held open
+    gate, disp, sig = _gated_worker_capture(ex, rq)
+    assert not gc.isenabled()
+    h0, replays = ex.host_syncs, 0
+    if op == "replay":
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            outs = [ex.run(*pq) for _ in range(5)]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        replays = 5
+        assert ex.host_syncs == h0
+    elif op == "host_read":
+        outs = [ex.run(*pq)]
+        replays = 1
+        host = outs[0].tolist()
+    elif op == "event_sync":
+        ev = torch.cuda.Event()
+        ev.record()
+        ev.synchronize()
+    elif op == "alloc":
+        t = torch.empty(256 << 20, dtype=torch.uint8, device=cuda)
+        t.fill_(1)
+        assert int(t[-1]) == 1
+        del t
+    else:
+        # a device-wide sync fails while any stream captures
+        # (cudaErrorStreamCaptureUnsupported, measured): the executor's
+        # one (_exercise_families) runs under the capture lock, so it
+        # waits for the capture to close
+        def device_sync():
+            with ex._capture_lock:
+                torch.cuda.synchronize()
+
+        th = threading.Thread(target=device_sync)
+        th.start()
+        th.join(0.5)
+        assert th.is_alive()
+    gate.go.set()
+    if op == "device_sync":
+        th.join(120.0)
+        assert not th.is_alive()
+    assert ex.precompile_quiesce(120.0)
+    torch.cuda.synchronize()
+    launched = KERN.launch_counts()
+    assert gc.isenabled()
+    assert ex.async_capture_errors == 0, op
+    g = disp._fns[sig]
+    assert isinstance(g, _Graph) and ex.async_compiles == 1, op
+    # two eager runs of the range count launched what its capture
+    # recorded, each; the capture itself added nothing
+    want = {n: replays * c + 2 * w for (n, c), w in zip(
+        _by_kernel(gp.launches).items(), _by_kernel(g.launches).values())}
+    assert launched == want, (op, launched, want)
+    assert sum(g.launches.values()) > 0
+    assert ex.capture_ms["serving"] == serving_ms and \
+        ex.capture_ms["worker"] > 0
+    want = eager.run(*pq)
+    for o in outs if replays else ():
+        assert torch.equal(o, want), op
+    if op == "host_read":
+        assert host == want.tolist()
+    disp.fn = gate.fn
+    want = eager.run(*rq)
+    torch.cuda.synchronize()
+    KERN.reset_launch_counts()
+    for _ in range(2):
+        assert torch.equal(ex.run(*rq), want), op
+    torch.cuda.synchronize()
+    assert KERN.launch_counts() == {
+        n: 2 * c for n, c in _by_kernel(g.launches).items()}
+    ex.stop_precompiler()
+
+
+def test_gpu_second_call_captures_on_the_worker(cuda):
+    """With the worker running, a signature's second call captures
+    nothing on the serving thread: it runs eagerly and hands the capture
+    over; the worker installs the graph, which the third call replays.
+    Every family's serving calls, three times each: the serving thread's
+    capture time stays 0 and every result is bitwise the eager
+    executor's."""
+    from repro_torch.core.executor import _Graph
+    x, y, part, _ = _small_update_case()
+    idx = build_index(x, y, part, device=cuda)
+    ex = T.Executor(idx, device=cuda)
+    eager = T.Executor(idx, device=cuda)
+    eager.cuda_graphs = False
+    fams, args = _families(x, y, part)
+    for f in fams.values():               # strict: the tiers settle
+        f(ex)
+        f(eager)
+    assert ex.start_precompiler()
+    serving_ms = ex.capture_ms["serving"]
+    calls = dict(_serving_calls(args), point=fams["point"],
+                 range_count=fams["range_count"],
+                 knn_exact=fams["knn_exact"], join_full=fams["join_full"])
+    for name, f in calls.items():
+        want = f(eager)
+        for _ in range(2):
+            assert _same(f(ex), want), name
+        assert ex.capture_ms["serving"] == serving_ms, name
+    assert ex.precompile_quiesce(120.0)
+    n = graph_count(ex)
+    for name, f in calls.items():
+        assert _same(f(ex), f(eager)), name
+    assert graph_count(ex) == n > 0
+    assert ex.capture_ms["serving"] == serving_ms
+    assert ex.capture_ms["worker"] > 0 and ex.async_compiles > 0
+    assert ex.async_capture_errors == 0
+    fused = [d for k, d in ex._cache.items() if k[3] == "fused"]
+    assert fused and all(isinstance(r, _Graph) for d in fused
+                         for r in d._fns.values())
+    ex.stop_precompiler()
+
+
+def test_gpu_no_two_captures_of_one_executor_at_once(cuda):
+    """While the worker's capture is open, an inline capture on the same
+    executor (another thread) waits for the capture lock; a capture on
+    another executor runs meanwhile, and the collector comes back on
+    only when the last open capture closes. Both graphs replay bitwise
+    the eager launches."""
+    from repro_torch.core.executor import _Graph
+    ex, eager, pq, rq = _worker_case(cuda)
+    ex2, _, _, rq2 = _worker_case(cuda, seed=5)
+    gate, disp, sig = _gated_worker_capture(ex, rq)
+    ex.run(*pq)                           # the point program, eager
+    pdisp = [d for k, d in ex._cache.items() if k[2] == ("point",)][0]
+    psig = next(iter(pdisp._fns))
+    inline = threading.Thread(target=pdisp.warm, args=(psig,))
+    inline.start()
+    inline.join(0.5)
+    assert inline.is_alive(), "a second capture opened beside the worker's"
+    assert not isinstance(pdisp._fns[psig], _Graph)
+    gate2, _, _ = _gated_worker_capture(ex2, rq2)   # another executor
+    gate.go.set()
+    inline.join(120.0)
+    assert not inline.is_alive()
+    assert ex.precompile_quiesce(120.0)
+    assert not gc.isenabled()             # ex2's capture is still open
+    gate2.go.set()
+    assert ex2.precompile_quiesce(120.0)
+    assert gc.isenabled()
+    assert isinstance(pdisp._fns[psig], _Graph)
+    assert isinstance(disp._fns[sig], _Graph)
+    disp.fn = gate.fn
+    assert torch.equal(ex.run(*pq), eager.run(*pq))
+    assert torch.equal(ex.run(*rq), eager.run(*rq))
+    assert ex.async_capture_errors == ex2.async_capture_errors == 0
+    for e in (ex, ex2):
+        e.stop_precompiler()
+
+
+def test_gpu_release_and_stop_during_worker_capture(cuda):
+    """release() while the worker's capture is open waits for it, drops
+    every program and installs nothing the worker captured; once the
+    allocator's cache is emptied the old pool holds no memory. Then
+    stop_precompiler() while a capture is open joins the worker after
+    it, with that graph installed; nothing crashes."""
+    from repro_torch.core.executor import _Graph
+    ex, eager, pq, rq = _worker_case(cuda)
+    gate, disp, sig = _gated_worker_capture(ex, rq)
+    pool = ex._pool
+    assert pool is not None
+    th = threading.Thread(target=ex.release)
+    th.start()
+    th.join(0.5)
+    assert th.is_alive(), "release() emptied the cache under a capture"
+    gate.go.set()
+    th.join(120.0)
+    assert not th.is_alive()
+    assert ex.precompile_quiesce(120.0)
+    assert ex.cache_keys() == [] and graph_count(ex) == 0
+    assert ex.async_capture_errors == 0
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    assert _pool_bytes(pool) == 0
+    # stop during a capture: the worker finishes it first
+    ex.stop_precompiler()
+    gate, disp, sig = _gated_worker_capture(ex, rq)
+    th = threading.Thread(target=ex.stop_precompiler)
+    th.start()
+    th.join(0.5)
+    assert th.is_alive()
+    gate.go.set()
+    th.join(120.0)
+    assert not th.is_alive() and not ex.precompiling
+    assert isinstance(disp._fns[sig], _Graph)
+    disp.fn = gate.fn
+    assert torch.equal(ex.run(*rq), eager.run(*rq))
+    ex.release()
+    assert graph_count(ex) == 0
+
+
+def test_gpu_scheduler_pads_to_a_captured_width(cuda):
+    """Drain mode with the worker started by hand: an 8-wide point batch
+    runs eagerly and is not warm until the worker captured it; then a
+    3-request batch pads to the captured width 8 (a width fallback), and
+    every ticket is bitwise its serial submit. The serving thread
+    captures nothing while the worker runs."""
+    sess, reqs, serial = _scheduler_case(cuda, 80)
+    ex = sess.executor
+    points = [i for i in range(len(reqs)) if isinstance(reqs[i][0],
+                                                        T.PointQuery)]
+    sched = sess.scheduler(start=False)
+    assert not ex.precompiling
+    assert ex.start_precompiler()
+    serving_ms = ex.capture_ms["serving"]
+    tickets = []
+    for lo, hi in ((0, 8), (8, 16), (16, 19)):
+        for i in points[lo:hi]:
+            tickets.append((i, sched.submit(*reqs[i])))
+        sched.drain()
+        assert ex.precompile_quiesce(120.0)
+    widths = [e[3] for e in sched.events if e[0] == "batch"]
+    assert widths == [8, 8, 8], widths
+    st = sched.stats()
+    assert st["width_fallbacks"] == 1
+    assert ex.capture_ms["serving"] == serving_ms
+    assert ex.async_capture_errors == 0 and ex.async_compiles >= 2
+    for i, t in tickets:
+        assert _same_tree(t.result(), serial[i]), i
+    sched.close()
+    ex.stop_precompiler()
+
+
+def test_gpu_scheduler_chunks_at_a_smaller_captured_width(cuda):
+    """Drain mode with the worker started by hand, width 1 captured: a
+    2-request point batch, whose width 2 is neither warm nor held by a
+    larger warm width, runs as two width-1 replays (nothing eager at
+    width 2 on the serving thread, a width fallback), bitwise its serial
+    submits; once the worker captured width 2, the next such batch runs
+    at it."""
+    from repro_torch.core.executor import _Graph
+    sess, reqs, serial = _scheduler_case(cuda, 40)
+    ex = sess.executor
+    points = [i for i in range(len(reqs)) if isinstance(reqs[i][0],
+                                                        T.PointQuery)]
+    disp = [d for k, d in ex._cache.items() if k[2] == ("point",)][0]
+    sched = sess.scheduler(start=False)
+    assert ex.start_precompiler()
+    serving_ms = ex.capture_ms["serving"]
+    tickets = []
+    for lo, hi in ((0, 1), (1, 3)):
+        for i in points[lo:hi]:
+            tickets.append((i, sched.submit(*reqs[i])))
+        sched.drain()
+    width2 = [sg for sg in disp._fns if sg[0][0] == (2,)]
+    assert all(isinstance(disp._fns[sg], _Graph) for sg in width2)
+    assert ex.precompile_quiesce(120.0)
+    for i in points[3:5]:
+        tickets.append((i, sched.submit(*reqs[i])))
+    sched.drain()
+    widths = [e[3] for e in sched.events if e[0] == "batch"]
+    assert widths == [1, 2, 2], widths
+    assert sched.stats()["width_fallbacks"] == 1
+    assert ex.capture_ms["serving"] == serving_ms
+    assert ex.async_capture_errors == 0
+    for i, t in tickets:
+        assert _same_tree(t.result(), serial[i]), i
+    sched.close()
+    ex.stop_precompiler()
