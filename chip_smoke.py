@@ -187,7 +187,30 @@ result line):
               maintain runs; peak memory of the phase. Launch counts are set to
               0 before each scheduler run and read after it (the serial
               replay is not counted);
- 11. kernels  each of the seven kernels against its plain version at the
+ 11. mesh     the multi-GPU path at world size 1: a one-rank NCCL
+              process group in this process (a file store in a temporary
+              directory), and over the same index a meshed SpatialEngine
+              (a (1,) "data" mesh, the partitions on its part axis) and a
+              (1, 1) ("data", "query") one whose query_shard_threshold
+              (256) puts the 1,024-query and the 256-query batches on the
+              query axis, both from the initial tiers. Each phase-5
+              call three times on each (eager, captured, replayed): the
+              first of an adaptive family climbs the ladder on merged ok
+              flags and must settle at phase 5's tier; every result held
+              against phase 5's unmeshed result
+              (bitwise, or by DESIGN.md §10's compaction rule for
+              materialized ids and kNN ties), with the NCCL collectives
+              and the kernel launches of the last call (the kernels' the
+              unmeshed engine's per call, taken before the mesh's counts
+              are set to 0, so that those are the meshed engines' own),
+              each call's wall meshed beside
+              unmeshed, qshard_executables, the graphs and their pool's
+              bytes; then a q = 16 serving round on each under sync-debug
+              "error" (host_syncs +0). Meshed programs run as CUDA graphs,
+              their collectives captured with them: printed, and a capture
+              that fails raises. The earlier engines' graphs are released
+              first;
+ 12. kernels  each of the seven kernels against its plain version at the
               shapes the main path gives it (bitwise; morton on the
               quantized coordinates of the 2^23 build, at its own entry
               point, and also against core/keys.morton_encode), with its
@@ -221,11 +244,14 @@ result line):
               candidate filter, learned lookup and probe scan in one
               launch per call, a warp per query and candidate) is held
               bitwise on two launches in a row and timed, with its
-              registers, stack and spills, and beside it
+              registers, stack and spills, and once more on a shard of
+              the partitions (part_offset > 0, the upper half of the
+              planes) bitwise its plain version with the same offset;
+              beside it
               the floor of one launch on the card at its grid: an empty
               kernel (csrc/launch_floor.cu, on no query path) timed the
               same way;
- 12. denormals the four kernels that read float32 denormals as zero
+ 13. denormals the four kernels that read float32 denormals as zero
               (range_count, circle_count, knn_topk, point_in_polygon) on
               tests/test_torch_gpu.py's denormal points and queries, each
               bitwise its plain version on the card, which must equal the
@@ -2001,6 +2027,133 @@ def denormal_phase(dev) -> dict:
     return out
 
 
+MESH_QSHARD_THRESHOLD = 256     # the 1,024- and 256-query batches shard
+
+
+def mesh_phase(index, part, x, y, dev, main_path, res, lat, first_ms,
+               tiers, eng) -> tuple:
+    """Phase 11: the meshed engines at world size 1 (see the module
+    docstring). Returns (report, {kernel: launches of the meshed calls
+    and serving rounds})."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch import kernels as KERN
+    from repro_torch.core import EngineConfig, SpatialEngine
+    from repro_torch.launch import mesh as M
+    sys.path.insert(0, str(ROOT / "tests"))
+    from test_torch_gpu import meshed_match
+    t0 = time.perf_counter()
+    store = Path(tempfile.mkdtemp()) / "store"
+    rank_dev = M.init_process("cuda", init_method=f"file://{store}",
+                              world_size=1, rank=0)
+    require(dist.get_backend() == "nccl", "the mesh runs NCCL")
+    engines = {
+        "part": SpatialEngine(index, device=rank_dev, mesh=M.make_host_mesh(
+            (1,), ("data",), device=rank_dev), part_axis="data"),
+        "part_query": SpatialEngine(
+            index, EngineConfig(query_shard_threshold=MESH_QSHARD_THRESHOLD),
+            device=rank_dev, mesh=M.make_host_mesh(
+                (1, 1), ("data", "query"), device=rank_dev),
+            part_axis="data", query_axis="query"),
+    }
+    for e in engines.values():
+        require(e.executor.cuda_graphs, "meshed programs as CUDA graphs")
+    log("[mesh] world size 1, backend nccl; meshed programs run as CUDA "
+        "graphs, their NCCL collectives captured with them")
+    rep = {"graphs": True, "calls": {}, "qshard_threshold":
+           MESH_QSHARD_THRESHOLD}
+    # the unmeshed engine's launches per replay, taken before the counted
+    # window: the mesh's counts are the meshed engines' alone
+    unmeshed = {}
+    for name, (fn, _, _) in main_path.items():
+        if first_ms[name] <= 1000:
+            k0 = KERN.launch_counts()
+            fn(eng)
+            torch.cuda.synchronize()
+            k1 = KERN.launch_counts()
+            unmeshed[name] = {n: k1[n] - k0[n] for n in k1 if k1[n] > k0[n]}
+    KERN.reset_launch_counts()
+    for name, (fn, _, base) in main_path.items():
+        slow = first_ms[name] > 1000
+        row = {"unmeshed_ms": lat[name]}
+        if not slow:
+            row["unmeshed_launches"] = unmeshed[name]
+        for tag, e in engines.items():
+            how = []
+            for _ in range(3):      # eager, captured, replayed
+                m0, k0 = M.launches, KERN.launch_counts()
+                torch.cuda.synchronize()
+                c0 = time.perf_counter()
+                got = fn(e)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - c0) * 1e3
+                how.append(meshed_match(got, res[name]))
+            k1 = KERN.launch_counts()
+            row[tag] = {"match": how, "nccl_per_call": M.launches - m0,
+                        "timed": ("the third call (a replay)" if slow
+                                  else "median of 3 more replays"),
+                        "launches": {n: k1[n] - k0[n] for n in k1
+                                     if k1[n] > k0[n]},
+                        "ms": wall if slow else host_ms(lambda: fn(e), 3,
+                                                        warm=False)}
+            require(all(how), f"mesh {tag} {name}: {how}")
+            if base is not None:
+                # the strict call climbed from the initial tier, every
+                # step on merged ok flags, to phase 5's tier
+                row[tag]["tier"] = e.executor._sticky.get(base,
+                                                          "exact fallback")
+                require(row[tag]["tier"] == tiers[name],
+                        f"mesh {tag} {name}: tier {row[tag]['tier']} vs "
+                        f"unmeshed {tiers[name]}")
+            require(row[tag]["nccl_per_call"] > 0,
+                    f"mesh {tag} {name}: no collective")
+            if not slow:
+                require(row[tag]["launches"] == row["unmeshed_launches"],
+                        f"mesh {tag} {name}: launches {row[tag]['launches']}"
+                        f" vs unmeshed {row['unmeshed_launches']}")
+        rep["calls"][name] = row
+        log(f"[mesh] {name}: unmeshed {lat[name]:.3f} ms, " + ", ".join(
+            f"{t} {row[t]['ms']:.3f} ms ({row[t]['match'][-1]}, "
+            f"{row[t]['nccl_per_call']} NCCL, {row[t]['launches']}"
+            + (f", tier {row[t]['tier']}" if base is not None else "")
+            + ")" for t in engines))
+    for tag, e in engines.items():
+        ex = e.executor
+        reqs = serve_round(x, y, part, 31, dev)
+        ex.run_batch(reqs, strict=True)
+        for _ in range(2):
+            ex.run_batch(reqs)
+        h, m0 = ex.host_syncs, M.launches
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            ex.run_batch(reqs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        rep[tag] = {"serving_host_syncs": ex.host_syncs - h,
+                    "serving_nccl_per_round": M.launches - m0,
+                    "qshard_executables": ex.stats()["qshard_executables"],
+                    "graphs": graph_count(ex), "pool_bytes": pool_bytes(ex),
+                    "cache_size": len(ex.cache_keys())}
+        require(rep[tag]["serving_host_syncs"] == 0,
+                f"mesh {tag}: a serving round synced the host")
+        require(rep[tag]["graphs"] > 0, f"mesh {tag}: no CUDA graph")
+        log(f"[mesh] {tag}: {json.dumps(rep[tag])}")
+    require(rep["part"]["qshard_executables"] == 0 and
+            rep["part_query"]["qshard_executables"] > 0,
+            "qshard wrappings on the query mesh only")
+    launched = KERN.launch_counts()
+    release(*(e.executor for e in engines.values()))
+    del engines
+    dist.destroy_process_group()
+    rep["seconds"] = time.perf_counter() - t0
+    log(f"[mesh] phase {rep['seconds']:.1f} s; launches {launched}")
+    return rep, launched
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2147,7 +2300,7 @@ def main() -> int:
             f"point_1024 launched {path_launches['point_1024']}")
     launches = KERN.launch_counts()
     log(f"[main] launches {launches}")
-    # every kernel but morton, whose only entry point is its own (phase 11)
+    # every kernel but morton, whose only entry point is its own (phase 12)
     require(all(launches[n] > 0 for n in PATH_KERNELS),
             f"a kernel of the main path never launched: {launches}")
     report.update(first_call_ms=first_ms, max_memory_allocated_per_call=peak,
@@ -2340,8 +2493,16 @@ def main() -> int:
     report["scheduler"], sched_launches = scheduler_phase(index, part, x, y,
                                                           card)
 
+    phase("mesh")
+    # 11. the meshed engines at world size 1 (NCCL)
+    release(ex)
+    report["mesh"], mesh_launches = mesh_phase(
+        index, part, x, y, dev, main_path, res, lat, first_ms, tiers, eng)
+    require(all(mesh_launches[n] > 0 for n in PATH_KERNELS),
+            f"mesh launches {mesh_launches}")
+
     phase("kernels")
-    # 11. each kernel against its plain version on the inputs the main
+    # 12. each kernel against its plain version on the inputs the main
     # path gives it: every launch of one call (one per partition chunk,
     # or one per candidate set) is held bitwise against the plain
     # version, and the times, bytes and operations are those of the
@@ -2362,7 +2523,7 @@ def main() -> int:
 
     by_path = {"main": launches, "serve": serve_launches,
                "serve_wide": wide_launches, "updates": upd_launches,
-               "scheduler": sched_launches}
+               "scheduler": sched_launches, "mesh": mesh_launches}
 
     def launch_floor(n, blocks, threads) -> dict:
         """The card's floor per launch: an empty kernel
@@ -2530,6 +2691,22 @@ def main() -> int:
         err = max(err, int((got - want).abs().max()))
     t = timed(lambda: PP.point_query(*pq_args, **pq_kw), 100, POINT_TRACE)
     pt = timed(lambda: PP.point_query_plain(*pq_args, **pq_kw), 10)
+    # a meshed rank's launch: the upper half of the partitions as its
+    # shard (part_offset > 0; at world size 1 the offset is always 0)
+    off = p_total // 2
+    sh_args = (ex.bounds, *(a[off:].contiguous() for a in pq_args[1:7]),
+               qxt, qyt, qk)
+    sh_kw = dict(pq_kw, part_offset=off)
+    sh_want = PP.point_query_plain(*sh_args, **sh_kw)
+    sh_got = PP.point_query(*sh_args, **sh_kw)
+    require(torch.equal(sh_got, sh_want),
+            "point_query on a shard vs plain with the same offset")
+    sh_t = timed(lambda: PP.point_query(*sh_args, **sh_kw), 100,
+                 POINT_TRACE)
+    shard = {"part_offset": off, "p_loc": p_total - off,
+             "max_abs_err": int((sh_got - sh_want).abs().max()),
+             "found": int(sh_got.sum()), "ms": sh_t["ms"]}
+    log(f"[point_probe] shard launch: {json.dumps(shard)}")
     nq, m = qk.shape[0], kk.shape[1]
     pid1 = PP.first_box(ex.bounds, qxt, qyt, ov)
     pids = torch.cat([pid1, torch.full_like(pid1, ov)])
@@ -2561,7 +2738,7 @@ def main() -> int:
     blocks = -(-2 * nq * 32 // 256)     # a warp per (query, candidate)
     ptx = ptxas_summary(report["ptxas"]["point_probe"])
     entry("point_probe", err, t, pt, nbytes, nops, None, "point_1024",
-          extra={"grid": [blocks, 256], "ptxas": ptx,
+          extra={"grid": [blocks, 256], "ptxas": ptx, "shard": shard,
                  "bound_ms_two_rows_two_windows_per_query":
                      rows_windows / PEAK_BYTES * 1e3,
                  "launch_floor": launch_floor(1, blocks, 256)})
@@ -2693,7 +2870,7 @@ def main() -> int:
                                      upd_err[row["name"]])
 
     phase("denormals")
-    # 12. the flushed kernels on denormal inputs (comparison launches,
+    # 13. the flushed kernels on denormal inputs (comparison launches,
     # counted on no path)
     report["denormals"] = denormal_phase(dev)
     for row in rows:

@@ -115,15 +115,17 @@ class TorchBackend:
                                      ch["count"], ch["x"], ch["y"])
 
     def point_query(self, parts, bounds, qx, qy, qkf, *, overflow: int,
-                    probe: int):
+                    probe: int, part_offset: int = 0):
         """(Q,) int32 exact membership: each point's first-match grid
         partition and the overflow grid, the learned lookup in each and
-        the equality probe of the window around it, merged."""
+        the equality probe of the window around it, merged; a candidate
+        outside the planes' partitions [part_offset, part_offset + P_loc)
+        counts 0."""
         return _pp.point_query_plain(bounds, parts["knot_keys"],
                                      parts["knot_pos"], parts["keys_f"],
                                      parts["x"], parts["y"], parts["count"],
                                      qx, qy, qkf, overflow=overflow,
-                                     probe=probe)
+                                     probe=probe, part_offset=part_offset)
 
     def knn_scan(self, ch, qx, qy, k: int):
         """Per-partition kNN candidates: (neg_d2, vid), (C, Q, k) each,
@@ -225,13 +227,13 @@ class CudaBackend(TorchBackend):
                                ch["y"])
 
     def point_query(self, parts, bounds, qx, qy, qkf, *, overflow: int,
-                    probe: int):
+                    probe: int, part_offset: int = 0):
         return _pp.point_query(bounds.contiguous(), parts["knot_keys"],
                                parts["knot_pos"], parts["keys_f"],
                                parts["x"], parts["y"], parts["count"],
                                qx.contiguous(), qy.contiguous(),
                                qkf.contiguous(), overflow=overflow,
-                               probe=probe)
+                               probe=probe, part_offset=part_offset)
 
     def knn_scan(self, ch, qx, qy, k: int):
         neg, idx = _knn.knn_topk(qx, qy, ch["count"], ch["x"], ch["y"],

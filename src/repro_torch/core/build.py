@@ -95,10 +95,22 @@ class LearnedSpatialIndex:
     epoch: int = 0
     shape_epoch: int = 0
     overflow_pid: int = -1
+    # a meshed executor's shard: its partition rows are the global ones
+    # [part_offset, part_offset + num_partitions) of part_total; the
+    # boxes, the overflow id and every static stay global
+    part_offset: int = 0
+    part_total: int = 0
 
     @property
     def num_partitions(self) -> int:
+        """Partition rows held (a shard's own, on a meshed executor)."""
         return self.key.shape[0]
+
+    @property
+    def global_partitions(self) -> int:
+        """Partitions of the whole index (``num_partitions`` unless
+        this is a shard)."""
+        return self.part_total or self.num_partitions
 
     @property
     def n_pad(self) -> int:

@@ -16,6 +16,9 @@ The adaptive methods run the strict escalation loop (``strict=True``),
 as the reference's facade does; ``run`` and ``run_batch`` default to
 serving mode (``strict=False``). Both build_index and SpatialEngine run
 on the card by default; pass ``device="cpu"`` to run on the CPU.
+``mesh`` (``launch/mesh.make_host_mesh``), ``part_axis`` and
+``query_axis`` shard the engine over the ranks of a torch.distributed
+world, one process per rank (core/executor.py).
 """
 from __future__ import annotations
 
@@ -29,15 +32,25 @@ from repro_torch.core.plan import (CircleQuery, DeleteBatch, EngineConfig,
 
 
 class SpatialEngine:
-    """Batched spatial query engine over a LearnedSpatialIndex."""
+    """Batched spatial query engine over a LearnedSpatialIndex.
+
+    mesh=None: one device; otherwise partitions shard over ``part_axis``
+    (and query batches optionally over ``query_axis``)."""
 
     def __init__(self, index: LearnedSpatialIndex,
-                 config: Optional[EngineConfig] = None, device="cuda"):
-        self.executor = Executor(index, config=config, device=device)
+                 config: Optional[EngineConfig] = None, device="cuda",
+                 mesh=None, part_axis="data", query_axis=None):
+        self.executor = Executor(index, config=config, device=device,
+                                 mesh=mesh, part_axis=part_axis,
+                                 query_axis=query_axis)
 
     @property
     def index(self):
         return self.executor.index
+
+    @property
+    def mesh(self):
+        return self.executor.mesh
 
     @property
     def backend(self) -> str:

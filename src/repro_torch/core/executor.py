@@ -1,5 +1,5 @@
 """Query executor: runs QuerySpecs against one LearnedSpatialIndex on
-one device.
+one device, or as one rank of a mesh.
 
 Exact specs run one local program (core/local_ops.py): PointQuery ->
 _PointLocal, RangeCount -> _RangeCountLocal, Knn(mode="exact") ->
@@ -57,6 +57,26 @@ realized (exec_key, signature) and ``prewarm()`` realizes them in
 another executor or process. With ``EngineConfig.compile_cache_dir``,
 the CUDA kernel libraries are kept on disk (core/compile_cache.py).
 
+Multi-GPU (DESIGN.md §6, §10) is SPMD over ``torch.distributed``: one
+process per rank, each making the same calls with the same arguments
+(``launch/mesh.py``). With ``mesh`` the partitions shard over
+``part_axis``: the index is padded to shards x ``part_chunk``
+partitions, each rank keeps its own rows on its device (the boxes, the
+overflow id and the statics stay global) and every program merges its
+share with the axis's collectives (core/local_ops.py). With
+``query_axis`` too, a batch of at least ``query_shard_threshold``
+queries is padded to a multiple of the query axis by repeating row 0;
+each rank runs its row block, and the outputs are gathered over the
+query axis and un-padded, so every rank returns the whole result
+(``_QShard``; exec_key ``qshard=True``). Updates reach every rank whole:
+each applies the rows of its own partitions, and every shape static is
+agreed by a collective before it is installed, so every rank bumps
+``shape_epoch`` together. NCCL collectives are captured in the CUDA
+graphs like the kernels (their communicators are created eagerly, at
+construction). The scheduler and the precompile worker refuse a world
+of more than one rank: their batches and captures follow thread timing,
+which differs from rank to rank.
+
 The precompile worker (``start_precompiler``; the serve scheduler starts
 it in worker mode when ``EngineConfig.serve_async_precompile``) moves
 captures off the serving thread: it captures the tier above sticky and
@@ -96,6 +116,7 @@ from repro_torch.core.plan import (CircleQuery, DeleteBatch, EngineConfig,
                                    RangeCount, RangeQuery, Refit,
                                    SpatialJoin, UpdateSpec, exec_key)
 from repro_torch.kernels import _launches as KL
+from repro_torch.launch.mesh import backend_for
 
 # partition leaf -> the index field it holds (keys_f is derived: a cast)
 _LEAF_FIELDS = {"x": "x", "y": "y", "vid": "vid", "count": "count",
@@ -399,6 +420,39 @@ class _Dispatch:
         self.ex._retire(dead)
 
 
+class _Meshed:
+    """A local program bound to a mesh: on the partition axis ``axis``
+    (``launch/mesh.Axis``), and with ``qaxis`` also sharded over the
+    query axis: the query arguments are padded to a multiple of its size
+    by repeating row 0 (a real query, so padding trips no ok flag), this
+    rank runs its contiguous row block (``P(query_axis)``), and every
+    output (leading axis: the query batch) is gathered over the query
+    axis in order and un-padded. Every rank of the mesh returns the
+    whole result."""
+
+    def __init__(self, fn, axis, qaxis=None):
+        self.fn = fn
+        self.axis = axis
+        self.qaxis = qaxis
+        self.host_reads = fn.host_reads
+        self.n_query_args = fn.n_query_args
+
+    def __call__(self, parts, bounds, *q):
+        if self.qaxis is None:
+            return self.fn(parts, bounds, *q, axis=self.axis)
+        qsize = self.qaxis.size
+        qlen = q[0].shape[0]
+        pad = (-qlen) % qsize
+        if pad:
+            q = _pad_rows(q, pad)
+        rows = (qlen + pad) // qsize
+        lo = self.qaxis.index * rows
+        out = self.fn(parts, bounds, *(a[lo:lo + rows] for a in q),
+                      axis=self.axis)
+        out = _tree(self.qaxis.all_gather0, out)
+        return _tree(lambda a: a[:qlen], out) if pad else out
+
+
 def _pad_rows(args, n: int):
     """Each (rows, ...) tensor of ``args`` with its row 0 repeated ``n``
     more times at the end (a real query, so the padding runs the same
@@ -407,22 +461,62 @@ def _pad_rows(args, n: int):
                  for a in args)
 
 
+def _axes(axis) -> tuple:
+    return tuple(axis) if isinstance(axis, (tuple, list)) else (axis,)
+
+
 class Executor:
     """Runs QuerySpecs against ``index`` on ``device`` (default: the
     card; "cpu" to run on the CPU). The index is padded to a multiple of
     ``config.part_chunk`` partitions and moved to the device.
 
+    ``mesh`` (``launch/mesh.make_host_mesh``; default None, one device)
+    shards the partitions over ``part_axis`` (a name or a tuple of
+    names) and, with ``query_axis``, large query batches over that axis
+    (module docstring). Every rank constructs its executor with the same
+    arguments; ``device`` is this rank's (NCCL on the card, gloo on the
+    CPU).
+
     ``cuda_graphs`` (True on the card) realizes query programs as CUDA
     graphs; set it False before the first call to run them eagerly. With
     graphs on, the executor holds its own copy of the partition planes,
-    which updates write in place; without, updates swap them."""
+    which updates write in place; without, updates swap them. Meshed
+    programs are captured too, their collectives with them."""
 
     def __init__(self, index: LearnedSpatialIndex,
-                 config: Optional[EngineConfig] = None, device="cuda"):
+                 config: Optional[EngineConfig] = None, device="cuda",
+                 mesh=None, part_axis="data", query_axis=None):
         self.device = resolve_device(device)
         self.cfg = config if config is not None else EngineConfig()
         self.backend = resolve_backend(self.cfg.backend, self.device)
-        index = L.pad_partitions(index.to(self.device), self.cfg.part_chunk)
+        self.mesh = mesh
+        self.part_axis = part_axis
+        self.query_axis = query_axis
+        if query_axis is not None:
+            if mesh is None:
+                raise ValueError("query_axis requires a mesh")
+            bad = set(_axes(query_axis)) & set(_axes(part_axis))
+            if bad:
+                raise ValueError(
+                    f"query_axis overlaps part_axis: {sorted(bad)}")
+        self._axis = self._qaxis = None
+        if mesh is None:
+            index = L.pad_partitions(index.to(self.device),
+                                     self.cfg.part_chunk)
+            self.p_total = index.num_partitions
+        else:
+            self._axis = mesh.axis(_axes(part_axis))
+            if query_axis is not None:
+                self._qaxis = mesh.axis(_axes(query_axis))
+            self._check_groups()
+            shards = self._axis.size
+            index = L.pad_partitions(index, shards * self.cfg.part_chunk)
+            self.p_total = index.num_partitions
+            p_loc = self.p_total // shards
+            # every rank sees the whole index; ids come from all of it
+            nxt0 = self._max_vid(index)
+            index = L.shard_partitions(index, self._axis.offset(p_loc),
+                                       p_loc).to(self.device)
         self.cuda_graphs = self.device.type == "cuda"
         # a graph reads fixed pointers: own the planes, write them in place
         own = self.cuda_graphs
@@ -436,10 +530,8 @@ class Executor:
         self.area = max((b[2] - b[0]) * (b[3] - b[1]), 1e-30)
         self._recount()
         # -- mutable-index state (DESIGN.md §11) -------------------------
-        nxt = int(index.vid.max())
-        if index.delta_vid is not None and index.delta_cap:
-            nxt = max(nxt, int(index.delta_vid.max()))
-        self.next_vid = nxt + 1
+        self.next_vid = (nxt0 if mesh is not None
+                         else self._max_vid(index)) + 1
         self._refit_pending = set()  # partition ids awaiting compaction
         self.updates = 0      # applied insert/delete batches
         self.refits = 0       # refit_partitions invocations
@@ -495,6 +587,48 @@ class Executor:
         # reentrant because run(Refit) and maintain() call refit()
         self._lock = threading.RLock()
 
+    @staticmethod
+    def _max_vid(index) -> int:
+        nxt = int(index.vid.max())
+        if index.delta_vid is not None and index.delta_cap:
+            nxt = max(nxt, int(index.delta_vid.max()))
+        return nxt
+
+    def _check_groups(self) -> None:
+        """The mesh's groups run this device's backend (NCCL on the card,
+        gloo on the CPU; never another), and each issues one collective
+        now, so its communicator exists before any CUDA graph capture."""
+        import torch.distributed as dist
+        want = backend_for(self.device)
+        for ax in (self._axis, self._qaxis):
+            if ax is None:
+                continue
+            got = str(dist.get_backend(ax.group))
+            if got != want or ax.device != self.device:
+                raise ValueError(f"a mesh on {ax.device} with backend "
+                                 f"{got} cannot serve an executor on "
+                                 f"{self.device} (needs {want})")
+            ax.agree([0])
+
+    def _part_shards(self) -> int:
+        """Partition shards (1 without a mesh)."""
+        return 1 if self._axis is None else self._axis.size
+
+    def _agree(self, values, op: str = "max") -> list:
+        """Host integers agreed over the partition axis (``op`` "max" or
+        "sum"); on one device, the values."""
+        values = [int(v) for v in values]
+        return values if self._axis is None else self._axis.agree(values, op)
+
+    def _shard_rows(self, pids):
+        """(local rows, mine) of global partition ids (numpy ints): each
+        id's row on this rank, clamped, and whether this rank holds it
+        (every id, without a mesh)."""
+        pids = torch.as_tensor(np.asarray(pids, np.int64))
+        local, mine = L._local(pids, torch.ones_like(pids, dtype=torch.bool),
+                               self._axis, self.index.num_partitions)
+        return local.numpy(), mine.numpy()
+
     def _f32(self, a) -> torch.Tensor:
         if isinstance(a, torch.Tensor):
             return a.to(device=self.device, dtype=torch.float32).contiguous()
@@ -511,20 +645,29 @@ class Executor:
 
     # -- the program cache (DESIGN.md §14) --------------------------------
 
-    def _key(self, base, tag="x", variant=None):
-        """Canonical cache key (plan.exec_key): backend and shape-epoch
-        aware (a program bakes the index's static shapes; superseded
-        shape epochs are swept by _evict_stale)."""
+    def _key(self, base, tag="x", variant=None, qshard=False):
+        """Canonical cache key (plan.exec_key): backend, query-shard and
+        shape-epoch aware (a program bakes the index's static shapes;
+        superseded shape epochs are swept by _evict_stale)."""
         return exec_key(self.backend.name, base, tag, variant,
-                        epoch=self.index.shape_epoch)
+                        qshard=qshard, epoch=self.index.shape_epoch)
+
+    def _use_qshard(self, qlen: int) -> bool:
+        """Shard this batch over the query axis? (DESIGN.md §10)"""
+        return (self._qaxis is not None
+                and qlen >= self.cfg.query_shard_threshold)
 
     def _compile(self, key, make_fn):
         """The cached dispatcher of ``key``, building its local program
-        with ``make_fn`` on a miss."""
+        with ``make_fn`` on a miss. On a mesh the program is bound to the
+        partition axis, and for a query-sharded key (``key[1]``) wrapped
+        to shard its queries over the query axis (``_Meshed``)."""
         disp = self._cache.get(key)
         if disp is None:
-            disp = self._cache[key] = _Dispatch(self, key, make_fn(),
-                                                prefix=2)
+            fn = make_fn()
+            if self.mesh is not None:
+                fn = _Meshed(fn, self._axis, self._qaxis if key[1] else None)
+            disp = self._cache[key] = _Dispatch(self, key, fn, prefix=2)
         return disp
 
     def _capture_stream(self):
@@ -756,9 +899,9 @@ class Executor:
             base = tuple(base)
             if isinstance(variant, list):
                 variant = tuple(int(v) for v in variant)
-            if qs:
-                skipped += 1        # query-sharded wrappings: item 17
-                continue
+            if qs and self._qaxis is None:
+                skipped += 1        # a query-sharded wrapping needs a
+                continue            # query axis
             if tag == "u" and variant and \
                     int(variant[1]) != int(self.index.delta_cap or 0):
                 skipped += 1        # stale capacity variant
@@ -767,7 +910,7 @@ class Executor:
             if make_fn is None:
                 skipped += 1
                 continue
-            key = self._key(base, tag, variant)
+            key = self._key(base, tag, variant, qshard=bool(qs))
             if tag == "u":
                 if key not in self._cache:
                     self._cache[key] = _Dispatch(self, key, make_fn(),
@@ -806,8 +949,8 @@ class Executor:
             want = "x" if base[0] in ("point", "range_count",
                                       "knn_exact", "join_full") \
                 else "fused"
-            if qs or tag != want:
-                continue
+            if tag != want:
+                continue        # a width's dispatch picks its wrapping
             for sig in p.get("sigs", ()):
                 if sig[0][0][0] < bmin:
                     fam.setdefault(base, {})[tuple(sig[0][0])] = sig
@@ -994,8 +1137,8 @@ class Executor:
 
     def stats(self) -> dict:
         """Counters: host_syncs, probe_syncs, dispatches, cache_size (the
-        cached programs), backend, qshard_executables (0 until
-        multi-GPU, ROADMAP item 17), compile_ms_total (capture time),
+        cached programs), backend, qshard_executables (the cached
+        query-axis wrappings), compile_ms_total (capture time),
         disk_cache_hits and disk_cache_misses (the kernel-library store's,
         process-level; 0 without a cache directory), async_compiles (the
         precompile worker's realizations: CUDA graphs on the card),
@@ -1056,7 +1199,16 @@ class Executor:
         meanwhile no capture runs on the serving thread. While it runs,
         a device-wide ``torch.cuda.synchronize()`` fails during its
         captures: callers wait on events or streams, or quiesce first.
-        Idempotent: returns True when a thread was actually started."""
+        Idempotent: returns True when a thread was actually started.
+        Refused (ValueError) on a mesh of more than one rank: which
+        programs it captures, and when, follows thread timing, so the
+        ranks' collectives would not meet in one order."""
+        if self.mesh is not None and self.mesh.size > 1:
+            raise ValueError("the precompile worker cannot run on a mesh "
+                             f"of {self.mesh.size} ranks: its captures "
+                             "follow thread timing, which differs from "
+                             "rank to rank, so their collectives would not "
+                             "meet")
         if self._pc_thread is not None:
             return False
         import queue
@@ -1193,9 +1345,11 @@ class Executor:
             op = self._op_for(base)
             if op is None or self.index.shape_epoch != epoch:
                 return 0
-            disp = self._compile(self._key(base, "fused", tier),
-                                 lambda: op.fused(*tier))
-        return sum(bool(disp.warm(sig)) for sig in sigs)
+            # each width at the wrapping its dispatch takes
+            jobs = [(self._compile(self._key(
+                base, "fused", tier, qshard=self._use_qshard(sig[0][0][0])),
+                lambda: op.fused(*tier)), sig) for sig in sigs]
+        return sum(bool(disp.warm(sig)) for disp, sig in jobs)
 
     def _worker_stream(self):
         """The worker's own stream, at the least priority the card
@@ -1290,16 +1444,20 @@ class Executor:
         def rows(shape, width):             # (n, width) of a reshape
             return (math.prod(shape) // width, width)
 
+        def qs(shape):                      # the width's wrapping
+            return self._use_qshard(int(shape[0]))
+
         if isinstance(spec, PointQuery):
             q = tuple(shapes[0][0])
-            add(self._key(("point",)), lambda: L._PointLocal(idx, cfg, bk),
+            add(self._key(("point",), qshard=qs(q)),
+                lambda: L._PointLocal(idx, cfg, bk),
                 ((q, f32), (tuple(shapes[1][0]), f32), (q, f32)))
             return out
         if isinstance(spec, (RangeCount, RangeQuery)):
             r = rows(shapes[0][0], 4)
             sig = ((r, f32), (r[:1], f32), (r[:1], f32))
             if isinstance(spec, RangeCount):
-                add(self._key(("range_count",)),
+                add(self._key(("range_count",), qshard=qs(r)),
                     lambda: L._RangeCountLocal(idx, cfg, bk), sig)
             else:
                 self._warm_adaptive(self._op_range(spec.sticky_key()), sig,
@@ -1315,7 +1473,7 @@ class Executor:
         if isinstance(spec, Knn):
             q = tuple(shapes[0][0])
             if spec.mode == "exact":
-                add(self._key(("knn_exact", spec.k)),
+                add(self._key(("knn_exact", spec.k), qshard=qs(q)),
                     lambda: L._KnnExactLocal(idx, cfg, bk, spec.k),
                     ((q, f32), (tuple(shapes[1][0]), f32)))
                 return out
@@ -1328,7 +1486,7 @@ class Executor:
             sig = ((p, f32), (tuple(shapes[1][0]), "int32"),
                    ((p[0], 6), f32))
             if spec.mode == "full":
-                add(self._key(("join_full",)),
+                add(self._key(("join_full",), qshard=qs(p)),
                     lambda: L._JoinFullLocal(idx, cfg, bk), sig)
                 return out
             self._warm_adaptive(self._op_join(spec.sticky_key()), sig, add)
@@ -1344,8 +1502,8 @@ class Executor:
         qn = int(sig[0][0][0])
         if sticky is None:
             tier = self._initial.get(op.base, op.initial)
-            add(self._key(op.base, "w", tier), lambda: op.window(*tier),
-                sig)
+            add(self._key(op.base, "w", tier, qshard=self._use_qshard(qn)),
+                lambda: op.window(*tier), sig)
             return
         use_bucket = (self.cfg.tier_buckets and op.probe is not None
                       and qn >= self.cfg.tier_bucket_min
@@ -1357,7 +1515,9 @@ class Executor:
             add(self._key(op.base, "p", (cand_p,)),
                 lambda: op.probe(cand_p), sig)
         cw = self._row_chunk(sticky, qn) if use_bucket else qn
-        add(self._key(op.base, "fused", sticky), lambda: op.fused(*sticky),
+        add(self._key(op.base, "fused", sticky,
+                      qshard=self._use_qshard(cw)),
+            lambda: op.fused(*sticky),
             tuple(((cw,) + s[1:], d) for s, d in sig))
 
     def warm_for(self, spec: QuerySpec, *args) -> bool:
@@ -1390,6 +1550,13 @@ class Executor:
             n -= int(idx.dead.sum())
         if idx.delta_vid is not None and idx.delta_cap:
             n += int((idx.delta_vid >= 0).sum())
+        if self._axis is None:
+            self._count_all = idx.count
+        else:
+            # every shard's points, and every partition's count (the kNN
+            # radius reads the count of any partition)
+            (n,) = self._agree([n], "sum")
+            self._count_all = self._axis.all_gather0(idx.count)
         self.n_total = n
         self.density = max(n / self.area, 1e-30)
 
@@ -1435,12 +1602,26 @@ class Executor:
         return self._cache[key]
 
     def _note_occupancy(self, touched):
-        """Schedule the deferred re-fit of the touched partitions whose
-        delta occupancy crossed the threshold (run by maintain())."""
+        """Schedule the deferred re-fit of the touched partitions (global
+        ids) whose delta occupancy crossed the threshold (run by
+        maintain()). On a mesh each shard flags its own, and the flags
+        are OR-ed over a P-long vector, so every rank schedules the
+        same."""
         occ = M.delta_occupancy(self.index)
-        for p in np.asarray(touched).tolist():
-            if occ[p] > self.cfg.delta_occupancy:
-                self._refit_pending.add(int(p))
+        touched = np.asarray(touched, np.int64)
+        local, mine = self._shard_rows(touched)
+        flags = np.zeros(self.p_total, np.int64)
+        flags[touched[mine][occ[local[mine]] > self.cfg.delta_occupancy]] = 1
+        flags = self._agree(flags, "max")
+        self._refit_pending.update(int(p) for p in np.flatnonzero(flags))
+
+    def _dirty(self) -> np.ndarray:
+        """Global ids of the partitions with buffered inserts or
+        tombstones (OR-ed over the shards on a mesh)."""
+        dirty = M.dirty_partitions(self.index)
+        flags = np.zeros(self.p_total, np.int64)
+        flags[dirty.astype(np.int64) + self.index.part_offset] = 1
+        return np.flatnonzero(self._agree(flags, "max")).astype(np.int32)
 
     def _with_delta_state(self):
         """The index, given delta bookkeeping if it was built without."""
@@ -1476,16 +1657,25 @@ class Executor:
                                                device=self.device)
             idx = dataclasses.replace(idx, part_bounds=pb)
             self._install_index(idx, leaves=())
-        need = idx.delta_count.cpu().numpy() + np.bincount(
-            pid.cpu().numpy(), minlength=idx.num_partitions)
-        if int(need.max()) > idx.delta_cap:
-            idx = M.with_delta_capacity(idx, int(need.max()),
-                                        floor=self.cfg.delta_cap)
-            self._install_index(idx)     # a new leaf set: full refresh
         key = K.make_keys(xs, ys, self.spec)
         vids = torch.arange(self.next_vid, self.next_vid + b,
                             dtype=torch.int32, device=self.device)
-        fn = self._update_fn("insert", b, M.scatter_inserts)
+        rows = pid.cpu().numpy()
+        if self._axis is not None:
+            # every rank numbers the whole batch and keeps its own rows
+            local, mine = self._shard_rows(rows)
+            sel = torch.as_tensor(np.flatnonzero(mine), device=self.device)
+            rows = local[mine]
+            pid = torch.as_tensor(rows.astype(np.int32), device=self.device)
+            key, xs, ys, vids = (a.index_select(0, sel)
+                                 for a in (key, xs, ys, vids))
+        need = int((idx.delta_count.cpu().numpy() + np.bincount(
+            rows, minlength=idx.num_partitions)).max())
+        (need,) = self._agree([need])   # the capacity of the whole index
+        if need > idx.delta_cap:
+            idx = M.with_delta_capacity(idx, need, floor=self.cfg.delta_cap)
+            self._install_index(idx)     # a new leaf set: full refresh
+        fn = self._update_fn("insert", int(pid.shape[0]), M.scatter_inserts)
         dk, dx, dy, dv, dc = fn(
             idx.delta_key, idx.delta_x, idx.delta_y, idx.delta_vid,
             idx.delta_count, pid, key, xs, ys, vids)
@@ -1495,7 +1685,7 @@ class Executor:
         self.next_vid += b
         self.updates += 1
         self._install_index(idx, leaves=("dx", "dy", "dvid", "dcount"))
-        self._note_occupancy(np.unique(pid.cpu().numpy()))
+        self._note_occupancy(np.unique(rows + idx.part_offset))
         return np.arange(self.next_vid - b, self.next_vid, dtype=np.int32)
 
     def _run_delete(self, args):
@@ -1509,10 +1699,22 @@ class Executor:
         idx = self._with_delta_state()
         pid1 = M.assign_insert(idx, xs, ys).to(torch.int32)
         pid2 = torch.full_like(pid1, idx.overflow)
+        touched = np.unique(np.append(pid1.cpu().numpy(), idx.overflow))
+        shard = ()
+        if self._axis is not None:
+            # each candidate as this shard's row, and whether it is one
+            (l1, m1), (l2, m2) = (self._shard_rows(p.cpu().numpy())
+                                  for p in (pid1, pid2))
+            pid1, pid2 = (torch.as_tensor(lc.astype(np.int32),
+                                          device=self.device)
+                          for lc in (l1, l2))
+            shard = (torch.as_tensor(np.stack([m1, m2], 1),
+                                     device=self.device),)
         fn = self._update_fn("delete", b, M.apply_deletes)
         nx, ny, nv, dx, dy, dv, dead2, removed = fn(
             idx.x, idx.y, idx.vid, idx.count, idx.delta_x, idx.delta_y,
-            idx.delta_vid, idx.delta_count, idx.dead, xs, ys, pid1, pid2)
+            idx.delta_vid, idx.delta_count, idx.dead, xs, ys, pid1, pid2,
+            *shard)
         idx = dataclasses.replace(
             idx, x=nx, y=ny, vid=nv, delta_x=dx, delta_y=dy,
             delta_vid=dv, dead=dead2, epoch=idx.epoch + 1)
@@ -1521,9 +1723,9 @@ class Executor:
         if idx.delta_cap:
             leaves = leaves + ("dx", "dy", "dvid")
         self._install_index(idx, leaves=leaves)
-        self._note_occupancy(np.unique(np.append(pid1.cpu().numpy(),
-                                                 idx.overflow)))
-        return int(removed)
+        self._note_occupancy(touched)
+        (removed,) = self._agree([int(removed)], "sum")
+        return removed
 
     def refit(self, touched=None):
         """Compaction + per-partition spline re-fit
@@ -1539,11 +1741,14 @@ class Executor:
         if idx.delta_count is None:
             return []
         if touched is None:
-            touched = M.dirty_partitions(idx)
+            touched = self._dirty()
         touched = np.unique(np.asarray(touched, np.int32))
         if touched.size == 0:
             return []
-        new = M.refit_partitions(idx, touched)
+        # every shard re-fits its own rows; the statics are agreed
+        local, mine = self._shard_rows(touched)
+        new = M.refit_partitions(idx, local[mine],
+                                 agree=lambda v: self._agree([v])[0])
         self.refits += 1
         self._refit_pending.difference_update(int(t) for t in touched)
         self._install_index(new)         # the data plane moved: refresh
@@ -1551,7 +1756,7 @@ class Executor:
         # floor hysteresis rate-limits grow/shrink ping-pong)
         idx2 = self.index
         if (idx2.delta_cap > 2 * max(self.cfg.delta_cap, 1)
-                and M.dirty_partitions(idx2).size == 0):
+                and self._dirty().size == 0):
             self._install_index(
                 M.shrink_delta_capacity(idx2, self.cfg.delta_cap))
         return [int(t) for t in touched]
@@ -1567,6 +1772,7 @@ class Executor:
         self._escalators[op.base] = op.escalate
         self._demoters[op.base] = op.demote
         sticky = self._sticky.get(op.base)
+        qs = self._use_qshard(pargs[0].shape[0])
         if sticky is not None and not strict and start is None:
             if (self.cfg.tier_buckets and op.probe is not None
                     and pargs[0].shape[0] >= self.cfg.tier_bucket_min
@@ -1575,14 +1781,16 @@ class Executor:
                 return self._run_bucketed(op, pargs, sticky)
             # steady state: the fused program, no host read; ok is
             # stashed, unread, for maintain()
-            fn = self._compile(self._key(op.base, "fused", sticky),
+            fn = self._compile(self._key(op.base, "fused", sticky,
+                                         qshard=qs),
                                lambda: op.fused(*sticky))
             out, ok = self._call(fn, *pargs)
             self._pending[op.base] = (sticky, ok)
             return op.post(out)
         cap, cand = start or sticky or op.initial
         while True:
-            fn = self._compile(self._key(op.base, "w", (cap, cand)),
+            fn = self._compile(self._key(op.base, "w", (cap, cand),
+                                         qshard=qs),
                                lambda: op.window(cap, cand))
             res = self._call(fn, *pargs)
             hit = self._all_ok(op.get_ok(res))
@@ -1619,7 +1827,7 @@ class Executor:
         keep width drops no id), so it gives the sticky tier's result
         there (up to the -1 padding ``_norm_width`` adds)."""
         n_pad = self.index.n_pad
-        p_total = self.index.num_partitions
+        p_total = self.p_total
         d_cap = self.index.delta_cap
 
         def feasible(probe, cap, cand):
@@ -1638,13 +1846,15 @@ class Executor:
         ``local_ops._keep_window``'s keep bound, so a light bucket pads
         to the sticky tier's width bitwise."""
         n_pad = self.index.n_pad
-        p_total = self.index.num_partitions
+        p_total = self.p_total
         d_cap = self.index.delta_cap
+        shards = self._part_shards()   # the gathered plane: a slab each
 
-        def owidth(cap, cand):          # one device: one partition shard
+        def owidth(cap, cand):
             cap_e = min(cap, n_pad)
             cand_e = min(cand, p_total)
-            return min(cand_e * (4 * cap_e + d_cap), max(cap_e * 8, 256))
+            return min(shards * cand_e * (4 * cap_e + d_cap),
+                       max(cap_e * 8, 256))
 
         return owidth
 
@@ -1656,7 +1866,7 @@ class Executor:
         the rest rank 2, the hard bucket. Every rank runs at the sticky
         tier: the ranks split padded widths, never values."""
         n_pad = self.index.n_pad
-        cand = min(self.cfg.knn_cand, self.index.num_partitions)
+        cand = min(self.cfg.knn_cand, self.p_total)
         j_max = L._KnnNeedLocal.J
 
         def bucketer(probe, cap, _cand):
@@ -1702,7 +1912,8 @@ class Executor:
         call's. A short tail chunk is padded with its own row 0 (a real
         query) to the chunk width and un-padded."""
         cw = self._row_chunk(tier, width)
-        fn = self._compile(self._key(op.base, "fused", tier),
+        fn = self._compile(self._key(op.base, "fused", tier,
+                                     qshard=self._use_qshard(cw)),
                            lambda: op.fused(*tier))
         if cw >= width:
             return self._call(fn, *bargs)
@@ -1802,12 +2013,11 @@ class Executor:
                 self._pc_neighbors(base)
 
     def _maxed_both(self, cap, cand):
-        return (cap >= self.index.n_pad and
-                cand >= self.index.num_partitions)
+        return (cap >= self.index.n_pad and cand >= self.p_total)
 
     def _escalate_both(self, cap, cand):
         return (min(cap * 4, self.index.n_pad),
-                min(cand * 2, self.index.num_partitions))
+                min(cand * 2, self.p_total))
 
     def _ladder_demote(self, initial, escalate):
         """Demote to the PREDECESSOR on the op's escalation ladder
@@ -1834,7 +2044,8 @@ class Executor:
     def _run_point(self, args):
         qx, qy = self._f32(args[0]), self._f32(args[1])
         qk = K.keys_to_f32(K.make_keys(qx, qy, self.spec))
-        fn = self._compile(self._key(("point",)),
+        fn = self._compile(self._key(("point",),
+                                     qshard=self._use_qshard(qx.shape[0])),
                            lambda: L._PointLocal(self.index, self.cfg,
                                                  self.backend))
         return self._call(fn, qx, qy, qk) > 0
@@ -1842,7 +2053,8 @@ class Executor:
     def _run_range_count(self, args):
         rects = self._f32(args[0]).reshape(-1, 4)
         klo, khi = self._rect_keys(rects)
-        fn = self._compile(self._key(("range_count",)),
+        fn = self._compile(self._key(("range_count",),
+                                     qshard=self._use_qshard(rects.shape[0])),
                            lambda: L._RangeCountLocal(self.index, self.cfg,
                                                       self.backend))
         return self._call(fn, rects, klo, khi)
@@ -1898,7 +2110,8 @@ class Executor:
     def _circle_exact(self, pargs):
         """Exact in-circle counts: the full-refine program behind the
         adaptive circle query (the reference's fallback program)."""
-        fn = self._compile(self._key(("circle_exact",)),
+        fn = self._compile(self._key(("circle_exact",), qshard=self._use_qshard(
+            pargs[0].shape[0])),
                            lambda: L._CircleCountLocal(self.index, self.cfg,
                                                        self.backend))
         return self._call(fn, *pargs)
@@ -1972,13 +2185,14 @@ class Executor:
         area0 = torch.maximum(mul_f32(sub_f32(b0[:, 2], b0[:, 0]),
                                       sub_f32(b0[:, 3], b0[:, 1])),
                               _f32_const(1e-30, qx))
-        d0 = torch.maximum(self.index.count[pid0] / area0,
+        d0 = torch.maximum(self._count_all[pid0] / area0,
                            _f32_const(1e-30, qx))
         r0 = torch.sqrt(_f32_const(k, qx) / (_f32_const(np.pi, qx) * d0))
         return torch.maximum(r0, _f32_const(r0g, qx))
 
     def _knn_exact(self, k, qx, qy):
-        fn = self._compile(self._key(("knn_exact", k)),
+        fn = self._compile(self._key(("knn_exact", k),
+                                     qshard=self._use_qshard(qx.shape[0])),
                            lambda: L._KnnExactLocal(self.index, self.cfg,
                                                     self.backend, k))
         return self._call(fn, qx, qy)
@@ -2044,7 +2258,8 @@ class Executor:
         return self._adaptive(op, (qx, qy, r0), strict)
 
     def _join_full(self, pargs):
-        fn = self._compile(self._key(("join_full",)),
+        fn = self._compile(self._key(("join_full",), qshard=self._use_qshard(
+            pargs[0].shape[0])),
                            lambda: L._JoinFullLocal(self.index, self.cfg,
                                                     self.backend))
         return self._call(fn, *pargs)

@@ -1,8 +1,24 @@
-"""Local query programs, single device (paper §3-4).
+"""Local query programs (paper §3-4), one device or one rank of a mesh.
 
-Each class is a program ``fn(parts, bounds, *query_args)`` with
-attribute ``n_query_args``. ``parts`` is the dict of (P, ...) partition
-tensors, ``bounds`` the (P, 4) partition boxes (the global index).
+Each class is a program ``fn(parts, bounds, *query_args, axis=None)``
+with attribute ``n_query_args``. ``parts`` is the dict of (P_loc, ...)
+partition tensors this device holds, ``bounds`` the (P, 4) boxes of
+every partition (the global index, replicated).
+
+``axis`` is the merge seam (DESIGN.md §6). ``None`` on one device: every
+merge is the identity and this device's first partition is 0. On a
+meshed executor it is the partition axis (``launch/mesh.Axis``): the
+rank holds partitions [off, off + P_loc) of P, off = ``axis.offset(
+P_loc)``, and merges its share with the reference's collectives: a
+``psum`` of counts and of the point flags, a ``psum`` of ok flags
+compared with the axis size, an ``all_gather1`` of windowed ids and of
+kNN candidates (then a top-k, ties to the lowest index), and ``pmax`` /
+``psum`` in the need probes. A candidate partition ``pid`` of the global
+boxes is read as local row ``pid - off`` where it is this rank's
+(``_local``); the sweeps pair local chunk ``lo`` with global columns
+``off + lo``. Every merged value is the same on every rank of the axis,
+so every host decision taken on one (the strict loop's reads, the kNN
+round loop's exit) is taken on all.
 
 Every exact program is staged lookup -> scan -> merge: lookup and scan
 come from the backend (core/backends.py: plain PyTorch or the CUDA
@@ -47,7 +63,7 @@ from repro_torch._num import (dist2_f32, flush_denormals, mul_f32,
                               stable_topk)
 from repro_torch.core import keys as K
 from repro_torch.core import queries as Q
-from repro_torch.core.build import LearnedSpatialIndex
+from repro_torch.core.build import LEAVES, LearnedSpatialIndex
 from repro_torch.core.plan import EngineConfig
 from repro_torch.kernels import knn_topk as _knn
 from repro_torch.kernels.point_probe import first_box
@@ -131,6 +147,71 @@ def part_arrays(index: LearnedSpatialIndex, leaves=None) -> dict:
     if leaves is not None:
         return {k: parts[k] for k in leaves}
     return parts
+
+
+def shard_partitions(index: LearnedSpatialIndex, offset: int,
+                     p_loc: int) -> LearnedSpatialIndex:
+    """A meshed rank's shard: partition rows [offset, offset + p_loc) of
+    every per-partition field (copies, so the whole index is not kept
+    alive), with the boxes, the overflow id and the statics global."""
+    def rows(a):
+        return None if a is None else a[offset:offset + p_loc].clone()
+
+    return dataclasses.replace(
+        index, **{f: rows(getattr(index, f)) for f in LEAVES
+                  if f != "part_bounds"},
+        overflow_pid=index.overflow, part_offset=int(offset),
+        part_total=index.num_partitions)
+
+
+# -- the merge seam: identities at axis=None ------------------------------
+
+def _offset(axis, p_loc: int) -> int:
+    return 0 if axis is None else axis.offset(p_loc)
+
+
+def _psum(x, axis):
+    return x if axis is None else axis.psum(x)
+
+
+def _pmax(x, axis):
+    return x if axis is None else axis.pmax(x)
+
+
+def _gather1(x, axis):
+    return x if axis is None else axis.all_gather1(x)
+
+
+def _ok_merge(okq, axis):
+    """Per-query ok flags of every shard: True where all are ok (counted,
+    ``psum(ok) == size``, as the reference merges them)."""
+    if axis is None:
+        return okq
+    return axis.psum(okq.to(torch.int32)) == axis.size
+
+
+def _local(pids, valid, axis, p_loc: int):
+    """(local rows, mine) of global candidate partitions ``pids``: this
+    rank's row ``pid - off`` clamped into [0, p_loc), and ``valid`` where
+    that row is this rank's (``valid`` None: every candidate is valid).
+    At axis=None the rows are the pids and ``valid`` is returned as it
+    is."""
+    if axis is None:
+        return pids, valid
+    local = pids - axis.offset(p_loc)
+    mine = (local >= 0) & (local < p_loc)
+    if valid is not None:
+        mine = valid & mine
+    return torch.clamp(local, 0, p_loc - 1), mine
+
+
+def _topk_gathered(neg, vid, k: int, axis):
+    """Every shard's (Q, k) best merged: gathered shard-major, one top-k
+    with ties to the lowest index (``lax.top_k``'s order)."""
+    if axis is None:
+        return neg, vid
+    best, ix = stable_topk(axis.all_gather1(neg), k)
+    return best, torch.gather(axis.all_gather1(vid), 1, ix)
 
 
 def _slices(parts: dict, size: int):
@@ -268,7 +349,7 @@ class _LocalFn:
         self.n_pad = index.n_pad
         self.spec = index.key_spec
         self.overflow = index.overflow
-        self.p_total = index.num_partitions
+        self.p_total = index.global_partitions
         # per (query, candidate, subinterval): the lookup's knot row and
         # probe windows for both ends, beside the cap-wide gather
         self.lookup_elems = 2 * (index.knot_keys.shape[1] + index.probe)
@@ -283,27 +364,31 @@ class _LocalFn:
         return c * max(1, self.cfg.scan_chunk_elems //
                        max(1, c * qn * self.d_cap))
 
-    def _delta_sum(self, parts, overlap, stage):
+    def _delta_sum(self, parts, overlap, stage, off: int = 0):
         """(Q,) int32: ``stage(group, active)``'s (C, Q) delta counts
-        summed over every partition, ``overlap`` (Q, P) the active
-        pairs. Integer sums: the order of the groups moves nothing."""
+        summed over every partition held, ``overlap`` (Q, P) the active
+        pairs of every partition, ``off`` the first one held. Integer
+        sums: the order of the groups moves nothing."""
         acc = torch.zeros(overlap.shape[0], dtype=torch.int32,
                           device=overlap.device)
         for lo, grp in _slices(parts, self._delta_group(overlap.shape[0])):
+            lo += off
             act = overlap[:, lo:lo + grp["count"].shape[0]].t()
             acc += stage(grp, act).sum(0, dtype=torch.int32)
         return acc
 
-    def _delta_window(self, parts, bounds, rects, circ=None):
+    def _delta_window(self, parts, bounds, rects, circ=None, axis=None):
         """The windowed programs' delta probe for every row at once: ()
         without delta buffers, else (counts (Q, C), vids (Q, C, d_cap))
-        of each row's candidate partitions (the ones ``_rows`` picks),
-        for ``_row_chunks`` to hand each row chunk its rows."""
+        of each row's candidate partitions (the ones ``_rows`` picks)
+        that this rank holds, for ``_row_chunks`` to hand each row chunk
+        its rows."""
         if not self.d_cap:
             return ()
         pids, valid, _ = _top_candidates(Q.rect_overlaps_box(rects, bounds),
                                          self.cand)
-        return Q.delta_window_at(parts, pids, valid, rects, circ=circ)
+        local, mine = _local(pids, valid, axis, parts["count"].shape[0])
+        return Q.delta_window_at(parts, local, mine, rects, circ=circ)
 
     def _row_chunks(self, fn, cand: int, cap: int, *q, z_depth: int = 2):
         """``fn(*q)`` on query-row chunks whose windowed planes stay within
@@ -328,24 +413,35 @@ class _PointLocal(_LocalFn):
     whole program (candidates, lookup, scan, merge) is the backend's
     point_query stage: one kernel launch on the cuda backend. With delta
     buffers, a probe of both candidates' live buffered points (equal
-    coordinates, denormals read as zero) is OR-ed after it."""
+    coordinates, denormals read as zero) is OR-ed after it.
+
+    On a mesh each rank answers for the candidates it holds and the
+    flags are summed, as the reference's ``psum`` of its int32 flags: a
+    point held both in its grid partition and in the overflow grid, on
+    two shards, answers 2 (one shard: 1)."""
 
     n_query_args = 3
 
-    def __call__(self, parts, bounds, qx, qy, qk):
+    def __call__(self, parts, bounds, qx, qy, qk, axis=None):
+        p_loc = parts["count"].shape[0]
+        off = _offset(axis, p_loc)
         found = self.backend.point_query(parts, bounds, qx, qy, qk,
                                          overflow=self.overflow,
-                                         probe=self.kw["probe"])
-        if not self.d_cap:
-            return found
-        pid1 = first_box(bounds, qx, qy, self.overflow)
-        pids = torch.stack([pid1, torch.full_like(pid1, self.overflow)], 1)
-        dx, dy, _, live = Q.gather_delta(parts, pids, torch.ones_like(
-            pids, dtype=torch.bool))                  # (Q, 2, d_cap)
-        fx, fy = flush_denormals(qx), flush_denormals(qy)
-        hit = (live & (flush_denormals(dx) == fx[:, None, None]) &
-               (flush_denormals(dy) == fy[:, None, None])).any((1, 2))
-        return found | hit.to(found.dtype)
+                                         probe=self.kw["probe"],
+                                         part_offset=off)
+        if self.d_cap:
+            pid1 = first_box(bounds, qx, qy, self.overflow)
+            pids = torch.stack([pid1, torch.full_like(pid1, self.overflow)],
+                               1)
+            local, mine = _local(pids, torch.ones_like(pids,
+                                                       dtype=torch.bool),
+                                 axis, p_loc)
+            dx, dy, _, live = Q.gather_delta(parts, local, mine)  # (Q, 2, d)
+            fx, fy = flush_denormals(qx), flush_denormals(qy)
+            hit = (live & (flush_denormals(dx) == fx[:, None, None]) &
+                   (flush_denormals(dy) == fy[:, None, None])).any((1, 2))
+            found = found | hit.to(found.dtype)
+        return _psum(found, axis)                           # merge
 
 
 class _RangeCountLocal(_LocalFn):
@@ -355,21 +451,23 @@ class _RangeCountLocal(_LocalFn):
 
     n_query_args = 3
 
-    def __call__(self, parts, bounds, rects, klo, khi):
+    def __call__(self, parts, bounds, rects, klo, khi, axis=None):
         bk = self.backend
+        off = _offset(axis, parts["count"].shape[0])
         overlap = Q.rect_overlaps_box(rects, bounds)          # (Q, P)
         acc = torch.zeros(rects.shape[0], dtype=torch.int32,
                           device=rects.device)
         for lo, ch in _chunks(parts, self.cfg.part_chunk):
             c = ch["count"].shape[0]
+            lo += off                                         # global
             act = overlap[:, lo:lo + c].t().contiguous()      # (C, Q)
             s, e = bk.bounds(ch, klo, khi, **self.kw)         # lookup
             cnt = bk.range_scan(ch, rects, s, e, active=act)  # scan
             acc += cnt.sum(0, dtype=torch.int32)              # merge
         if self.d_cap:
             acc += self._delta_sum(parts, overlap, lambda g, a: bk.delta_scan(
-                g, rects, active=a))
-        return acc
+                g, rects, active=a), off)
+        return _psum(acc, axis)
 
 
 class _CircleCountLocal(_LocalFn):
@@ -379,21 +477,23 @@ class _CircleCountLocal(_LocalFn):
 
     n_query_args = 4
 
-    def __call__(self, parts, bounds, rects, klo, khi, circ):
+    def __call__(self, parts, bounds, rects, klo, khi, circ, axis=None):
         bk = self.backend
+        off = _offset(axis, parts["count"].shape[0])
         overlap = Q.rect_overlaps_box(rects, bounds)          # (Q, P)
         acc = torch.zeros(rects.shape[0], dtype=torch.int32,
                           device=rects.device)
         for lo, ch in _chunks(parts, self.cfg.part_chunk):
             c = ch["count"].shape[0]
+            lo += off                                         # global
             act = overlap[:, lo:lo + c].t().contiguous()      # (C, Q)
             s, e = bk.bounds(ch, klo, khi, **self.kw)         # lookup
             cnt = bk.circle_scan(ch, rects, s, e, circ, active=act)
             acc += cnt.sum(0, dtype=torch.int32)              # merge
         if self.d_cap:
             acc += self._delta_sum(parts, overlap, lambda g, a: bk.delta_scan(
-                g, rects, circ=circ, active=a))
-        return acc
+                g, rects, circ=circ, active=a), off)
+        return _psum(acc, axis)
 
 
 class _RangeWindowLocal(_LocalFn):
@@ -409,25 +509,28 @@ class _RangeWindowLocal(_LocalFn):
         self.cap = min(cap, index.n_pad)
         self.cand = cand
 
-    def __call__(self, parts, bounds, rects, klo, khi):
+    def __call__(self, parts, bounds, rects, klo, khi, axis=None):
         del klo, khi   # recomputed per candidate with clipping
         return self._row_chunks(
-            lambda r, *d: self._rows(parts, bounds, r, *d), self.cand,
-            self.cap, rects, *self._delta_window(parts, bounds, rects))
+            lambda r, *d: self._rows(parts, bounds, r, *d, axis=axis),
+            self.cand, self.cap, rects,
+            *self._delta_window(parts, bounds, rects, axis=axis))
 
-    def _rows(self, parts, bounds, rects, *delta):
+    def _rows(self, parts, bounds, rects, *delta, axis=None):
         qn = rects.shape[0]
         overlap = Q.rect_overlaps_box(rects, bounds)
         pids, valid, within = _top_candidates(overlap, self.cand)
+        local, mine = _local(pids, valid, axis, parts["count"].shape[0])
         cnts, vids, ok, _, _ = Q.range_window_at(
-            parts, bounds[pids], pids, valid, rects, self.spec,
+            parts, bounds[pids], local, mine, rects, self.spec,
             cap=self.cap, **self.kw)
         if delta:                  # this row chunk's delta probe
             cnts = cnts + delta[0]
             vids = torch.cat([vids, delta[1]], -1)
-        cnt = cnts.sum(1, dtype=torch.int32)
-        okq = (ok | ~valid).all(1)
-        vids, cap_ok = _keep_window(vids.reshape(qn, -1), cnt, self.cap)
+        cnt = _psum(cnts.sum(1, dtype=torch.int32), axis)
+        okq = _ok_merge((ok | ~mine).all(1), axis)
+        vids = _gather1(vids.reshape(qn, -1), axis)
+        vids, cap_ok = _keep_window(vids, cnt, self.cap)
         return cnt, vids, okq & within & cap_ok
 
 
@@ -446,40 +549,43 @@ class _CircleWindowLocal(_LocalFn):
         self.cand = cand
         self.materialize = materialize
 
-    def __call__(self, parts, bounds, rects, klo, khi, circ):
+    def __call__(self, parts, bounds, rects, klo, khi, circ, axis=None):
         del klo, khi   # recomputed per candidate with clipping
         return self._row_chunks(
-            lambda r, cr, *d: self._rows(parts, bounds, r, cr, *d),
+            lambda r, cr, *d: self._rows(parts, bounds, r, cr, *d,
+                                         axis=axis),
             self.cand, self.cap, rects, circ,
-            *self._delta_window(parts, bounds, rects, circ))
+            *self._delta_window(parts, bounds, rects, circ, axis=axis))
 
-    def _rows(self, parts, bounds, rects, circ, *delta):
+    def _rows(self, parts, bounds, rects, circ, *delta, axis=None):
         qn = rects.shape[0]
         overlap = Q.rect_overlaps_box(rects, bounds)
         pids, valid, within = _top_candidates(overlap, self.cand)
         boxes = bounds[pids]
+        local, mine = _local(pids, valid, axis, parts["count"].shape[0])
         c = pids.shape[1]
         cc = max(1, self.cfg.scan_chunk_elems //
                  max(1, qn * (4 * self.cap + self.d_cap)))
         if self.materialize and cc < c:
-            return self._chunked(parts, rects, circ, boxes, pids, valid,
-                                 within, cc)
+            return self._chunked(parts, rects, circ, boxes, local, mine,
+                                 within, cc, axis)
         cnts, vids, ok = Q.circle_window_at(
-            parts, boxes, pids, valid, rects, circ, self.spec,
+            parts, boxes, local, mine, rects, circ, self.spec,
             cap=self.cap, materialize=self.materialize, **self.kw)
         if delta:                  # this row chunk's delta probe
             cnts = cnts + delta[0]
             if self.materialize:
                 vids = torch.cat([vids, delta[1]], -1)
-        cnt = cnts.sum(1, dtype=torch.int32)
-        okq = (ok | ~valid).all(1)
+        cnt = _psum(cnts.sum(1, dtype=torch.int32), axis)
+        okq = _ok_merge((ok | ~mine).all(1), axis)
         if not self.materialize:
             return cnt, okq & within
-        vids, cap_ok = _keep_window(vids.reshape(qn, -1), cnt, self.cap)
+        vids = _gather1(vids.reshape(qn, -1), axis)
+        vids, cap_ok = _keep_window(vids, cnt, self.cap)
         return cnt, vids, okq & within & cap_ok
 
     def _chunked(self, parts, rects, circ, boxes, pids, valid, within,
-                 cc: int):
+                 cc: int, axis=None):
         """Streaming compaction over candidate chunks of ``cc``: a
         front-compacted (Q, keep) id carry, so the materialized plane
         never exceeds O(keep + chunk) per query. Bitwise the monolithic
@@ -508,7 +614,16 @@ class _CircleWindowLocal(_LocalFn):
                                 keep_loc)
             cnt = cnt + cnts.sum(1, dtype=torch.int32)
             okq = okq & (ok | ~mn).all(1)
-        kept, cap_ok = _keep_window(kept, cnt, self.cap, keep=keep_loc)
+        cnt = _psum(cnt, axis)
+        okq = _ok_merge(okq, axis)
+        keep_fin = keep_loc
+        if axis is not None:
+            # each shard's carry is compacted losslessly up to keep_loc,
+            # at least the final bound: gathered shard-major and compacted
+            # again, it keeps the ids the monolithic gather would keep
+            kept = axis.all_gather1(kept)
+            keep_fin = min(axis.size * w_loc, max(self.cap * 8, 256))
+        kept, cap_ok = _keep_window(kept, cnt, self.cap, keep=keep_fin)
         return cnt, kept, okq & within & cap_ok
 
 
@@ -525,7 +640,7 @@ class _KnnExactLocal(_LocalFn):
         super().__init__(index, cfg, backend)
         self.k = k
 
-    def __call__(self, parts, bounds, qx, qy):
+    def __call__(self, parts, bounds, qx, qy, axis=None):
         qn, k = qx.shape[0], self.k
         bk = self.backend
         neg = torch.full((qn, k), -3e38, dtype=torch.float32,
@@ -544,7 +659,7 @@ class _KnnExactLocal(_LocalFn):
                 cn = cn.transpose(0, 1).reshape(qn, -1)
                 cv = cv.transpose(0, 1).reshape(qn, -1)
                 neg, vid = bk.topk_merge(neg, vid, cn, cv, k)  # merge
-        return neg, vid
+        return _topk_gathered(neg, vid, k, axis)
 
 
 class _KnnPrunedLocal(_LocalFn):
@@ -578,9 +693,9 @@ class _KnnPrunedLocal(_LocalFn):
         self.fixed_rounds = fixed_rounds
         self.host_reads = not fixed_rounds     # the strict form's exit
 
-    def __call__(self, parts, bounds, qx, qy, r0):
+    def __call__(self, parts, bounds, qx, qy, r0, axis=None):
         return self._row_chunks(
-            lambda a, b, r: self._rows(parts, bounds, a, b, r),
+            lambda a, b, r: self._rows(parts, bounds, a, b, r, axis),
             self.cand, self.cap, qx, qy, r0)
 
     def _round(self, parts, boxes, local, active, rects, r, qx, qy):
@@ -600,7 +715,7 @@ class _KnnPrunedLocal(_LocalFn):
         return (negd, wv, inc.sum((1, 2), dtype=torch.int32),
                 (ok | ~active).all(1))
 
-    def _rows(self, parts, bounds, qx, qy, r0):
+    def _rows(self, parts, bounds, qx, qy, r0, axis=None):
         qn, k = qx.shape[0], self.k
         bk = self.backend
         dev = qx.device
@@ -611,6 +726,10 @@ class _KnnPrunedLocal(_LocalFn):
         cand = order.shape[1]
         cand_d2 = -negd2
         boxes = bounds[order]
+        # the candidates this rank holds, as its local rows (None: all)
+        local, inshard = _local(order, None, axis, parts["count"].shape[0])
+        if axis is not None:
+            order = local
         # per-chunk candidate plane (Q, cc * 4*cap); when the whole
         # (Q, cand * 4*cap) plane fits, one top-k over it instead
         cc = max(1, self.cfg.scan_chunk_elems // max(1, qn * 4 * self.cap))
@@ -662,11 +781,18 @@ class _KnnPrunedLocal(_LocalFn):
             rects = Q.circle_mbrs(qx, qy, r)
             rr = mul_f32(r, r)[:, None]
             active = cand_d2 <= rr
+            if inshard is not None:
+                active = active & inshard
             # coverage: every partition within r must be a candidate
             covered = (boxd2 <= rr).sum(1, dtype=torch.int32) <= cand
             rnd = round_chunked if cc < cand else round_monolithic
             bn, bv, cnt, okl = rnd(r, rects, active)
-            return bn, bv, okl & covered, cnt
+            okq = okl & covered
+            if axis is not None:       # every shard's round, merged
+                bn, bv = _topk_gathered(bn, bv, k, axis)
+                cnt = axis.psum(cnt)
+                okq = _ok_merge(okq, axis)
+            return bn, bv, okq, cnt
 
         rounds, r = 0, r0
         done = torch.zeros(qn, dtype=torch.bool, device=dev)
@@ -701,13 +827,14 @@ class _JoinLocal(_LocalFn):
         self.cap = min(cap, index.n_pad)
         self.cand = cand
 
-    def __call__(self, parts, bounds, polys, n_edges, mbr_k):
+    def __call__(self, parts, bounds, polys, n_edges, mbr_k, axis=None):
         return self._row_chunks(
-            lambda pl, ne, mk, *d: self._rows(parts, bounds, pl, ne, mk, *d),
+            lambda pl, ne, mk, *d: self._rows(parts, bounds, pl, ne, mk, *d,
+                                              axis=axis),
             self.cand, self.cap, polys, n_edges, mbr_k,
-            *self._delta_join(parts, bounds, mbr_k[:, :4]), z_depth=3)
+            *self._delta_join(parts, bounds, mbr_k[:, :4], axis), z_depth=3)
 
-    def _delta_join(self, parts, bounds, mbrs):
+    def _delta_join(self, parts, bounds, mbrs, axis=None):
         """The delta probe of every polygon's candidate partitions: ()
         without delta buffers, else the buffered points' (dx, dy (PG, C,
         d_cap), vids -1 outside the polygon's MBR), for the ray cast."""
@@ -715,20 +842,23 @@ class _JoinLocal(_LocalFn):
             return ()
         pids, valid, _ = _top_candidates(Q.rect_overlaps_box(mbrs, bounds),
                                          self.cand)
-        dxw, dyw, dvw, live = Q.gather_delta(parts, pids, valid)
+        local, mine = _local(pids, valid, axis, parts["count"].shape[0])
+        dxw, dyw, dvw, live = Q.gather_delta(parts, local, mine)
         r = flush_denormals(mbrs)[:, None, None, :]
         fx, fy = flush_denormals(dxw), flush_denormals(dyw)
         inm = (live & (fx >= r[..., 0]) & (fx <= r[..., 2]) &
                (fy >= r[..., 1]) & (fy <= r[..., 3]))
         return dxw, dyw, torch.where(inm, dvw, -1)
 
-    def _rows(self, parts, bounds, polys, n_edges, mbr_k, *delta):
+    def _rows(self, parts, bounds, polys, n_edges, mbr_k, *delta,
+              axis=None):
         pg = polys.shape[0]
         mbrs = mbr_k[:, :4]
         overlap = Q.rect_overlaps_box(mbrs, bounds)
         pids, valid, within = _top_candidates(overlap, self.cand)
+        local, mine = _local(pids, valid, axis, parts["count"].shape[0])
         _, vids, ok, wx, wy = Q.range_window_at(
-            parts, bounds[pids], pids, valid, mbrs, self.spec,
+            parts, bounds[pids], local, mine, mbrs, self.spec,
             cap=self.cap, z_depth=3, **self.kw)
         if delta:                  # this row chunk's delta probe
             wx, wy, vids = (torch.cat([a, d], -1) for a, d in
@@ -737,7 +867,8 @@ class _JoinLocal(_LocalFn):
                                     polys, n_edges)
         cnt = ((vids.reshape(pg, -1) >= 0) & inside).sum(1,
                                                           dtype=torch.int32)
-        return cnt, (ok | ~valid).all(1) & within
+        return (_psum(cnt, axis),
+                _ok_merge((ok | ~mine).all(1), axis) & within)
 
 
 class _JoinFullLocal(_LocalFn):
@@ -747,14 +878,16 @@ class _JoinFullLocal(_LocalFn):
 
     n_query_args = 3
 
-    def __call__(self, parts, bounds, polys, n_edges, mbr_k):
+    def __call__(self, parts, bounds, polys, n_edges, mbr_k, axis=None):
         bk = self.backend
+        off = _offset(axis, parts["count"].shape[0])
         mbrs, klo, khi = mbr_k[:, :4], mbr_k[:, 4], mbr_k[:, 5]
         overlap = Q.rect_overlaps_box(mbrs, bounds)            # (PG, P)
         acc = torch.zeros(polys.shape[0], dtype=torch.int32,
                           device=polys.device)
         for lo, ch in _chunks(parts, self.cfg.part_chunk):
             c = ch["count"].shape[0]
+            lo += off                                          # global
             act = overlap[:, lo:lo + c].t().contiguous()       # (C, PG)
             s, e = bk.bounds(ch, klo.contiguous(), khi.contiguous(),
                              **self.kw)                        # lookup
@@ -763,8 +896,8 @@ class _JoinFullLocal(_LocalFn):
         if self.d_cap:
             acc += self._delta_sum(parts, overlap, lambda g, a:
                                    bk.delta_join_scan(g, polys, n_edges,
-                                                      mbrs, active=a))
-        return acc
+                                                      mbrs, active=a), off)
+        return _psum(acc, axis)
 
 
 class _WindowNeedLocal(_LocalFn):
@@ -787,16 +920,17 @@ class _WindowNeedLocal(_LocalFn):
         self.n_query_args = n_query_args
         self.z_depth = z_depth
 
-    def __call__(self, parts, bounds, *q):
+    def __call__(self, parts, bounds, *q, axis=None):
         rects = self.rect_of(*q)
         overlap = Q.rect_overlaps_box(rects, bounds)
         ncand = overlap.sum(1, dtype=torch.int32)
         pids, valid, _ = _top_candidates(overlap, self.cand)
+        local, mine = _local(pids, valid, axis, parts["count"].shape[0])
         width, total = Q.window_need_at(
-            parts, bounds[pids], pids, valid, rects, self.spec,
+            parts, bounds[pids], local, mine, rects, self.spec,
             z_depth=self.z_depth, **self.kw)
-        return torch.stack([ncand, width.amax(1),
-                            total.sum(1, dtype=torch.int32)], 1)
+        return torch.stack([ncand, _pmax(width.amax(1), axis),
+                            _psum(total.sum(1, dtype=torch.int32), axis)], 1)
 
 
 class _KnnNeedLocal(_LocalFn):
@@ -814,24 +948,27 @@ class _KnnNeedLocal(_LocalFn):
         super().__init__(index, cfg, backend)
         self.cand = cand
 
-    def __call__(self, parts, bounds, qx, qy, r0):
+    def __call__(self, parts, bounds, qx, qy, r0, axis=None):
         boxd2 = Q.box_min_dist2(qx, qy, bounds)             # (Q, P)
         # the cand nearest partitions, ties to the lowest index
         negd2, order = stable_topk(-boxd2, min(self.cand, boxd2.shape[1]))
         cand_d2 = -negd2
         boxes = bounds[order]
+        local, inshard = _local(order, None, axis, parts["count"].shape[0])
         cols = []
         for j in range(self.J):
             r = r0 * float(2 ** j)
             rects = Q.circle_mbrs(qx, qy, r)
             rr = mul_f32(r, r)[:, None]
+            active = cand_d2 <= rr
+            if inshard is not None:
+                active = active & inshard
             width, total = Q.window_need_at(
-                parts, boxes, order, cand_d2 <= rr, rects, self.spec,
-                **self.kw)
+                parts, boxes, local, active, rects, self.spec, **self.kw)
             nin = (boxd2 <= rr).sum(1, dtype=torch.int32)
-            cols.append(torch.stack([width.amax(1),
-                                     total.sum(1, dtype=torch.int32), nin],
-                                    1))
+            cols.append(torch.stack([_pmax(width.amax(1), axis),
+                                     _psum(total.sum(1, dtype=torch.int32),
+                                           axis), nin], 1))
         return torch.stack(cols, 1)
 
 
@@ -860,9 +997,9 @@ class _KnnLadderLocal(_LocalFn):
         self.primary = primary       # pruned rounds at the escalated cap
         self.exact = exact
 
-    def __call__(self, parts, bounds, qx, qy, r0):
-        neg, vid, ok = self.primary(parts, bounds, qx, qy, r0)
-        nege, vide = self.exact(parts, bounds, qx, qy)
+    def __call__(self, parts, bounds, qx, qy, r0, axis=None):
+        neg, vid, ok = self.primary(parts, bounds, qx, qy, r0, axis=axis)
+        nege, vide = self.exact(parts, bounds, qx, qy, axis=axis)
         okc = ok[:, None]
         return _select(ok.all(), (neg, vid),
                        (torch.where(okc, neg, nege),
@@ -900,9 +1037,10 @@ class _CondFusedLocal(_LocalFn):
         self.merge_fb = merge_fb
         self.n_query_args = primary.n_query_args
 
-    def __call__(self, parts, bounds, *q):
-        pri = self.primary(parts, bounds, *q)
+    def __call__(self, parts, bounds, *q, axis=None):
+        pri = self.primary(parts, bounds, *q, axis=axis)
         ok = self.get_ok(pri)
-        fb = self.fallback(parts, bounds, *[q[i] for i in self.fb_args])
+        fb = self.fallback(parts, bounds, *[q[i] for i in self.fb_args],
+                           axis=axis)
         return _select(ok.all(), self.merge_ok(pri),
                        self.merge_fb(pri, fb)), ok

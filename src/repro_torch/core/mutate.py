@@ -191,10 +191,14 @@ def _hits(xp, yp, vidp, count, qx2, qy2, pids) -> torch.Tensor:
 
 
 def apply_deletes(xp, yp, vidp, count, dxp, dyp, dvidp, dcount, dead,
-                  qx, qy, pid1, pid2):
+                  qx, qy, pid1, pid2, mine=None):
     """Tombstone every live copy of each (x, y) in its two candidate
     partitions (the first-match grid box and the overflow grid), main
     plane AND delta.
+
+    ``mine`` (B, 2) bool, on a meshed rank: which of each row's two
+    candidates (given as this shard's rows) the shard holds; the others
+    match nothing (their coordinates become NaN, which equals nothing).
 
     Returns the poisoned planes (x, y, vid, dx, dy, dvid), the updated
     per-partition dead count and the number of removed points (a 0-dim
@@ -202,6 +206,10 @@ def apply_deletes(xp, yp, vidp, count, dxp, dyp, dvidp, dcount, dead,
     pids = torch.stack([pid1, pid2], 1).reshape(-1)          # (2B,)
     qx2 = torch.repeat_interleave(qx, 2)
     qy2 = torch.repeat_interleave(qy, 2)
+    if mine is not None:
+        mine = mine.reshape(-1)
+        qx2 = torch.where(mine, qx2, float("nan"))
+        qy2 = torch.where(mine, qy2, float("nan"))
 
     hit = _hits(xp, yp, vidp, count, qx2, qy2, pids)
     newly = hit & (vidp >= 0)
@@ -307,7 +315,7 @@ def delta_occupancy(index: LearnedSpatialIndex) -> np.ndarray:
     return (dcount + dead) / live
 
 
-def refit_partitions(index: LearnedSpatialIndex, touched
+def refit_partitions(index: LearnedSpatialIndex, touched, agree=None
                      ) -> LearnedSpatialIndex:
     """Merge the delta, drop tombstones and re-fit the spline of ONLY the
     ``touched`` partitions. Bumps ``epoch`` and the touched rows'
@@ -315,10 +323,16 @@ def refit_partitions(index: LearnedSpatialIndex, touched
 
     Capacity growth (n_pad, knot width, probe) happens here when the
     merged rows outgrow the current statics, each bumping
-    ``shape_epoch``."""
+    ``shape_epoch``.
+
+    ``agree`` (int -> int, the maximum over a meshed executor's shards)
+    makes each of the three statics the one the whole index needs, on
+    every shard, before it is installed; a shard then runs every step,
+    even with no touched row of its own, so the collectives meet."""
     touched = np.unique(np.asarray(touched, np.int32))
-    if touched.size == 0:
+    if touched.size == 0 and agree is None:
         return index
+    agree = agree or (lambda v: v)
     if index.delta_key is None:
         index = with_delta_capacity(index, 0, floor=0)
     dev = index.device
@@ -329,8 +343,9 @@ def refit_partitions(index: LearnedSpatialIndex, touched
     alive_delta = (index.delta_vid >= 0).sum(1, dtype=torch.int32)
     new_counts = (index.count.cpu().numpy() - dead +
                   alive_delta.cpu().numpy())[touched]
-    if new_counts.max(initial=0) > index.n_pad:
-        index = grow_n_pad(index, int(new_counts.max()))
+    need = agree(int(new_counts.max(initial=0)))
+    if need > index.n_pad:
+        index = grow_n_pad(index, need)
 
     key_r, x_r, y_r, vid_r, cnt = merge_rows(
         index.key[t], index.x[t], index.y[t], index.vid[t], index.count[t],
@@ -341,14 +356,22 @@ def refit_partitions(index: LearnedSpatialIndex, touched
     # -- re-fit: the build's host fit, doubling the knot width on need --
     key_np, cnt_np = key_r.cpu().numpy(), cnt.cpu().numpy()
     m = index.knot_keys.shape[1]
+
+    def fit_at(m_pad):
+        return fit_partitions(key_np, cnt_np, eps=index.eps, m_pad=m_pad,
+                              radix_bits=index.radix_bits)
+
     while True:
-        fit = fit_partitions(key_np, cnt_np, eps=index.eps, m_pad=m,
-                             radix_bits=index.radix_bits)
-        if not fit["overflow"].any():
+        fit = fit_at(m) if touched.size else None
+        if fit is None or not fit["overflow"].any():
             break
         if m >= index.n_pad:
             raise RuntimeError("spline knot capacity exceeded at n_pad")
         m = min(m * 2, index.n_pad)
+    m_all = agree(m)
+    if m_all != m:          # another shard's rows need the wider row
+        m = m_all
+        fit = fit_at(m) if touched.size else None
     if m != index.knot_keys.shape[1]:
         extra = m - index.knot_keys.shape[1]
         p = index.num_partitions
@@ -364,6 +387,8 @@ def refit_partitions(index: LearnedSpatialIndex, touched
     def put(a, v):
         """``a`` with rows ``t`` set to ``v`` (rows, or one fill value)."""
         out = a.clone()
+        if v is None:           # no touched row here
+            return out
         if isinstance(v, np.ndarray):
             v = torch.as_tensor(np.ascontiguousarray(v), device=dev)
         out[t] = v.to(a.dtype) if isinstance(v, torch.Tensor) else v
@@ -371,6 +396,10 @@ def refit_partitions(index: LearnedSpatialIndex, touched
 
     gen = index.refit_gen.clone()
     gen[t] += 1
+    if fit is None:
+        fit = dict.fromkeys(("knot_keys", "knot_pos", "n_knots",
+                             "radix_table", "radix_kmin", "radix_scale",
+                             "max_run"))
     new = dataclasses.replace(
         index,
         key=put(index.key, key_r), x=put(index.x, x_r), y=put(index.y, y_r),
@@ -396,7 +425,9 @@ def refit_partitions(index: LearnedSpatialIndex, touched
     # the build's sizing rule over the GLOBAL max run, so a fully re-fit
     # index carries the probe a fresh build of the surviving points would
     if new.max_run is not None:
-        need = probe_for(new.eps, int(new.max_run.max()), new.n_pad)
+        # probe_for grows with the run: the shards' maximum is the
+        # probe of the whole index's longest run
+        need = agree(probe_for(new.eps, int(new.max_run.max()), new.n_pad))
         if need > new.probe:
             new = dataclasses.replace(new, probe=need,
                                       shape_epoch=new.shape_epoch + 1)

@@ -46,6 +46,8 @@ class EngineConfig:
     join_cand: int = 8           # candidate partitions per polygon
     circle_cap: int = 64         # windowed circle candidate cap/partition
     circle_cand: int = 8         # candidate partitions per circle query
+    query_shard_threshold: int = 1024   # min batch a meshed executor with
+                                 # a query axis shards over it (§10)
     scan_chunk_elems: int = 1 << 26  # candidate-plane elements before the
                                      # chunked kNN top-k and circle
                                      # compaction merges engage
@@ -108,7 +110,8 @@ def exec_key(backend: str, base: Tuple, tag: str = "x",
       backend   Backend.name: programs are never shared across kernel
                 backends;
       qshard    True for the query-axis-sharded wrapping of the same
-                program (multi-GPU, ROADMAP item 17; always False here);
+                program (a meshed executor with a query axis, for a
+                batch of at least ``query_shard_threshold`` rows);
       base      the spec's sticky/cache base tuple (``sticky_key()`` for
                 adaptive ops, a literal kind tuple otherwise);
       tag       program flavor within the base: "x" exact/simple,

@@ -22,6 +22,12 @@
 //               the query's;
 //   merge       found = (hits(pid1) > 0) | (hits(pid2) > 0).
 //
+// On a meshed executor the planes hold one shard, the global partitions
+// [part_offset, part_offset + n_parts), and the boxes stay global: a
+// candidate p outside the shard contributes 0, the others read row
+// p - part_offset (the reference's probe_pid: lid = pid - off, mine).
+// Unsharded, part_offset is 0 and every partition is held.
+//
 // Bitwise notes: rintf (half to even, as jnp.round and torch.round),
 // never roundf; __fdiv_rn and __fmaf_rn spell the reference's IEEE
 // division and XLA:CPU's contraction of p0 + t*(p1 - p0); the start
@@ -63,7 +69,7 @@ __global__ void __launch_bounds__(kThreads) point_query_kernel(
     const float* __restrict__ x, const float* __restrict__ y,
     const int* __restrict__ count, const float* __restrict__ qx,
     const float* __restrict__ qy, const float* __restrict__ qk, int nq,
-    int n_parts, int m, int n_pad, int overflow, int probe,
+    int n_parts, int m, int n_pad, int overflow, int probe, int part_offset,
     int* __restrict__ out) {
   __shared__ int hit[kThreads / kWarp];
   const int lane = threadIdx.x % kWarp;
@@ -90,40 +96,47 @@ __global__ void __launch_bounds__(kThreads) point_query_kernel(
         }
       }
     }
-    p = min(max(p, 0), n_parts - 1);
-    // learned lookup: the segment over the whole knot row
-    const float* kk = knot_keys + static_cast<size_t>(p) * m;
-    const float* kp = knot_pos + static_cast<size_t>(p) * m;
-    int succ = 0;
-    for (int j = lane; j < m; j += kWarp) succ += __ldg(kk + j) < k ? 1 : 0;
-    succ = warp_total(succ);
-    const int seg = min(max(succ - 1, 0), m - 2);
-    const float k0 = __ldg(kk + seg), k1 = __ldg(kk + seg + 1);
-    const float p0 = __ldg(kp + seg), p1 = __ldg(kp + seg + 1);
-    const float t = fminf(
-        fmaxf(__fdiv_rn(__fsub_rn(k, k0), fmaxf(__fsub_rn(k1, k0), 1e-30f)),
-              0.0f),
-        1.0f);
-    const float phat = __fmaf_rn(t, __fsub_rn(p1, p0), p0);
-    const int half = probe / 2, last = n_pad - probe;
-    const int start =
-        min(max(static_cast<int>(rintf(phat)) - half, 0), last);
-    const float* row = keys_f + static_cast<size_t>(p) * n_pad;
-    int below = 0;
-    for (int i = lane; i < probe; i += kWarp)
-      below += row[start + i] < k ? 1 : 0;
-    below = warp_total(below);
-    const int pos = min(start + below, count[p]);
-    // probe scan around the lower bound
-    const int s2 = min(max(pos - half, 0), last);
-    const size_t base = static_cast<size_t>(p) * n_pad + s2;
-    int hits = 0;
-    for (int i = lane; i < probe; i += kWarp) {
-      const size_t o = base + i;
-      hits += (keys_f[o] == k && daz(x[o]) == vx && daz(y[o]) == vy) ? 1
-                                                                    : 0;
+    // the shard's row of candidate p; a candidate it does not hold
+    // contributes 0 and reads nothing (the whole warp skips it)
+    const int row_id = p - part_offset;
+    if (row_id >= 0 && row_id < n_parts) {
+      p = row_id;
+      // learned lookup: the segment over the whole knot row
+      const float* kk = knot_keys + static_cast<size_t>(p) * m;
+      const float* kp = knot_pos + static_cast<size_t>(p) * m;
+      int succ = 0;
+      for (int j = lane; j < m; j += kWarp)
+        succ += __ldg(kk + j) < k ? 1 : 0;
+      succ = warp_total(succ);
+      const int seg = min(max(succ - 1, 0), m - 2);
+      const float k0 = __ldg(kk + seg), k1 = __ldg(kk + seg + 1);
+      const float p0 = __ldg(kp + seg), p1 = __ldg(kp + seg + 1);
+      const float t = fminf(
+          fmaxf(__fdiv_rn(__fsub_rn(k, k0),
+                          fmaxf(__fsub_rn(k1, k0), 1e-30f)),
+                0.0f),
+          1.0f);
+      const float phat = __fmaf_rn(t, __fsub_rn(p1, p0), p0);
+      const int half = probe / 2, last = n_pad - probe;
+      const int start =
+          min(max(static_cast<int>(rintf(phat)) - half, 0), last);
+      const float* row = keys_f + static_cast<size_t>(p) * n_pad;
+      int below = 0;
+      for (int i = lane; i < probe; i += kWarp)
+        below += row[start + i] < k ? 1 : 0;
+      below = warp_total(below);
+      const int pos = min(start + below, count[p]);
+      // probe scan around the lower bound
+      const int s2 = min(max(pos - half, 0), last);
+      const size_t base = static_cast<size_t>(p) * n_pad + s2;
+      int hits = 0;
+      for (int i = lane; i < probe; i += kWarp) {
+        const size_t o = base + i;
+        hits += (keys_f[o] == k && daz(x[o]) == vx && daz(y[o]) == vy) ? 1
+                                                                      : 0;
+      }
+      found = warp_total(hits) > 0 ? 1 : 0;
     }
-    found = warp_total(hits) > 0 ? 1 : 0;
   }
   if (lane == 0) hit[local] = found;
   __syncthreads();
@@ -133,18 +146,21 @@ __global__ void __launch_bounds__(kThreads) point_query_kernel(
 }  // namespace
 
 // Launch on `stream`, one warp per (query, candidate). Shapes: bounds
-// (n_parts, 4), 16-byte aligned; knot_keys, knot_pos (n_parts, m);
-// keys_f, x, y (n_parts, n_pad); count (n_parts,); qx, qy, qk (nq,); out
-// (nq,) int32, 1 where the point is found.
+// (P, 4) of every partition, P > overflow, 16-byte aligned; the shard's
+// planes knot_keys, knot_pos (n_parts, m); keys_f, x, y (n_parts,
+// n_pad); count (n_parts,), rows part_offset.. of P; qx, qy, qk (nq,);
+// out (nq,) int32, 1 where the point is found in the shard.
 REPRO_EXPORT int point_query_launch(
     const float* bounds, const float* knot_keys, const float* knot_pos,
     const float* keys_f, const float* x, const float* y, const int* count,
     const float* qx, const float* qy, const float* qk, int nq, int n_parts,
-    int m, int n_pad, int overflow, int probe, int* out, void* stream) {
+    int m, int n_pad, int overflow, int probe, int part_offset, int* out,
+    void* stream) {
   const long long threads = 2LL * nq * kWarp;
   const dim3 grid(static_cast<unsigned>((threads + kThreads - 1) / kThreads));
   point_query_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       reinterpret_cast<const float4*>(bounds), knot_keys, knot_pos, keys_f, x,
-      y, count, qx, qy, qk, nq, n_parts, m, n_pad, overflow, probe, out);
+      y, count, qx, qy, qk, nq, n_parts, m, n_pad, overflow, probe,
+      part_offset, out);
   return static_cast<int>(cudaGetLastError());
 }

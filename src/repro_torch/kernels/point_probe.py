@@ -15,6 +15,14 @@ The plain version runs the same program on torch tensors: ``first_box``
 ``core/queries.lower_bound_at`` calls) and ``point_probe_plain`` (the
 window equality scan of the TPU kernel), merged with ``|``.
 
+On a meshed executor the planes hold one shard, the global partitions
+[part_offset, part_offset + P_loc), while the boxes stay global: a
+candidate outside the shard contributes 0, the others read row
+``pid - part_offset`` (the reference's ``probe_pid``: ``lid = pid -
+off``, ``mine``). The kernel and the plain version take the same
+offset; at offset 0 with every partition held they are the unsharded
+program.
+
 Bitwise notes: the interpolation is ``spline_search.interpolate`` (the
 FMA XLA:CPU contracts it to); ``torch.round`` rounds half to even like
 ``jnp.round`` (the kernel's ``rintf``); float-to-int casts happen only
@@ -36,7 +44,7 @@ from repro_torch.kernels.spline_search import interpolate
 launches = 0        # kernel launches (not plain-version calls)
 
 _SIG = {"point_query_launch": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I,
-                               I, P, P]}
+                               I, I, P, P]}
 
 def point_in_box(qx, qy, boxes):
     """(Q, P) containment of query points in boxes [xlo, ylo, xhi, yhi],
@@ -108,50 +116,64 @@ def point_probe_plain(pid, start, qk, qx, qy, keys_f, x, y, *, probe: int):
 
 
 def point_query_plain(bounds, knot_keys, knot_pos, keys_f, x, y, count, qx,
-                      qy, qk, *, overflow: int, probe: int):
+                      qy, qk, *, overflow: int, probe: int,
+                      part_offset: int = 0):
     """The kernel's function: (Q,) int32, 1 where the point (qx, qy) with
-    key qk is in the first grid box holding it or in the overflow grid."""
-    n_pad = keys_f.shape[1]
+    key qk is in the first grid box holding it or in the overflow grid,
+    among the partitions [part_offset, part_offset + P_loc) the planes
+    hold."""
+    p_loc, n_pad = keys_f.shape
     pid1 = first_box(bounds, qx, qy, overflow)
     found = None
     for pid in (pid1, torch.full_like(pid1, overflow)):
-        pos = lower_bound_plain(knot_keys, knot_pos, keys_f, count, pid, qk,
-                                probe=probe)
+        local = pid - part_offset
+        mine = (local >= 0) & (local < p_loc)
+        local = torch.clamp(local, 0, p_loc - 1)
+        pos = lower_bound_plain(knot_keys, knot_pos, keys_f, count, local,
+                                qk, probe=probe)
         start = torch.clamp(pos - probe // 2, 0, n_pad - probe)
-        hit = point_probe_plain(pid, start, qk, qx, qy, keys_f, x, y,
-                                probe=probe) > 0
+        hit = (point_probe_plain(local, start, qk, qx, qy, keys_f, x, y,
+                                 probe=probe) > 0) & mine
         found = hit if found is None else found | hit
     return found.to(torch.int32)
 
 
 def point_query(bounds, knot_keys, knot_pos, keys_f, x, y, count, qx, qy,
-                qk, *, overflow: int, probe: int):
+                qk, *, overflow: int, probe: int, part_offset: int = 0):
     """Membership of each query point: (Q,) int32, 1 where found.
 
-    bounds (P, 4) f32 partition boxes (the grid's first ``overflow``);
-    knot_keys, knot_pos (P, m) f32; keys_f, x, y (P, n_pad) f32; count
-    (P,) int32; qx, qy, qk (Q,) f32. CPU tensors run the plain version;
-    CUDA tensors launch the kernel, one warp per (query, candidate).
+    bounds (P, 4) f32 boxes of every partition (the grid's first
+    ``overflow``); the planes hold the partitions [part_offset,
+    part_offset + P_loc): knot_keys, knot_pos (P_loc, m) f32; keys_f, x,
+    y (P_loc, n_pad) f32; count (P_loc,) int32; qx, qy, qk (Q,) f32. CPU
+    tensors run the plain version; CUDA tensors launch the kernel, one
+    warp per (query, candidate).
     """
     args = (bounds, knot_keys, knot_pos, keys_f, x, y, count, qx, qy, qk)
     if on_cpu(*args):
-        return point_query_plain(*args, overflow=overflow, probe=probe)
-    p_total, n_pad = keys_f.shape
+        return point_query_plain(*args, overflow=overflow, probe=probe,
+                                 part_offset=part_offset)
+    p_loc, n_pad = keys_f.shape
+    p_total = bounds.shape[0]
     m = knot_keys.shape[1]
     nq = qk.shape[0]
     if not 0 < probe <= n_pad:
         raise ValueError(f"probe {probe} outside (0, n_pad={n_pad}]")
     if not 0 <= overflow < p_total:
         raise ValueError(f"overflow {overflow} outside [0, {p_total})")
+    if not (0 <= part_offset and 0 < p_loc
+            and part_offset + p_loc <= p_total):
+        raise ValueError(f"shard [{part_offset}, {part_offset + p_loc}) "
+                         f"outside [0, {p_total})")
     if m < 2:
         raise ValueError(f"knot row of {m} (needs 2)")
     f32, i32 = torch.float32, torch.int32
-    plane = (p_total, n_pad)
+    plane = (p_loc, n_pad)
     ptrs = [ptr(bounds, "bounds", f32, (p_total, 4)),
-            ptr(knot_keys, "knot_keys", f32, (p_total, m)),
-            ptr(knot_pos, "knot_pos", f32, (p_total, m)),
+            ptr(knot_keys, "knot_keys", f32, (p_loc, m)),
+            ptr(knot_pos, "knot_pos", f32, (p_loc, m)),
             ptr(keys_f, "keys_f", f32, plane), ptr(x, "x", f32, plane),
-            ptr(y, "y", f32, plane), ptr(count, "count", i32, (p_total,)),
+            ptr(y, "y", f32, plane), ptr(count, "count", i32, (p_loc,)),
             ptr(qx, "qx", f32, (nq,)), ptr(qy, "qy", f32, (nq,)),
             ptr(qk, "qk", f32, (nq,))]
     if bounds.data_ptr() % 16:          # the kernel reads float4 boxes
@@ -161,9 +183,9 @@ def point_query(bounds, knot_keys, knot_pos, keys_f, x, y, count, qx, qy,
         return out
     from repro_torch.kernels import _build
     lib = _build.load("point_probe", _SIG)
-    err = lib.point_query_launch(*ptrs, nq, p_total, m, n_pad, overflow,
-                                 probe, ptr(out, "out", i32, (nq,)),
-                                 stream())
+    err = lib.point_query_launch(*ptrs, nq, p_loc, m, n_pad, overflow,
+                                 probe, part_offset,
+                                 ptr(out, "out", i32, (nq,)), stream())
     _build.check(lib, "point_query", err)
     _launches.count(__name__)
     return out

@@ -241,6 +241,14 @@ class SpatialScheduler:
     def __init__(self, executor: Executor,
                  bench: Union[str, dict, None] = None,
                  start: bool = True):
+        mesh = getattr(executor, "mesh", None)
+        if mesh is not None and mesh.size > 1:
+            # a single controller forms one batch for every device; here
+            # each rank would form its own from its own thread timing,
+            # and the ranks' collectives would not meet
+            raise ValueError(f"SpatialScheduler cannot serve a mesh of "
+                             f"{mesh.size} ranks: its batches follow thread "
+                             "timing, which differs from rank to rank")
         self.ex = executor
         self.cfg = executor.cfg
         self.caps = micro_batch_caps(bench, executor.backend.name,

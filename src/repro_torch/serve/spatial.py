@@ -31,11 +31,20 @@ from repro_torch.serve.scheduler import SpatialScheduler
 
 class SpatialServeSession:
     """Serve mixed spatial query batches from a resident learned index,
-    on ``device`` (default: the card; "cpu" to run on the CPU)."""
+    on ``device`` (default: the card; "cpu" to run on the CPU); with
+    ``mesh``, as one rank of a mesh (``part_axis``, ``query_axis``: see
+    core/executor.py)."""
 
     def __init__(self, index: LearnedSpatialIndex,
-                 config: Optional[EngineConfig] = None, device="cuda"):
-        self.executor = Executor(index, config=config, device=device)
+                 config: Optional[EngineConfig] = None, device="cuda",
+                 mesh=None, part_axis="data", query_axis=None):
+        self.executor = Executor(index, config=config, device=device,
+                                 mesh=mesh, part_axis=part_axis,
+                                 query_axis=query_axis)
+
+    @property
+    def mesh(self):
+        return self.executor.mesh
 
     def scheduler(self, bench=None, start: bool = True):
         """The streaming front door (serve/scheduler.py, DESIGN.md §12):
@@ -51,7 +60,8 @@ class SpatialServeSession:
         which captures the CUDA graphs of new batch widths and tiers off
         the serving thread, and its ``close()`` stops it; pass a config
         with ``serve_async_precompile=False`` to keep every capture on
-        the serving thread."""
+        the serving thread. Refused (ValueError) on a mesh of more than
+        one rank."""
         return SpatialScheduler(self.executor, bench=bench, start=start)
 
     def warmup(self, requests: Sequence[Tuple]) -> None:

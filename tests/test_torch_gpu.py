@@ -1936,3 +1936,192 @@ def test_gpu_scheduler_chunks_at_a_smaller_captured_width(cuda):
         assert _same_tree(t.result(), serial[i]), i
     sched.close()
     ex.stop_precompiler()
+
+
+# -- the point kernel on a shard, and the meshed engine at world size 1 --
+
+def shard_point_args(args, kw, off: int, p_loc: int):
+    """``point_query``'s arguments (``point_args``) for the shard of
+    partitions [off, off + p_loc): the planes' rows, the boxes whole."""
+    sliced = [args[0]] + [a[off:off + p_loc].contiguous() for a in args[1:7]]
+    return sliced + list(args[7:]), dict(kw, part_offset=off)
+
+
+@pytest.mark.parametrize("off,p_loc", [(0, 4), (4, 4), (2, 5), (7, 1)])
+def test_gpu_point_query_on_a_shard_matches_plain(index, cuda, off, p_loc):
+    """The point kernel on a shard (``part_offset`` > 0 included) bitwise
+    its plain version with the same offset, on the card and on the CPU;
+    the shards' flags OR-ed give the unsharded answer."""
+    x, y, idx = index
+    ex = SpatialEngine(idx, device="cpu").executor
+    rng = np.random.default_rng(off)
+    ix = rng.integers(0, len(x), 600)
+    qx = np.concatenate([x[ix], rng.random(200).astype(np.float32)])
+    qy = np.concatenate([y[ix], rng.random(200).astype(np.float32)])
+    args, kw = point_args(ex, qx, qy, cuda)
+    sargs, skw = shard_point_args(args, kw, off, p_loc)
+    n0 = t_pp.launches
+    got = t_pp.point_query(*sargs, **skw)
+    assert t_pp.launches == n0 + 1
+    assert torch.equal(got, t_pp.point_query_plain(*sargs, **skw))
+    cpu = [a.cpu() for a in sargs]
+    assert torch.equal(got.cpu(), t_pp.point_query(*cpu, **skw))
+    p = args[3].shape[0]
+    union = torch.zeros_like(got)
+    for lo in range(0, p, p_loc):
+        a, k = shard_point_args(args, kw, lo, min(p_loc, p - lo))
+        union |= t_pp.point_query(*a, **k)
+    assert torch.equal(union, t_pp.point_query(*args, **kw))
+
+
+def mesh_calls(qx, qy, rects, r, polys, ne, k: int = 10) -> dict:
+    """name -> call on an engine: every read family, strict (the
+    facade) and serving (``run``, strict=False)."""
+    return {
+        "point": lambda e: e.point_query(qx, qy),
+        "range_count": lambda e: e.range_count(rects),
+        "range_query": lambda e: e.range_query(rects),
+        "circle_count": lambda e: e.circle_count(qx, qy, r),
+        "circle_query": lambda e: e.circle_query(qx, qy, r),
+        "knn_pruned": lambda e: e.knn(qx, qy, k),
+        "knn_exact": lambda e: e.knn(qx, qy, k, "exact"),
+        "join_windowed": lambda e: e.join_count(polys, ne),
+        "join_full": lambda e: e.join_count(polys, ne, mode="full"),
+        "serve_range_query": lambda e: e.run(T.RangeQuery(), rects),
+        "serve_circle_count": lambda e: e.run(T.CircleQuery(), qx, qy, r),
+        "serve_circle_query": lambda e: e.run(
+            T.CircleQuery(materialize=True), qx, qy, r),
+        "serve_knn": lambda e: e.run(T.Knn(k=k), qx, qy),
+        "serve_join": lambda e: e.run(T.SpatialJoin(), polys, ne),
+    }
+
+
+def meshed_match(got, want) -> str:
+    """How a meshed result equals the unmeshed one: "bitwise", or by
+    DESIGN.md §10's compaction rule ("compaction": counts, flags and kNN
+    distances bitwise, materialized ids equal as sets where ok, kNN ids
+    equal up to the order of equal distances), else ""."""
+    if _same(got, want):
+        return "bitwise"
+    got, want = _tup(got), _tup(want)
+    if len(got) == 3:                           # (counts, vids, ok)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[2],
+                                                              want[2])):
+            return ""
+        ok = got[2].tolist()
+        sg = [set(v for v in row if v >= 0) for row in got[1].tolist()]
+        sw = [set(v for v in row if v >= 0) for row in want[1].tolist()]
+        return "compaction" if all(a == b for a, b, o in zip(sg, sw, ok)
+                                   if o) else ""
+    if len(got) == 2 and got[0].dtype == torch.float32:     # kNN
+        if not torch.equal(got[0], want[0]):
+            return ""
+        pair = [torch.sort(v[1].to(torch.int64) + (v[0].view(
+            torch.int32).to(torch.int64) << 32), 1).values for v in (got,
+                                                                   want)]
+        return "compaction" if torch.equal(*pair) else ""
+    return ""
+
+
+def world1_mesh_check(n_points: int = 1 << 15, n_parts: int = 32,
+                      store: str = None) -> dict:
+    """The meshed engines at world size 1, NCCL, in this process (which
+    must not have a process group yet): a (1,) partition mesh and a
+    (1, 1) partition x query mesh whose threshold (16) puts every batch
+    here on the query axis, each family three times (eager, captured,
+    replayed) against the unmeshed engine's third call; the collectives
+    per replayed call; a serving round under sync-debug "error"."""
+    import tempfile
+
+    from repro_torch.launch import mesh as M
+    if store is None:
+        store = os.path.join(tempfile.mkdtemp(), "store")
+    dev = M.init_process("cuda", init_method=f"file://{store}",
+                         world_size=1, rank=0)
+    x, y = ds.make("taxi", n_points, seed=4)
+    part = fit("kdtree", x, y, n_parts, seed=0)
+    idx = build_index(x, y, part, device=dev)
+    rng = np.random.default_rng(5)
+    ix = rng.integers(0, len(x), 256)
+    qx = torch.as_tensor(x[ix], device=dev)
+    qy = torch.as_tensor(y[ix], device=dev)
+    rects = torch.as_tensor(ds.random_rects(256, 1e-4, part.bounds, seed=6,
+                                            centers=(x, y)), device=dev)
+    r = torch.full((256,), 0.005, device=dev)
+    polys, ne = ds.random_polygons(32, part.bounds, seed=7)
+    polys, ne = torch.as_tensor(polys, device=dev), torch.as_tensor(
+        ne, device=dev)
+    calls = mesh_calls(qx, qy, rects, r, polys, ne)
+    plain = SpatialEngine(idx, device=dev)
+    meshed = {
+        "part": SpatialEngine(idx, device=dev, mesh=M.make_host_mesh(
+            (1,), ("data",), device=dev), part_axis="data"),
+        "part_query": SpatialEngine(
+            idx, EngineConfig(query_shard_threshold=16), device=dev,
+            mesh=M.make_host_mesh((1, 1), ("data", "query"), device=dev),
+            part_axis="data", query_axis="query"),
+    }
+    report = {"match": {}, "collectives": {}}
+    want = {}
+    for name, fn in calls.items():
+        for _ in range(3):
+            want[name] = fn(plain)
+    for tag, eng in meshed.items():
+        for name, fn in calls.items():
+            for i in range(3):
+                m0 = M.launches
+                got = fn(eng)
+                report["match"][f"{tag}/{name}/{i}"] = meshed_match(
+                    got, want[name])
+            report["collectives"][f"{tag}/{name}"] = M.launches - m0
+        ex = eng.executor
+        report[f"{tag}/graphs"] = graph_count(ex)
+        report[f"{tag}/qshard_executables"] = \
+            ex.stats()["qshard_executables"]
+        # a narrow serving round (16 rows: no bucketed probe read),
+        # realized twice, then replayed under sync-debug "error"
+        narrow = [fn for name, fn in mesh_calls(
+            qx[:16], qy[:16], rects[:16], r[:16], polys[:4],
+            ne[:4]).items() if name.startswith("serve_")]
+        for _ in range(2):
+            for fn in narrow:
+                fn(eng)
+        h = ex.host_syncs
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for fn in narrow:
+                fn(eng)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        report[f"{tag}/serving_host_syncs"] = ex.host_syncs - h
+    import torch.distributed as dist
+    dist.destroy_process_group()
+    return report
+
+
+def test_gpu_meshed_engine_at_world_size_one(cuda, tmp_path):
+    """A world-size-1 NCCL group in a subprocess: every family, strict
+    and serving, through the meshed engines' CUDA graphs, bitwise the
+    unmeshed engine; every collective issued (counted on each replay);
+    the query-axis wrappings cached; a serving round makes no host
+    sync."""
+    import subprocess
+    import sys
+    code = ("import json, sys; sys.path[:0] = ['tests', 'src']\n"
+            "import test_torch_gpu as G\n"
+            f"r = G.world1_mesh_check(store={str(tmp_path / 's')!r})\n"
+            "print('REPORT ' + json.dumps(r))\n")
+    root = os.path.join(os.path.dirname(__file__), "..")
+    out = subprocess.run([sys.executable, "-c", code], cwd=root,
+                         capture_output=True, text=True, timeout=900)
+    assert out.returncode == 0, out.stdout[-4000:] + out.stderr[-4000:]
+    line = [ln for ln in out.stdout.splitlines() if ln.startswith("REPORT ")]
+    rep = json.loads(line[-1][len("REPORT "):])
+    assert all(v == "bitwise" for v in rep["match"].values()), rep["match"]
+    assert all(n > 0 for n in rep["collectives"].values()), rep
+    for tag in ("part", "part_query"):
+        assert rep[f"{tag}/graphs"] > 0
+        assert rep[f"{tag}/serving_host_syncs"] == 0
+    assert rep["part/qshard_executables"] == 0
+    assert rep["part_query/qshard_executables"] > 0

@@ -34,14 +34,14 @@ def test_no_jax_or_repro_import_statement(path):
 def test_scan_covers_this_slice():
     """The import scan above sees the modules of the circle and join
     path, of serving mode, of the morton kernel, of the serve scheduler,
-    of the launchers and of warm start's store."""
+    of the launchers, of warm start's store and of the mesh."""
     scanned = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
     assert {"kernels/circle_filter.py", "kernels/point_in_polygon.py",
             "kernels/morton.py", "core/executor.py", "core/local_ops.py",
             "core/queries.py", "core/keys.py", "core/plan.py",
             "core/engine.py", "data/spatial.py", "serve/__init__.py",
             "serve/spatial.py", "serve/scheduler.py", "launch/__init__.py",
-            "launch/spatial.py", "launch/serve.py",
+            "launch/spatial.py", "launch/serve.py", "launch/mesh.py",
             "core/compile_cache.py"} <= scanned
 
 
@@ -58,6 +58,7 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "import repro_torch.core.queries, repro_torch.core.keys\n"
         "import repro_torch.serve.scheduler, repro_torch.launch.spatial\n"
         "import repro_torch.launch.serve, repro_torch.core.compile_cache\n"
+        "import repro_torch.launch.mesh\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n")

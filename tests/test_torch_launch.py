@@ -2,7 +2,7 @@
 ``repro_torch.launch.spatial`` and ``repro_torch.launch.serve --spatial``
 with and without ``--scheduler``, and with ``--compile-cache``; the
 serve launcher refuses the LM mode, and both run on the card by
-default."""
+default; the spatial launcher on a mesh of two gloo ranks."""
 import os
 import subprocess
 import sys
@@ -64,6 +64,30 @@ def test_serve_scheduler_runs_to_the_end(capsys):
     assert "16 requests from 8 clients" in out and "req/s" in out
     assert "p50" in out and "p99" in out and "mean batch" in out
     assert "(0 busy)" in out
+
+
+def test_spatial_launcher_on_a_mesh_of_two_ranks():
+    """``--mesh host --query-shard`` under torch.distributed.run with two
+    gloo ranks (a (1, 2) partition x query mesh): it runs to the end,
+    shards the 8-query batches over the query axis, and only rank 0
+    prints."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "2", "-m", "repro_torch.launch.spatial",
+           "--mesh", "host", "--query-shard", "--query-shard-threshold", "8",
+           *TINY, "--queries", "8", "--partitions", "16"]
+    out = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
+    lines = out.stdout.splitlines()
+    assert sum(ln.startswith("generating ") for ln in lines) == 1, lines
+    assert any("mesh={'data': 1, 'query': 2} query_axis=query" in ln
+               for ln in lines), lines
+    for name in ("point", "range_count", "range", "circle", "knn", "join"):
+        assert sum(ln.split()[:1] == [name] and "us/query" in ln
+                   for ln in lines) == 1, name
+    final = [ln for ln in lines if "qshard_executables=" in ln]
+    assert len(final) == 1 and not final[0].endswith("=0"), final
 
 
 def test_serve_without_spatial_exits_non_zero():

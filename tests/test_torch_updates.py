@@ -21,10 +21,19 @@ probe, and ``n_pad``. The program cache (DESIGN.md §14):
 ``test_update_executables_cache_like_queries`` and the ``cache_keys``
 half of the capacity-growth case, each against the JAX Executor's keys.
 
-Not ported: ``test_sharded_updates_match_unsharded`` (multi-GPU, item 17);
-``test_postrefit_parity_pallas_backend`` (the Pallas kernels cannot run
-on this jax, ROADMAP §3; the port's cuda backend is held against its
-torch backend on mutated indexes in tests/test_torch_gpu.py).
+``test_sharded_updates_match_unsharded``'s twin runs on a (2, 2)
+("data", "query") mesh of four gloo ranks (tests/_dist_worker.py): two
+insert batches (the second grows the delta capacity, 600 copies of one
+point in one shard's partition), deletes, the reference test's strict
+families (point, range count, range query, kNN), a re-fit that grows
+n_pad and the probe on that shard alone, the families again;
+every rank agrees on every epoch and static, which equal the reference's
+at the same mesh and the unsharded reference's, and every output is the
+reference's at the mesh (the unmeshed port's where the reference raises).
+
+Not ported: ``test_postrefit_parity_pallas_backend`` (the Pallas kernels
+cannot run on this jax, ROADMAP §3; the port's cuda backend is held
+against its torch backend on mutated indexes in tests/test_torch_gpu.py).
 """
 import numpy as np
 import pytest
@@ -711,3 +720,68 @@ def test_refit_grows_n_pad():
     assert idx.shape_epoch > before.shape_epoch
     for n in ("key", "x", "y", "vid", "count"):
         assert torch.equal(getattr(idx, n), getattr(fresh.index, n)), n
+
+
+# -- sharded updates: a (2, 2) mesh of four gloo ranks ---------------------
+
+SHARDED_STEPS = ("ins0_", "ins_", "del_", "refit_")
+SHARDED_STATS = ("epoch", "shape_epoch", "delta_cap", "n_pad", "next_vid",
+                 "pending_refit", "updates", "refits")
+
+
+@pytest.fixture(scope="module")
+def sharded(tmp_path_factory):
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(__file__))
+    import _dist_worker as W
+    # one spawn with test_torch_query_shard.py's scenario
+    ref, ranks = W.spawn_once(W.MESH_2X2DQ, ("2x2dq",),
+                              tmp_path_factory)()["2x2dq"]
+    return W, ref, ranks
+
+
+def test_sharded_updates_ranks_agree(sharded):
+    _, _, ranks = sharded
+    for d in ranks[1:]:
+        assert set(d) == set(ranks[0])
+        for k in d:
+            assert np.array_equal(d[k], ranks[0][k]), k
+
+
+@pytest.mark.parametrize("step", SHARDED_STEPS)
+def test_sharded_updates_agree_with_reference_statics(sharded, step):
+    """Each step's epochs and statics: the reference's at the mesh and
+    the unsharded reference's (after the second insert the capacity has
+    grown; after the re-fit n_pad and the probe have)."""
+    _, ref, ranks = sharded
+    for k in SHARDED_STATS:
+        got = ranks[0][f"{step}stats/{k}"]
+        assert np.array_equal(got, ref[f"{step}stats/{k}"]), (step, k)
+        if f"plain_{step}stats/{k}" in ref and k not in ("refits",):
+            assert np.array_equal(got, ref[f"plain_{step}stats/{k}"]), \
+                (step, k)
+    if step == "ins_":
+        assert ranks[0]["ins_stats/delta_cap"] > ranks[0]["ins0_stats/delta_cap"]
+    if step == "refit_":
+        assert ranks[0]["refit_stats/n_pad"] > ranks[0]["del_stats/n_pad"]
+
+
+def test_sharded_updates_vids_removed_and_refit(sharded):
+    W, ref, ranks = sharded
+    for k in ("vids0", "vids", "removed", "refit"):
+        assert W.same((ranks[0][k],), (ref[k],)), k
+    assert int(ranks[0]["removed"]) == 120
+
+
+@pytest.mark.parametrize("when", ["pre", "post"])
+def test_sharded_updates_outputs_match_reference(sharded, when):
+    W, ref, ranks = sharded
+    names = [k[len(when) + 1:-2] for k in ranks[0]
+             if k.startswith(when + "/") and k.endswith("/0")]
+    assert len(names) == len(W.UPDATE_FAMILIES)
+    for name in names:
+        got = W.outputs(ranks[0], f"{when}/{name}")
+        want = W.outputs(ref, f"{when}/{name}")
+        assert want is not None, ref[f"{when}/{name}/raised"]
+        assert W.same(got, want), (when, name)
