@@ -96,9 +96,11 @@ result line):
               is phases 6 and 8: q = 16 and q = 64 rounds through graphs;
               (f) the kernel libraries kept in an on-disk store
               (EngineConfig.compile_cache_dir under build/), the serve
-              session's manifest() saved, and a restart in a
-              subprocess (``chip_smoke.py --restart``): the 2^23 index
-              rebuilt from its seeds, a cold
+              session's manifest() saved, phase 4's index saved
+              through the checkpoint store (phase 14), and a restart in
+              a subprocess (``chip_smoke.py --restart``): the 2^23
+              index restored from that checkpoint (not rebuilt; its
+              leaves' dtypes, shapes and contiguity checked), a cold
               session's first call per family (the libraries from the
               store: one hit each, no nvcc), then prewarm(manifest,
               exercise=True) (prewarm_ms), the first call per family
@@ -208,7 +210,12 @@ result line):
               bytes; then a q = 16 serving round on each under sync-debug
               "error" (host_syncs +0). Meshed programs run as CUDA graphs,
               their collectives captured with them: printed, and a capture
-              that fails raises. The earlier engines' graphs are released
+              that fails raises. Then a rank's restart: its shard of
+              phase 4's index restored from phase 7 (f)'s checkpoint
+              (convert.load_index on the (1,) mesh) equals the meshed
+              engine's rows leaf for leaf, and an engine on it answers
+              each phase-5 call of under a second (its first call,
+              eager) bitwise. The earlier engines' graphs are released
               first;
  12. kernels  each of the seven kernels against its plain version at the
               shapes the main path gives it (bitwise; morton on the
@@ -256,7 +263,33 @@ result line):
               tests/test_torch_gpu.py's denormal points and queries, each
               bitwise its plain version on the card, which must equal the
               plain version on the CPU; the kernels line's max_abs_err of
-              those four is the larger of the main path's and this.
+              those four is the larger of the main path's and this;
+ 14. checkpoint the index through repro_torch.checkpoint (convert.
+              index_to_arrays, the statics as the manifest's meta): phase
+              4's index (saved in phase 7 (f)) and phase 9's index after
+              its inserts and delete (delta leaves, tombstones, both
+              epochs) saved (seconds, bytes on disk), restored on the
+              card from meta prototypes (convert.leaves_like) and held
+              leaf for leaf bitwise against the index in memory; an
+              asynchronous save of the card's x, y and key planes,
+              overwritten in place before the writer joins, must load
+              the values of the call; the restart's load time beside
+              phase 4's build in this run;
+ 15. examples examples/quickstart_torch.py and examples/
+              spatial_analytics_torch.py at their defaults (200,000 and
+              500,000 points) and the analytics twin's --dist under
+              torch.distributed.run --nproc_per_node 1 (NCCL), each in a
+              process of its own (``chip_smoke.py --example NAME ...``,
+              which prints the process's launch counts); every printed
+              count equal to the engine's here (the join counts to the
+              full join's); the quickstart must launch spline_search,
+              range_count, point_probe and knn_topk (the analytics
+              twin's windowed join and pruned kNN launch no kernel when
+              their first tier is exact);
+ 16. dryrun   python -m repro_torch.launch.dryrun_spatial --mesh both in
+              a process of its own: exit 0, eight reports, rank 0's 256
+              and 128 partition rows; each program's per-rank shard
+              bytes, the plain program's bytes and collectives printed.
 
 Device busy time and idle share come from torch.profiler traces; each
 trace is checked against the wrappers' launch counts (``traced``): a
@@ -1173,22 +1206,92 @@ SERVE_NAMES = ["point", "range_count", "range_query", "circle_count",
                "knn10", "join"]
 # the restart's kernel store (build/ is git-ignored)
 WARM_STORE = ROOT / "build" / "warm_start_store"
+FROZEN_CKPT = ROOT / "build" / "index_checkpoint" / "frozen"
+MUTATED_CKPT = ROOT / "build" / "index_checkpoint" / "mutated"
+ASYNC_CKPT = ROOT / "build" / "index_checkpoint" / "async"
+
+
+def save_index(index, path) -> dict:
+    """Phase 14's save: ``index`` (on the card) through
+    ``checkpoint.save_checkpoint`` at step 1 of ``path``, its statics and
+    leaf specs as the manifest's meta. Returns seconds and bytes on
+    disk."""
+    import shutil
+
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.convert import index_to_arrays
+    shutil.rmtree(path, ignore_errors=True)
+    t0 = time.perf_counter()
+    arrays, statics = index_to_arrays(index)
+    save_checkpoint(str(path), 1, arrays, meta=statics)
+    secs = time.perf_counter() - t0
+    size = sum(f.stat().st_size for f in Path(path).rglob("*")
+               if f.is_file())
+    return {"save_s": secs, "bytes": size, "leaves": len(arrays)}
+
+
+def load_index(path, dev) -> tuple:
+    """The index saved by ``save_index``, restored on ``dev`` from a
+    prototype of meta tensors (nothing is built). Returns (index,
+    seconds to the index on the card)."""
+    import torch
+    from repro_torch import convert
+    from repro_torch.checkpoint import latest_step, read_meta
+    t0 = time.perf_counter()
+    step = latest_step(str(path))
+    require(step == 1, f"checkpoint {path}: step {step}")
+    meta = read_meta(str(path), step)
+    index = convert.load_index(str(path), step, device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    for name, spec in meta["leaf_specs"].items():
+        t = getattr(index, name)
+        require(t.is_contiguous() and t.device.type == dev.type and
+                list(t.shape) == spec["shape"] and t.dtype ==
+                torch.from_numpy(np.empty(0, spec["dtype"])).dtype,
+                f"checkpoint {path}: leaf {name} {t.dtype} {t.shape}")
+    return index, secs
+
+
+def same_index(a, b, what: str) -> int:
+    """Every leaf and static of two indexes equal, leaves bitwise (dtype,
+    shape, bytes). Returns the leaves compared."""
+    import torch
+    from repro_torch.core.build import LEAVES
+    n = 0
+    for name in LEAVES:
+        u, v = getattr(a, name), getattr(b, name)
+        require((u is None) == (v is None), f"{what}: leaf {name}")
+        if u is None:
+            continue
+        require(u.dtype == v.dtype and u.shape == v.shape and
+                torch.equal(u.view(torch.uint8), v.view(torch.uint8)),
+                f"{what}: leaf {name} differs")
+        n += 1
+    for name in ("eps", "radix_bits", "probe", "overflow_pid", "epoch",
+                 "shape_epoch", "key_spec"):
+        require(getattr(a, name) == getattr(b, name),
+                f"{what}: static {name}")
+    return n
 
 
 def restart_main(argv) -> int:
-    """``chip_smoke.py --restart STORE MANIFEST OUT N_POINTS N_PARTS``:
-    phase 7 (f), run by the parent in a fresh process. Rebuilds the index
-    (the parent's N_POINTS and N_PARTS) and the
-    q = 16 serving round 1 from their seeds; a cold session (the
-    manifest's sticky tiers only) takes the first call of each family,
+    """``chip_smoke.py --restart STORE MANIFEST OUT N_POINTS N_PARTS
+    CKPT``: phase 7 (f), run by the parent in a fresh process. Restores
+    the index from the checkpoint CKPT (the parent's phase-4 index,
+    saved by ``save_index``: nothing is built) and rebuilds the q = 16
+    serving round 1 from its seeds (the data and the partitioner of
+    N_POINTS and N_PARTS); a cold session (the manifest's sticky tiers
+    only) takes the first call of each family,
     loading each kernel library from the store; then a session given
     ``prewarm(manifest, exercise=True)``, its first call per family,
     and the steady calls. Saves both sessions' outputs to OUT (npz) and
     prints one JSON line."""
     import torch
     from repro_torch import kernels as KERN
-    from repro_torch.core import EngineConfig
+    from repro_torch.core import EngineConfig, fit
     from repro_torch.core.compile_cache import load_manifest
+    from repro_torch.data import spatial as ds
     from repro_torch.kernels import _build
     from repro_torch.serve import SpatialServeSession
     global N_POINTS, N_PARTS
@@ -1196,13 +1299,17 @@ def restart_main(argv) -> int:
     N_POINTS, N_PARTS = int(argv[3]), int(argv[4])
     dev = torch.device(DEVICE)
     t0 = time.perf_counter()
-    x, y, part, index, _, _ = full_index(dev)
+    x, y = ds.make("taxi", N_POINTS, seed=0)
+    part = fit("kdtree", x, y, N_PARTS, seed=0)
+    data_s = time.perf_counter() - t0
+    index, load_s = load_index(argv[5], dev)
     index_s = time.perf_counter() - t0
     man = load_manifest(man_path)
     require(man is not None and man["programs"], "restart: no manifest")
     reqs = serve_round(x, y, part, 1, dev)
     cfg = EngineConfig(compile_cache_dir=store)
-    res = {"index_s": index_s, "programs": len(man["programs"])}
+    res = {"index_s": index_s, "data_s": data_s, "index_load_s": load_s,
+           "programs": len(man["programs"])}
     outs = {}
 
     def first_calls(sess, tag):
@@ -1255,7 +1362,7 @@ def restart_main(argv) -> int:
 
 
 def warm_phase(eng, plain, main_path, main_args, sess, x, y, part, dev,
-               card) -> dict:
+               card, index) -> dict:
     """Phase 7: warm start (see the module docstring), on the main path's
     engines and the serve phase's session. Returns the report."""
     import torch
@@ -1330,11 +1437,17 @@ def warm_phase(eng, plain, main_path, main_args, sess, x, y, part, dev,
     report["manifest_signatures"] = sum(len(p["sigs"])
                                         for p in man["programs"])
     release(ex, plain.executor, sess.executor)
+    # the restart restores phase 4's index from a checkpoint (phase 14)
+    report["checkpoint"] = save_index(index, FROZEN_CKPT)
+    log(f"[warm] (f) phase 4's index checkpointed in "
+        f"{report['checkpoint']['save_s']:.2f} s, "
+        f"{report['checkpoint']['bytes']} bytes on disk")
     out_npz = ROOT / "build" / "warm_start_restart.npz"
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
                            "--restart", str(WARM_STORE), str(mpath),
-                           str(out_npz), str(N_POINTS), str(N_PARTS)],
+                           str(out_npz), str(N_POINTS), str(N_PARTS),
+                           str(FROZEN_CKPT)],
                           capture_output=True,
                           text=True, timeout=600)
     report["restart_process_s"] = time.perf_counter() - t0
@@ -1360,7 +1473,9 @@ def warm_phase(eng, plain, main_path, main_args, sess, x, y, part, dev,
                         f"warm (f): {tag} {SERVE_NAMES[i]} leaf {j} "
                         "differs from the parent's")
     log(f"[warm] (f) {card}: restart in {report['restart_process_s']:.1f} s "
-        f"(index {rs['index_s']:.1f} s); {n_libs} libraries from the store "
+        f"(data and partitioner {rs['data_s']:.1f} s, index from the "
+        f"checkpoint {rs['index_load_s']:.2f} s); {n_libs} libraries from "
+        "the store "
         f"(hits {rs['disk_cache_hits']}, misses {rs['disk_cache_misses']}, "
         f"nvcc runs {rs['nvcc_compiles']}); prewarm "
         f"{rs['prewarm_ms']:.1f} ms ({rs['prewarm']}); first call ms, "
@@ -1407,11 +1522,15 @@ def update_phase(index, part, x, y, dev, main_path, main_args, sticky,
     """Phase 9: the update path on the full index (see the module
     docstring). Returns (report, {kernel: launches of the driven
     families and serving rounds}, {kernel: max_abs_err of the kernels
-    against their plain versions on the mutated and the re-fit index})."""
+    against their plain versions on the mutated and the re-fit index},
+    a copy of the index after the inserts and the delete)."""
+    import dataclasses
+
     import torch
     from repro_torch import kernels as KERN
     from repro_torch.core import (EngineConfig, PointQuery, Refit,
                                   SpatialEngine, build_index)
+    from repro_torch.core.build import LEAVES
     from repro_torch.data import spatial as ds
     from repro_torch.serve import SpatialServeSession
     sys.path.insert(0, str(ROOT / "tests"))
@@ -1459,6 +1578,12 @@ def update_phase(index, part, x, y, dev, main_path, main_args, sticky,
     report["partitions_with_tombstones"] = int((ex.index.dead > 0).sum())
     require(plain.insert(*u["ins"]).tolist() == vids.tolist() and
             plain.delete(*u["dele"]) == removed, "updates: torch backend")
+    # phase 14 checkpoints this mutated index (delta leaves, tombstones,
+    # both epochs): a copy, since the re-fit below writes the planes
+    mi = ex.index
+    mutated = dataclasses.replace(mi, **{
+        f: getattr(mi, f).clone() for f in LEAVES
+        if getattr(mi, f) is not None})
     log(f"[updates] {card}: insert {report['inserts']} points "
         f"{report['insert_ms']:.1f} ms (delta_cap {report['delta_cap']}, "
         f"{report['partitions_with_inserts']} partitions), delete "
@@ -1642,7 +1767,7 @@ def update_phase(index, part, x, y, dev, main_path, main_args, sticky,
     del sess
     log(f"[updates] {card}: max_memory_allocated of the driven calls "
         f"{report['max_memory_allocated']}")
-    return report, launches, report["kernel_max_abs_err"]
+    return report, launches, report["kernel_max_abs_err"], mutated
 
 
 def closed_loop_clients(sched, reqs, n_clients, before=None):
@@ -2145,6 +2270,8 @@ def mesh_phase(index, part, x, y, dev, main_path, res, lat, first_ms,
     require(rep["part"]["qshard_executables"] == 0 and
             rep["part_query"]["qshard_executables"] > 0,
             "qshard wrappings on the query mesh only")
+    rep["shard_restore"] = shard_restore(engines["part"], main_path, res,
+                                         first_ms, rank_dev)
     launched = KERN.launch_counts()
     release(*(e.executor for e in engines.values()))
     del engines
@@ -2152,6 +2279,254 @@ def mesh_phase(index, part, x, y, dev, main_path, res, lat, first_ms,
     rep["seconds"] = time.perf_counter() - t0
     log(f"[mesh] phase {rep['seconds']:.1f} s; launches {launched}")
     return rep, launched
+
+
+def shard_restore(meshed, main_path, res, first_ms, dev) -> dict:
+    """Phase 11's restart of a meshed rank: its shard of phase 4's index
+    restored from the checkpoint of phase 7 (f) (``convert.load_index``
+    on the (1,) mesh) equals the rows the meshed engine on the whole
+    index keeps, leaf for leaf, and an engine on it answers every fast
+    phase-5 call (first call, eager) bitwise. Returns the report."""
+    import torch
+    from repro_torch import convert
+    from repro_torch.core import SpatialEngine
+    sys.path.insert(0, str(ROOT / "tests"))
+    from test_torch_gpu import meshed_match
+    t0 = time.perf_counter()
+    shard = convert.load_index(str(FROZEN_CKPT), device=dev,
+                               mesh=meshed.mesh, part_axis="data")
+    torch.cuda.synchronize()
+    rep = {"load_s": time.perf_counter() - t0,
+           "rows": [shard.part_offset, shard.num_partitions,
+                    shard.part_total]}
+    rep["leaves_bitwise"] = same_index(shard, meshed.executor.index,
+                                       "restored shard")
+    e = SpatialEngine(shard, device=dev, mesh=meshed.mesh,
+                      part_axis="data")
+    require(e.executor.next_vid == meshed.executor.next_vid,
+            "restored shard: next vid")
+    rep["calls"] = []
+    for name, (fn, _, _) in main_path.items():
+        if first_ms[name] <= 1000:
+            require(meshed_match(fn(e), res[name]),
+                    f"restored shard: {name}")
+            rep["calls"].append(name)
+    release(e.executor)
+    rep["seconds"] = time.perf_counter() - t0
+    log(f"[mesh] a rank's shard restored from the checkpoint in "
+        f"{rep['load_s']:.2f} s (rows {rep['rows']}), "
+        f"{rep['leaves_bitwise']} leaves bitwise, bitwise on "
+        f"{rep['calls']}; {rep['seconds']:.1f} s")
+    return rep
+
+
+def checkpoint_phase(index, mutated, warm, card, build_s) -> dict:
+    """Phase 14: the index through the checkpoint store (see the module
+    docstring). Returns the report."""
+    import torch
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    dev = torch.device(DEVICE)
+    t0 = time.perf_counter()
+    rep = {"card": card, "frozen": dict(warm["checkpoint"])}
+    # (a) phase 4's index, saved in phase 7 (f) for the restart
+    back, rep["frozen"]["load_s"] = load_index(FROZEN_CKPT, dev)
+    rep["frozen"]["leaves_bitwise"] = same_index(back, index, "frozen")
+    del back
+    # (b) the update phase's mutated index
+    require(mutated.epoch >= 2 and mutated.shape_epoch >= 1 and
+            mutated.delta_cap > 0 and int(mutated.dead.sum()) > 0,
+            f"checkpoint: the mutated index is not mutated (epoch "
+            f"{mutated.epoch}, shape_epoch {mutated.shape_epoch})")
+    rep["mutated"] = save_index(mutated, MUTATED_CKPT)
+    back, rep["mutated"]["load_s"] = load_index(MUTATED_CKPT, dev)
+    rep["mutated"]["leaves_bitwise"] = same_index(back, mutated, "mutated")
+    rep["mutated"].update(epoch=mutated.epoch,
+                          shape_epoch=mutated.shape_epoch,
+                          delta_cap=mutated.delta_cap)
+    del back
+    # (c) an asynchronous save of the card's planes, overwritten in place
+    # (as the update path and CUDA graphs write them) before the join
+    planes = {"x": index.x.clone(), "y": index.y.clone(),
+              "key": index.key.clone()}
+    want = {k: v.to("cpu", copy=True) for k, v in planes.items()}
+    t1 = time.perf_counter()
+    writer = save_checkpoint(str(ASYNC_CKPT), 1, planes, async_write=True)
+    rep["async_return_s"] = time.perf_counter() - t1
+    for v in planes.values():
+        v.fill_(-1)
+    torch.cuda.synchronize()
+    writer.join()
+    rep["async_join_s"] = time.perf_counter() - t1
+    got = load_checkpoint(str(ASYNC_CKPT), 1, planes, device=dev)
+    require(all(torch.equal(got[k].cpu(), want[k]) for k in want),
+            "checkpoint: the async save saw the in-place writes")
+    del planes, got, want
+    # (d) the restart's index came from (a)'s checkpoint
+    rs = warm["restart"]
+    rep["restart_index_load_s"] = rs["index_load_s"]
+    rep["restart_data_s"] = rs["data_s"]
+    rep["build_s"] = build_s
+    rep["seconds"] = time.perf_counter() - t0
+    log(f"[checkpoint] {card}: phase 4's index saved "
+        f"{rep['frozen']['save_s']:.2f} s, {rep['frozen']['bytes']} bytes, "
+        f"loaded {rep['frozen']['load_s']:.2f} s, "
+        f"{rep['frozen']['leaves_bitwise']} leaves bitwise; mutated index "
+        f"(epoch {mutated.epoch}, shape_epoch {mutated.shape_epoch}, "
+        f"delta_cap {mutated.delta_cap}) saved "
+        f"{rep['mutated']['save_s']:.2f} s, {rep['mutated']['bytes']} "
+        f"bytes, loaded {rep['mutated']['load_s']:.2f} s, "
+        f"{rep['mutated']['leaves_bitwise']} leaves bitwise; async save "
+        f"returned in {rep['async_return_s']:.3f} s, joined "
+        f"{rep['async_join_s']:.2f} s, in-place writes after the call not "
+        f"in it; the restart's index from the checkpoint "
+        f"{rs['index_load_s']:.2f} s (its data and partitioner "
+        f"{rs['data_s']:.1f} s) against phase 4's build of {build_s:.1f} s "
+        "in this run; "
+        f"phase {rep['seconds']:.1f} s")
+    return rep
+
+
+EXAMPLE_PATH = ("spline_search", "range_count", "point_probe", "knn_topk")
+# each twin's points: its default
+EXAMPLE_N = {"quickstart_torch": 200_000, "spatial_analytics_torch": 500_000}
+
+
+def example_main(argv) -> int:
+    """``chip_smoke.py --example NAME [ARGS]``: run examples/NAME.py
+    with ARGS as its own ``__main__``, the launch counts set to 0 just
+    before; then print them (on rank 0 under torch.distributed.run) as
+    the last line, one JSON object."""
+    import os
+    import runpy
+
+    from repro_torch import kernels as KERN
+    name, rest = argv[0], argv[1:]
+    script = ROOT / "examples" / f"{name}.py"
+    sys.argv = [str(script)] + rest
+    KERN.reset_launch_counts()
+    runpy.run_path(str(script), run_name="__main__")
+    if os.environ.get("RANK", "0") == "0":
+        print(json.dumps({"launches": KERN.launch_counts()}))
+    return 0
+
+
+def examples_phase(card) -> dict:
+    """Phase 15: both example twins at their defaults on the card, and
+    the analytics twin's ``--dist`` under torch.distributed.run at one
+    rank (NCCL), each in a process of its own; their printed counts held
+    against the engine here (tests/test_torch_examples.py's
+    ``quickstart_want`` / ``analytics_want``). Returns the report."""
+    import torch
+    sys.path.insert(0, str(ROOT / "tests"))
+    from test_torch_examples import (analytics_got, analytics_want,
+                                     quickstart_got, quickstart_want)
+    t0 = time.perf_counter()
+    rep = {"card": card}
+    here = [sys.executable, str(ROOT / "chip_smoke.py"), "--example"]
+    torchrun = [sys.executable, "-m", "torch.distributed.run",
+                "--standalone", "--nproc_per_node", "1",
+                str(ROOT / "chip_smoke.py"), "--example"]
+    qn = EXAMPLE_N["quickstart_torch"]
+    an = EXAMPLE_N["spatial_analytics_torch"]
+    # no --n under torchrun: its parser (torch 2.11) takes "--n" for an
+    # abbreviation of its own options, so that run keeps the default
+    require(an == 500_000, "examples: --dist runs the analytics default")
+    runs = {
+        "quickstart": here + ["quickstart_torch", "--n", str(qn)],
+        "spatial_analytics": here + ["spatial_analytics_torch",
+                                     "--n", str(an)],
+        "spatial_analytics_dist": torchrun + ["spatial_analytics_torch",
+                                              "--dist"],
+    }
+    if DEVICE != "cuda":        # a CPU rehearsal
+        runs = {k: v + ["--device", DEVICE] for k, v in runs.items()}
+    out = {}
+    for tag, cmd in runs.items():
+        t1 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=600, cwd=str(ROOT))
+        secs = time.perf_counter() - t1
+        require(proc.returncode == 0, f"examples: {tag} failed:\n"
+                f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        lines = proc.stdout.strip().splitlines()
+        out[tag] = "\n".join(lines[:-1])
+        rep[tag] = {"process_s": secs,
+                    "launches": json.loads(lines[-1])["launches"]}
+        log(f"[examples] {tag}: {secs:.1f} s, launches "
+            f"{rep[tag]['launches']}; printed:\n{out[tag]}")
+    t1 = time.perf_counter()
+    want_q = quickstart_want(qn, DEVICE)
+    want_a = analytics_want(an, DEVICE)
+    torch.cuda.synchronize()
+    rep["engine_s"] = time.perf_counter() - t1
+    require(quickstart_got(out["quickstart"]) == want_q,
+            f"examples: quickstart printed {quickstart_got(out['quickstart'])}"
+            f", the engine {want_q}")
+    for tag in ("spatial_analytics", "spatial_analytics_dist"):
+        require(analytics_got(out[tag]) == want_a,
+                f"examples: {tag} printed {analytics_got(out[tag])}, the "
+                f"engine {want_a}")
+    require("distributed over 1 devices" in out["spatial_analytics_dist"],
+            "examples: --dist ran unmeshed")
+    # the kernels the quickstart's calls reach: point, range count, the
+    # exact kNN of its serving batch (the windowed programs launch none)
+    got = rep["quickstart"]["launches"]
+    require(all(got[n] > 0 for n in EXAMPLE_PATH),
+            f"examples: quickstart launches {got}")
+    rep["want"] = {"quickstart": want_q, "spatial_analytics": want_a}
+    rep["seconds"] = time.perf_counter() - t0
+    log(f"[examples] {card}: every printed count equals the engine's "
+        f"(join counts against the full join); quickstart "
+        f"{json.dumps(want_q)}; analytics densest zones {want_a['zones']};"
+        f" engine check {rep['engine_s']:.1f} s; phase "
+        f"{rep['seconds']:.1f} s")
+    return rep
+
+
+def dryrun_phase(card) -> dict:
+    """Phase 16: ``python -m repro_torch.launch.dryrun_spatial --mesh
+    both`` in a process of its own (its fake process group is
+    process-global): exit 0, eight reports, rank 0's shard 256 and 128
+    partition rows. Returns each program's per-rank figures."""
+    import os
+    import shutil
+    out_dir = ROOT / "build" / "dryrun_spatial"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun_spatial",
+         "--mesh", "both", "--out", str(out_dir)], capture_output=True,
+        text=True, timeout=600, cwd=str(ROOT),
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    secs = time.perf_counter() - t0
+    require(proc.returncode == 0, f"dryrun failed:\n{proc.stdout[-3000:]}"
+            f"\n{proc.stderr[-3000:]}")
+    rep = {"card": card, "seconds": secs, "cells": {}}
+    files = sorted(out_dir.glob("*.json"))
+    require(len(files) == 8, f"dryrun: {len(files)} reports")
+    for f in files:
+        r = json.loads(f.read_text())
+        pr = r["per_rank"]
+        require(pr["partition_rows"] == (256 if r["mesh"] == "single"
+                                         else 128),
+                f"dryrun {f.name}: rows {pr['partition_rows']}")
+        rep["cells"][f"{r['shape']}/{r['mesh']}"] = {
+            k: pr[k] for k in ("partition_rows", "shard_bytes_total",
+                               "outputs", "plain_ops", "plain_bytes_read",
+                               "plain_bytes_written", "t_memory_s",
+                               "collective_bytes")} | {
+            "collectives": len(pr["collectives"]),
+            "collective_ops": sorted({c["op"] for c in pr["collectives"]})}
+    log(f"[dryrun] {card}: {secs:.1f} s, 8 reports; per rank, program/"
+        "mesh: rows, shard bytes, plain bytes read + written (t_memory_s "
+        "of the plain program), collectives (bytes):")
+    for cell, c in rep["cells"].items():
+        log(f"[dryrun]   {cell}: {c['partition_rows']} rows, "
+            f"{c['shard_bytes_total']} B; plain {c['plain_bytes_read']} + "
+            f"{c['plain_bytes_written']} B ({c['t_memory_s']:.6f} s); "
+            f"{c['collectives']} {c['collective_ops']} "
+            f"({c['collective_bytes']} B)")
+    return rep
 
 
 def main() -> int:
@@ -2453,7 +2828,7 @@ def main() -> int:
     report["warm"] = warm_phase(
         eng, plain, main_path,
         (rects, qx, qy, kx, ky, (cx, cy, cr), polys, ne), serve_sess, x, y,
-        part, dev, card)
+        part, dev, card, index)
     report["warm"]["families"] = {
         n: {"graph_ms": lat[n], "graph_busy_ms":
             report["where"][n]["device_busy_ms"],
@@ -2481,7 +2856,7 @@ def main() -> int:
 
     phase("updates")
     # 9. the update path on the full index
-    report["updates"], upd_launches, upd_err = update_phase(
+    report["updates"], upd_launches, upd_err, mutated = update_phase(
         index, part, x, y, dev, main_path,
         (rects, qx, qy, kx, ky, (cx, cy, cr), polys, ne), dict(ex._sticky),
         serve_tiers, lat, card)
@@ -2878,6 +3253,21 @@ def main() -> int:
             err = report["denormals"][row["name"]]["max_abs_err"]
             row["denormal_max_abs_err"] = err
             row["max_abs_err"] = max(row["max_abs_err"], err)
+
+    phase("checkpoint")
+    # 14. the index through the checkpoint store; the restart's index
+    report["checkpoint"] = checkpoint_phase(index, mutated, report["warm"],
+                                            card, report["index_build_s"])
+    del mutated
+
+    phase("examples")
+    # 15. the example twins, each in a process of its own
+    report["examples"] = examples_phase(card)
+
+    phase("dryrun")
+    # 16. the production-mesh dry run on meta tensors
+    report["dryrun"] = dryrun_phase(card)
+
     for row in rows:
         require(row["max_abs_err"] == 0, f"{row['name']} differs from plain")
     require(len(rows) == len(KERN.KERNELS), "a kernel row is missing")
@@ -2898,4 +3288,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--restart"]:
         sys.exit(restart_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--example"]:
+        sys.exit(example_main(sys.argv[2:]))
     sys.exit(main())

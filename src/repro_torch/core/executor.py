@@ -62,7 +62,9 @@ process per rank, each making the same calls with the same arguments
 (``launch/mesh.py``). With ``mesh`` the partitions shard over
 ``part_axis``: the index is padded to shards x ``part_chunk``
 partitions, each rank keeps its own rows on its device (the boxes, the
-overflow id and the statics stay global) and every program merges its
+overflow id and the statics stay global; an index that is already this
+rank's shard, as ``convert.load_index`` restores it from a checkpoint,
+is taken as it is) and every program merges its
 share with the axis's collectives (core/local_ops.py). With
 ``query_axis`` too, a batch of at least ``query_shard_threshold``
 queries is padded to a multiple of the query axis by repeating row 0;
@@ -475,7 +477,9 @@ class Executor:
     names) and, with ``query_axis``, large query batches over that axis
     (module docstring). Every rank constructs its executor with the same
     arguments; ``device`` is this rank's (NCCL on the card, gloo on the
-    CPU).
+    CPU). With a mesh, ``index`` is the whole index, or this rank's
+    shard of it (``part_total`` set: ``convert.load_index(...,
+    mesh=mesh)``), which must be the rows this rank would cut.
 
     ``cuda_graphs`` (True on the card) realizes query programs as CUDA
     graphs; set it False before the first call to run them eagerly. With
@@ -510,13 +514,29 @@ class Executor:
                 self._qaxis = mesh.axis(_axes(query_axis))
             self._check_groups()
             shards = self._axis.size
-            index = L.pad_partitions(index, shards * self.cfg.part_chunk)
-            self.p_total = index.num_partitions
-            p_loc = self.p_total // shards
-            # every rank sees the whole index; ids come from all of it
-            nxt0 = self._max_vid(index)
-            index = L.shard_partitions(index, self._axis.offset(p_loc),
-                                       p_loc).to(self.device)
+            if index.part_total:
+                # this rank's shard, cut before it was loaded
+                # (convert.load_index): ids come from every rank's rows
+                p_loc, self.p_total = index.num_partitions, index.part_total
+                if (p_loc * shards != self.p_total
+                        or p_loc % self.cfg.part_chunk
+                        or index.part_offset != self._axis.offset(p_loc)):
+                    raise ValueError(
+                        f"shard rows [{index.part_offset}, "
+                        f"{index.part_offset + p_loc}) of {self.p_total} "
+                        f"are not this rank's of {shards} shards of "
+                        f"part_chunk {self.cfg.part_chunk}")
+                nxt0 = self._axis.agree([self._max_vid(index)])[0]
+                index = index.to(self.device)
+            else:
+                index = L.pad_partitions(index,
+                                         shards * self.cfg.part_chunk)
+                self.p_total = index.num_partitions
+                p_loc = self.p_total // shards
+                # every rank sees the whole index; ids come from all of it
+                nxt0 = self._max_vid(index)
+                index = L.shard_partitions(index, self._axis.offset(p_loc),
+                                           p_loc).to(self.device)
         self.cuda_graphs = self.device.type == "cuda"
         # a graph reads fixed pointers: own the planes, write them in place
         own = self.cuda_graphs

@@ -72,22 +72,45 @@ EMPTY_BOX = np.asarray([3e38, 3e38, -3e38, -3e38], np.float32)
 NEG = _knn.NEG              # empty kNN slot, as the reference's
 
 
+def padded_count(p: int, multiple: int) -> int:
+    """``p`` partitions padded up to a multiple of ``multiple``."""
+    return int(np.ceil(p / multiple) * multiple)
+
+
 def pad_partitions(index: LearnedSpatialIndex, multiple: int
                    ) -> LearnedSpatialIndex:
     """Pad the partition axis with empty partitions (never match queries)."""
     p = index.num_partitions
-    p_pad = int(np.ceil(p / multiple) * multiple)
+    p_pad = padded_count(p, multiple)
     if p_pad == p:
         return index
-    extra = p_pad - p
+    return _pad(index, p_pad - p, p_pad - p)
 
+
+def pad_shard(rows: LearnedSpatialIndex, offset: int, p_loc: int,
+              p_total: int) -> LearnedSpatialIndex:
+    """A meshed rank's shard from its rows of the unpadded index:
+    ``rows`` holds partitions [offset, offset + p_loc) as far as the
+    index has them (fewer, or none, where the padding begins), the whole
+    index's boxes and its global overflow id. The result is what
+    ``shard_partitions`` cuts from the index padded to ``p_total``."""
+    out = _pad(rows, p_loc - rows.num_partitions,
+               p_total - rows.part_bounds.shape[0])
+    return dataclasses.replace(out, part_offset=int(offset),
+                               part_total=int(p_total))
+
+
+def _pad(index: LearnedSpatialIndex, extra: int, box_extra: int
+         ) -> LearnedSpatialIndex:
+    """``extra`` empty partition rows and ``box_extra`` empty boxes."""
     def pad(a, fill):
         block = torch.full((extra,) + tuple(a.shape[1:]), fill,
                            dtype=a.dtype, device=a.device)
         return torch.cat([a, block], dim=0)
 
-    boxes = torch.as_tensor(np.broadcast_to(EMPTY_BOX, (extra, 4)).copy(),
-                            device=index.device)
+    boxes = torch.as_tensor(
+        np.broadcast_to(EMPTY_BOX, (box_extra, 4)).copy(),
+        device=index.device)
 
     def pad_opt(a, fill):
         return None if a is None else pad(a, fill)

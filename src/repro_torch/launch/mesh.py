@@ -23,16 +23,19 @@ world size is 1.
 coordinates of ``axes`` (row-major, as ``P(axes)`` lays partitions out)
 and its collectives. Each collective it issues counts one launch in this
 module's ``launches`` through ``kernels/_launches.py``, so a CUDA graph
-that captured collectives adds them on each replay.
+that captured collectives adds them on each replay. Inside
+``recording()`` each one is also logged as (op, group size, bytes).
 
-Not ported: the reference's production meshes (``make_production_mesh``,
-16 x 16 and 2 x 16 x 16 chips), which only its dry run builds (ROADMAP
-item 18b).
+``make_production_mesh`` gives the reference's production meshes (16 x
+16 and 2 x 16 x 16 ranks); only the dry run
+(``launch/dryrun_spatial.py``) builds them, over a fake process group.
+Nothing here touches a device or the process group at import.
 """
 from __future__ import annotations
 
 import math
 import os
+from contextlib import contextmanager
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -41,6 +44,27 @@ import torch.distributed as dist
 from repro_torch.kernels import _launches as KL
 
 launches = 0        # collectives issued (a graph replay adds its own)
+_log = None         # a list while recording() is open
+
+
+@contextmanager
+def recording():
+    """While open, every collective an ``Axis`` issues is appended to
+    the yielded list as {"op", "axis_size", "bytes"} (bytes of this
+    rank's input to it)."""
+    global _log
+    prev, _log = _log, []
+    try:
+        yield _log
+    finally:
+        _log = prev
+
+
+def _issued(op: str, size: int, x: torch.Tensor) -> None:
+    KL.count(__name__)
+    if _log is not None:
+        _log.append({"op": op, "axis_size": int(size),
+                     "bytes": x.numel() * x.element_size()})
 
 
 def backend_for(device) -> str:
@@ -110,7 +134,7 @@ class Axis:
         return self.index * int(p_loc)
 
     def _reduce(self, x, op):
-        KL.count(__name__)
+        _issued("all_reduce", self.size, x)
         y = x.clone()
         dist.all_reduce(y, op=op, group=self.group)
         return y
@@ -124,7 +148,7 @@ class Axis:
         return self._reduce(x, dist.ReduceOp.MAX)
 
     def _gather(self, x, dim: int):
-        KL.count(__name__)
+        _issued("all_gather", self.size, x)
         x = x.contiguous()
         out = [torch.empty_like(x) for _ in range(self.size)]
         dist.all_gather(out, x, group=self.group)
@@ -225,6 +249,24 @@ def make_host_mesh(shape=None, axes=None, device="cuda") -> Mesh:
     dm = init_device_mesh(dev.type, tuple(int(s) for s in shape),
                           mesh_dim_names=axes)
     return Mesh(dm, dev)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device="cuda") -> Mesh:
+    """The reference's production meshes over the initialised world:
+    16 x 16 ("data", "model"), 256 ranks, or with ``multi_pod`` 2 x 16 x
+    16 ("pod", "data", "model"), 512 ranks. Raises ``RuntimeError``
+    naming the world size needed when the world is smaller (a dry run
+    gives it a fake process group of that size)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    n = math.prod(shape)
+    have = world_size()
+    if have < n:
+        raise RuntimeError(
+            f"need a world of {n} ranks, found {have}: launch {n} ranks, "
+            f"or a fake process group of world size {n} (dry run)")
+    return make_host_mesh(shape, axes, device=device)
 
 
 def world_size() -> int:

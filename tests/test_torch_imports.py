@@ -25,7 +25,9 @@ def _imported_roots(path: Path) -> set:
 
 
 @pytest.mark.parametrize(
-    "path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    "path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] +
+    [ROOT / "examples" / n for n in ("quickstart_torch.py",
+                                     "spatial_analytics_torch.py")],
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_repro_import_statement(path):
     assert not _imported_roots(path) & {"jax", "jaxlib", "repro"}
@@ -34,7 +36,8 @@ def test_no_jax_or_repro_import_statement(path):
 def test_scan_covers_this_slice():
     """The import scan above sees the modules of the circle and join
     path, of serving mode, of the morton kernel, of the serve scheduler,
-    of the launchers, of warm start's store and of the mesh."""
+    of the launchers, of warm start's store, of the mesh, of the
+    checkpoint store and of the dry run."""
     scanned = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
     assert {"kernels/circle_filter.py", "kernels/point_in_polygon.py",
             "kernels/morton.py", "core/executor.py", "core/local_ops.py",
@@ -42,7 +45,8 @@ def test_scan_covers_this_slice():
             "core/engine.py", "data/spatial.py", "serve/__init__.py",
             "serve/spatial.py", "serve/scheduler.py", "launch/__init__.py",
             "launch/spatial.py", "launch/serve.py", "launch/mesh.py",
-            "core/compile_cache.py"} <= scanned
+            "core/compile_cache.py", "checkpoint/store.py",
+            "launch/dryrun_spatial.py"} <= scanned
 
 
 def test_importing_the_port_loads_neither_jax_nor_repro():
@@ -59,6 +63,7 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "import repro_torch.serve.scheduler, repro_torch.launch.spatial\n"
         "import repro_torch.launch.serve, repro_torch.core.compile_cache\n"
         "import repro_torch.launch.mesh\n"
+        "import repro_torch.checkpoint, repro_torch.launch.dryrun_spatial\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n")
