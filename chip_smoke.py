@@ -289,7 +289,21 @@ result line):
  16. dryrun   python -m repro_torch.launch.dryrun_spatial --mesh both in
               a process of its own: exit 0, eight reports, rank 0's 256
               and 128 partition rows; each program's per-rank shard
-              bytes, the plain program's bytes and collectives printed.
+              bytes, the plain program's bytes and collectives printed;
+ 17. lm       LM serving (plain PyTorch, no kernel of the seven) in a
+              process of its own (``chip_smoke.py --lm``): qwen2.5-3b at
+              its published width (36 layers, d 2048, 16 heads, 2 KV
+              heads, d_ff 11008, vocab 151936, tied, bf16 compute) from
+              the port's init, 8 prompts of 512 tokens from
+              make_batch(seed=1): prefill, generate's 64 greedy steps,
+              one decode step's wall, device and traced busy time,
+              tokens per second, parameter and cache bytes, peak memory;
+              checks (a) decode against forward at 4 generated
+              positions, (b) a ServeSession stepping 32 prompt tokens
+              against prefill over them, both within LM_BF16_REL of the
+              largest logit, (c) the smoke config at float32 on the card
+              against the CPU on the same weights (LM_F32_RTOL, greedy
+              tokens equal), (d) every logit finite and TF32 off.
 
 Device busy time and idle share come from torch.profiler traces; each
 trace is checked against the wrappers' launch counts (``traced``): a
@@ -2529,6 +2543,246 @@ def dryrun_phase(card) -> dict:
     return rep
 
 
+# phase 17: LM serving at qwen2.5-3b's published width
+LM_ARCH = "qwen2.5-3b"
+LM_BATCH, LM_PROMPT, LM_STEPS = 8, 512, 64
+# check (a)'s prompts: the first 448 tokens, so that every forward over
+# prompt + generated tokens is at most 512 long: forward's query chunk
+# is min(512, S), and S must be a multiple of it (as in the reference)
+LM_CHECK_PROMPT = 448
+LM_CHECK_AT = (0, 21, 42, 63)
+LM_SESSION_STEPS = 32
+# (a), (b): bf16 logits of two paths (decode against forward, a session
+# against prefill) within 2^-4 of the largest logit, 16 bf16 ulps there.
+# Measured on the CPU: 0.00195 of 1.39 at the smoke size (1 ulp),
+# 0.03125 of 2.86 at d_model 1024 x 12 layers (1.1 %)
+LM_BF16_REL = 2 ** -4
+# (a) at float32 compute: summation orders only (cuBLAS picks other
+# kernels for 8 rows than for 3,592), over 36 layers
+LM_F32_WIDE_REL = 1e-4
+
+
+def _lm_bf16_close(got, want, what: str) -> float:
+    """max |got - want| over max |want|, required <= LM_BF16_REL."""
+    import torch
+    for t in (got, want):
+        require(bool(torch.isfinite(t).all()), f"lm: {what}: non-finite")
+    err = float((got.float() - want.float()).abs().max())
+    rel = err / max(float(want.float().abs().max()), 1e-30)
+    require(rel <= LM_BF16_REL, f"lm: {what}: {err} ({rel:.4f} of the "
+            f"largest logit) > {LM_BF16_REL}")
+    return rel
+
+
+def lm_main() -> int:
+    """``chip_smoke.py --lm``: phase 17 in a process of its own (the
+    earlier phases' index and graph pools do not share the card with
+    it). qwen2.5-3b at its published width on the card; prints the
+    report as the last line, one JSON object."""
+    import torch
+
+    from repro_torch.configs import get_config
+    cfg = get_config(LM_ARCH)
+    require((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+             cfg.head_dim, cfg.d_ff, cfg.vocab, cfg.tie_embeddings,
+             cfg.compute_dtype) == (36, 2048, 16, 2, 128, 11008, 151936,
+                                    True, "bfloat16"),
+            f"lm: {LM_ARCH} is not at its published width: {cfg}")
+    print(json.dumps(lm_serve(cfg, torch.device(DEVICE), card_line())))
+    return 0
+
+
+def lm_serve(cfg, dev, card: str) -> dict:
+    """Serve ``cfg`` on ``dev`` from the port's own ``init`` (seed 0),
+    prompts from ``make_batch(seed=1)``: prefill, ``generate``, their
+    times, then the checks (a)-(d) (any failure raises). Returns the
+    report."""
+    import dataclasses
+
+    import torch
+    sys.path.insert(0, str(ROOT / "tests"))
+    from test_torch_gpu import LM_F32_RTOL, lm_card_vs_cpu
+
+    from repro_torch.data.tokens import make_batch
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_items
+    from repro_torch.serve import (ServeSession, generate, make_decode,
+                                   make_prefill)
+    t_start = time.perf_counter()
+    rep = {"card": card, "arch": cfg.name, "batch": LM_BATCH,
+           "prompt": LM_PROMPT, "steps": LM_STEPS}
+    # (d) float32 products stay IEEE float32 on the card: no TF32
+    prec = (torch.backends.cuda.matmul.allow_tf32,
+            torch.get_float32_matmul_precision())
+    require(prec == (False, "highest"), f"lm: TF32 matmuls allowed {prec}")
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(0, device=dev)
+    torch.cuda.synchronize()
+    rep["init_s"] = time.perf_counter() - t0
+    leaves = [v for _, v in tree_items(params)]
+    rep["param_count"] = sum(v.numel() for v in leaves)
+    rep["param_bytes"] = sum(v.numel() * v.element_size() for v in leaves)
+    require(rep["param_count"] == cfg.param_count(), "lm: param count")
+    prompt = {"tokens": make_batch(cfg, LM_BATCH, LM_PROMPT, seed=1,
+                                   device=dev)["tokens"]}
+    prefill = make_prefill(model, max_len=LM_PROMPT + LM_STEPS)
+    decode = make_decode(model)
+
+    # serving: prefill, then generate's 64 greedy steps, each timed after
+    # a synchronize (the first calls pay cuBLAS's set-up: warm first)
+    logits, cache = prefill(params, prompt)
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+    lg, _ = decode(params, cache, tok, LM_PROMPT)
+    for what, t in (("prefill", logits), ("decode", lg)):
+        require(bool(torch.isfinite(t).all()), f"lm: {what}: non-finite")
+    torch.cuda.synchronize()
+    rep["cache_bytes"] = sum(t.numel() * t.element_size()
+                             for t in cache.values())
+    rep["prefill_ms"] = host_ms(lambda: prefill(params, prompt), 3,
+                                warm=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = generate(model, params, prompt, steps=LM_STEPS, device=dev)
+    torch.cuda.synchronize()
+    gen_ms = (time.perf_counter() - t0) * 1e3
+    rep["generate_ms"] = gen_ms
+    rep["peak_bytes_serving"] = torch.cuda.max_memory_allocated()
+    require(tuple(toks.shape) == (LM_BATCH, LM_STEPS), "lm: tokens shape")
+    rep["decode_ms_per_step"] = (gen_ms - rep["prefill_ms"]) / LM_STEPS
+    rep["tokens_per_s"] = LM_BATCH * LM_STEPS / (gen_ms / 1e3)
+
+    # one decode step as generate makes it (its position on the device):
+    # no host sync (sync-debug "error"), then timed
+    pos = torch.tensor(LM_PROMPT, dtype=torch.int32, device=dev)
+
+    def step():
+        return decode(params, cache, tok, pos)
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    # device time from the trace: with about 3,400 launches a step the
+    # launch queue fills, so stream_ms's spin cannot hide the enqueue
+    rep["decode_step_wall_ms"] = host_ms(step, 8, warm=False)
+    rep["prefill_busy_ms"] = sum(device_profile(
+        lambda: prefill(params, prompt), 1, warm=False).values())
+    per_step: dict = {}
+    prof = device_profile(step, 2, per_step)
+    rep["decode_step_launches"] = round(sum(per_step.values()))
+    rep["decode_step_busy_ms"] = sum(prof.values())
+    rep["decode_step_idle_share"] = max(
+        0.0, 1 - rep["decode_step_busy_ms"] / rep["decode_step_wall_ms"])
+    rep["decode_step_top"] = dict(sorted(prof.items(),
+                                         key=lambda kv: -kv[1])[:8])
+    log(f"[lm] {card}: {cfg.name} ({rep['param_count']} parameters, "
+        f"{rep['param_bytes']} B float32; cache {rep['cache_bytes']} B at "
+        f"{LM_BATCH} x {LM_PROMPT + LM_STEPS}; init {rep['init_s']:.2f} s)")
+    log(f"[lm] {card}: prefill {LM_BATCH} x {LM_PROMPT}: "
+        f"{rep['prefill_ms']:.3f} ms wall, {rep['prefill_busy_ms']:.3f} "
+        f"ms busy; generate {LM_STEPS} steps {gen_ms:.3f} ms: "
+        f"{rep['decode_ms_per_step']:.3f} ms per step, "
+        f"{rep['tokens_per_s']:.1f} tokens/s; one decode step "
+        f"{rep['decode_step_wall_ms']:.3f} ms wall, "
+        f"{rep['decode_step_busy_ms']:.3f} ms busy in the trace (idle "
+        f"share {rep['decode_step_idle_share']:.3f}, "
+        f"{rep['decode_step_launches']} device activities, no host sync);"
+        f" peak "
+        f"{rep['peak_bytes_serving']} B")
+    log(f"[lm] decode step's top device activities (ms per step): "
+        f"{json.dumps(rep['decode_step_top'])}")
+
+    # (a) decode against forward, at 4 generated positions
+    short = {"tokens": prompt["tokens"][:, :LM_CHECK_PROMPT]}
+    pre_a = make_prefill(model, max_len=LM_CHECK_PROMPT + LM_STEPS)
+    lg, c = pre_a(params, short)
+    tok = torch.argmax(lg[:, -1], dim=-1)[:, None].to(torch.int32)
+    mine, at = [], {}
+    for i in range(LM_STEPS):
+        mine.append(tok)
+        lg, c = decode(params, c, tok, LM_CHECK_PROMPT + i)
+        if i in LM_CHECK_AT:
+            at[i] = lg[:, 0]
+        tok = torch.argmax(lg[:, -1], dim=-1)[:, None].to(torch.int32)
+    mine = torch.cat(mine, dim=1)
+    gen_a = generate(model, params, short, steps=LM_STEPS, device=dev)
+    require(torch.equal(mine, gen_a), "lm: (a)'s loop is not generate's")
+    rep["decode_vs_forward"] = {}
+    for i in LM_CHECK_AT:
+        seq = torch.cat([short["tokens"], gen_a[:, :i + 1]], dim=1)
+        full = model.forward(params, {"tokens": seq})[0][:, -1]
+        rep["decode_vs_forward"][i] = _lm_bf16_close(
+            at[i], full, f"(a) decode step {i} against forward over "
+            f"{seq.shape[1]} tokens")
+        del full
+    # (a) at float32 compute, the same weights: step 0 within
+    # LM_F32_WIDE_REL (no bf16 rounding between the two paths)
+    f32 = build_model(dataclasses.replace(cfg, compute_dtype="float32"))
+    lg32, c32 = f32.prefill(params, short, max_len=LM_CHECK_PROMPT + 1)
+    lg32, _ = f32.decode_step(params, c32, gen_a[:, :1], LM_CHECK_PROMPT)
+    full = f32.forward(params, {"tokens": torch.cat(
+        [short["tokens"], gen_a[:, :1]], dim=1)})[0][:, -1]
+    require(bool(torch.isfinite(lg32).all() and torch.isfinite(full).all()),
+            "lm: (a) float32: non-finite")
+    rep["decode_vs_forward_f32"] = float(
+        (lg32[:, 0] - full).abs().max()) / float(full.abs().max())
+    require(rep["decode_vs_forward_f32"] <= LM_F32_WIDE_REL,
+            f"lm: (a) float32 decode against forward "
+            f"{rep['decode_vs_forward_f32']} > {LM_F32_WIDE_REL}")
+    del lg32, c32, full
+    # (b) a session from an empty cache against prefill
+    sess = ServeSession(model, params, LM_BATCH, LM_SESSION_STEPS,
+                        device=dev)
+    for i in range(LM_SESSION_STEPS):
+        lg = sess.step(prompt["tokens"][:, i:i + 1])
+    pl, _ = make_prefill(model)(
+        params, {"tokens": prompt["tokens"][:, :LM_SESSION_STEPS]})
+    rep["session_vs_prefill"] = _lm_bf16_close(
+        lg[:, 0], pl[:, 0], f"(b) session step {LM_SESSION_STEPS} against "
+        "prefill")
+    rep["peak_bytes"] = torch.cuda.max_memory_allocated()
+    del params, cache, c, sess
+    # (c) the smoke config at float32: the card against the CPU
+    rep["card_vs_cpu"] = lm_card_vs_cpu(LM_ARCH, dev)
+    require(rep["card_vs_cpu"]["ok"], f"lm: (c) card against CPU "
+            f"{rep['card_vs_cpu']} (float32 bound {LM_F32_RTOL})")
+    rep["seconds"] = time.perf_counter() - t_start
+    log(f"[lm] {card}: (a) decode against forward, largest difference "
+        f"over the largest logit at steps {list(LM_CHECK_AT)}: "
+        f"{[round(v, 5) for v in rep['decode_vs_forward'].values()]} "
+        f"(bound {LM_BF16_REL}), at float32 compute "
+        f"{rep['decode_vs_forward_f32']:.3e} (bound {LM_F32_WIDE_REL}); (b) "
+        f"session against prefill {rep['session_vs_prefill']:.5f} (bound "
+        f"{LM_BF16_REL}); (c) float32 card against CPU: prefill "
+        f"{rep['card_vs_cpu']['prefill_rel_err']:.3e}, decode "
+        f"{rep['card_vs_cpu']['decode_rel_err']:.3e} (bound {LM_F32_RTOL})"
+        f", tokens equal; (d) finite, TF32 off; peak {rep['peak_bytes']} B;"
+        f" {rep['seconds']:.1f} s in the process")
+    return rep
+
+
+def lm_phase(card) -> dict:
+    """Phase 17: ``chip_smoke.py --lm`` in a process of its own; a
+    failed check there fails the script. Returns its report."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                           "--lm"], capture_output=True, text=True,
+                          timeout=600, cwd=str(ROOT))
+    secs = time.perf_counter() - t0
+    log(proc.stdout.strip().rsplit("\n", 1)[0] if proc.stdout.strip()
+        else "[lm] no output")
+    require(proc.returncode == 0, f"lm failed:\n{proc.stdout[-3000:]}\n"
+            f"{proc.stderr[-3000:]}")
+    rep = json.loads(proc.stdout.strip().splitlines()[-1])
+    rep["process_s"] = secs
+    log(f"[lm] {card}: phase {secs:.1f} s")
+    return rep
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3268,6 +3522,10 @@ def main() -> int:
     # 16. the production-mesh dry run on meta tensors
     report["dryrun"] = dryrun_phase(card)
 
+    phase("lm")
+    # 17. LM serving at qwen2.5-3b's published width, in its own process
+    report["lm"] = lm_phase(card)
+
     for row in rows:
         require(row["max_abs_err"] == 0, f"{row['name']} differs from plain")
     require(len(rows) == len(KERN.KERNELS), "a kernel row is missing")
@@ -3290,4 +3548,6 @@ if __name__ == "__main__":
         sys.exit(restart_main(sys.argv[2:]))
     if sys.argv[1:2] == ["--example"]:
         sys.exit(example_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--lm"]:
+        sys.exit(lm_main())
     sys.exit(main())

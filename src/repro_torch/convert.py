@@ -1,4 +1,5 @@
-"""Carry an index built elsewhere (e.g. by the JAX package) into the port.
+"""Carry an index, or a model's parameters, built elsewhere (e.g. by the
+JAX package) into the port.
 
 ``index_from_arrays`` takes the index's leaves as numpy arrays, so a
 caller can run both packages' query paths on the identical index,
@@ -15,6 +16,10 @@ its ``meta``) for a restart to restore:
     # or, on each rank of a mesh, only that rank's shard:
     shard = load_index(d, 1, device=dev, mesh=mesh, config=cfg)
     ex = Executor(shard, cfg, dev, mesh=mesh)
+
+``params_from_arrays`` takes an LM's parameter tree (the JAX package's
+``model.init(...)``: nested dicts of arrays) as tensors with the same
+paths, shapes and dtypes; ``params_to_arrays`` gives it back as numpy.
 """
 from __future__ import annotations
 
@@ -145,3 +150,35 @@ def load_index(ckpt_dir: str, step: Optional[int] = None, *, device="cuda",
     index = index_from_arrays(rows, device=dev,
                               **dict(meta, overflow_pid=over))
     return L.pad_shard(index, off, p_loc, p_total)
+
+
+def _tensor(a, dev) -> torch.Tensor:
+    a = np.array(a)                     # a writable copy
+    if a.dtype.name == "bfloat16":      # ml_dtypes' bfloat16: its bits
+        return torch.from_numpy(a.view(np.uint16)).view(
+            torch.bfloat16).to(dev)
+    return torch.from_numpy(a).to(dev)
+
+
+def params_from_arrays(tree, *, device="cuda"):
+    """A model's parameters (or cache, or state) from a nested dict of
+    arrays, e.g. the JAX package's ``model.init(...)`` tree: the same
+    paths and shapes, each leaf a tensor of the same dtype on
+    ``device`` (bfloat16 leaves keep their bits)."""
+    dev = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: params_from_arrays(v, device=dev)
+                for k, v in tree.items()}
+    return _tensor(tree, dev)
+
+
+def params_to_arrays(params):
+    """The inverse of ``params_from_arrays``: a nested dict of numpy
+    arrays on the host with the same paths and shapes. numpy has no
+    bfloat16, so such a leaf comes back as float32 (exactly)."""
+    if isinstance(params, dict):
+        return {k: params_to_arrays(v) for k, v in params.items()}
+    t = params.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy()

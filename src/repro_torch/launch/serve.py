@@ -1,4 +1,15 @@
-"""Spatial serving launcher (the paper's decision-analysis scenario): a
+"""Serving drivers.
+
+LM serving (prefill + batched greedy decode):
+
+``python -m repro_torch.launch.serve --arch qwen2.5-3b --smoke --tokens 32``
+
+builds the arch's model (``--smoke``: its reduced config), random
+weights from seed 0, a ``--batch`` x ``--prompt-len`` prompt batch from
+``make_batch(seed=1)``, and prints the shape of ``--tokens`` greedy
+tokens, the tokens per second and the first 16 tokens of each row.
+
+Spatial query serving (the paper's decision-analysis scenario): a
 mixed QuerySpec workload through the adaptive executor.
 
 ``python -m repro_torch.launch.serve --spatial --n 200000 --rounds 8``
@@ -13,10 +24,9 @@ requests plus an insert stream, a worker thread coalescing them into
 micro-batches, maintenance at idle. It prints req/s, p50/p99 latency
 per request, the mean and max batch, and the maintain runs.
 
-Both run on the card unless given ``--device cpu``; ``--compile-cache
-DIR`` keeps the CUDA kernel libraries on disk (DESIGN.md §14). The LM
-serving mode of the reference's launcher is not ported (ROADMAP item
-19).
+Every mode runs on the card unless given ``--device cpu``;
+``--compile-cache DIR`` keeps the CUDA kernel libraries on disk
+(DESIGN.md §14).
 """
 from __future__ import annotations
 
@@ -77,6 +87,32 @@ def insert_stream(x, y, b: int):
     """The ingest batch: the first ``b`` points moved by 1e-4."""
     return ((x[:b] + 1e-4).astype(np.float32),
             (y[:b] + 1e-4).astype(np.float32))
+
+
+def run_lm(args):
+    """Prefill + ``args.tokens`` greedy decode steps of ``args.arch``."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import make_batch
+    from repro_torch.models import build_model
+    from repro_torch.serve import generate
+
+    cfg = get_config(args.arch, smoke=args.smoke)
+    model = build_model(cfg)
+    params = model.init(0, device=args.device)
+    batch = make_batch(cfg, args.batch, args.prompt_len, seed=1,
+                       device=args.device)
+    batch.pop("labels", None)
+    batch.pop("mask", None)
+    sync(args.device)
+    t0 = time.perf_counter()
+    out = generate(model, params, batch, steps=args.tokens,
+                   device=args.device)
+    sync(args.device)
+    dt = time.perf_counter() - t0
+    n = out.shape[0] * out.shape[1]
+    print(f"generated {tuple(out.shape)} tokens in {dt:.2f}s "
+          f"({n / dt:.1f} tok/s)")
+    print(out[:, :16].cpu().numpy())
 
 
 def run_spatial_scheduler(args):
@@ -171,13 +207,18 @@ def run_spatial(args):
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--spatial", action="store_true",
-                    help="serve mixed spatial QuerySpecs (required: the "
-                         "LM mode is not ported)")
+                    help="serve mixed spatial QuerySpecs instead of an LM")
     ap.add_argument("--scheduler", action="store_true",
                     help="with --spatial: serve through the streaming "
                          "scheduler (concurrent clients, coalesced "
                          "micro-batches, idle maintenance)")
-    ap.add_argument("--batch", type=int, default=64)
+    ap.add_argument("--arch")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="batch size (default: 4 for LM, 64 for "
+                         "--spatial)")
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--tokens", type=int, default=32)
     ap.add_argument("--n", type=int, default=200_000)
     ap.add_argument("--rounds", type=int, default=8)
     ap.add_argument("--backend", default="auto", choices=list(BACKENDS),
@@ -189,13 +230,19 @@ def main(argv=None):
                     help="on-disk store of the CUDA kernel libraries "
                          "(DESIGN.md §14)")
     args = ap.parse_args(argv)
-    if not args.spatial:
-        ap.error("only --spatial is ported: LM serving waits for "
-                 "ROADMAP item 19")
-    if args.scheduler:
-        run_spatial_scheduler(args)
+    if args.spatial:
+        if args.batch is None:
+            args.batch = 64
+        if args.scheduler:
+            run_spatial_scheduler(args)
+        else:
+            run_spatial(args)
     else:
-        run_spatial(args)
+        if not args.arch:
+            ap.error("--arch is required unless --spatial")
+        if args.batch is None:
+            args.batch = 4
+        run_lm(args)
 
 
 if __name__ == "__main__":

@@ -5,7 +5,10 @@ at 20,000 points and print, line for line, what the JAX package's own
 at that size (run beside them in subprocesses; only the timing, the
 backend's name, its compile time and the port's one extra stats key
 may differ); ``--dist`` at world size 2 (gloo, under
-``torch.distributed.run``) prints the same lines. Every count the twins
+``torch.distributed.run``) prints the same lines. The serve_decode twin
+(``examples/serve_decode_torch.py``) at float32 compute, on the weights
+the reference's ``examples/serve_decode.py`` saved from its own run at
+float32, prints the reference's first tokens. Every count the twins
 print also equals the port's engine on the same inputs: those expected
 lines (``quickstart_want``, ``analytics_want``) and their parsers are
 shared with chip_smoke.py's examples phase, which runs the twins at
@@ -41,6 +44,35 @@ REF_QUICKSTART = (
     "runpy.run_path('examples/quickstart.py', run_name='__main__')\n")
 
 
+# examples/serve_decode.py's own functions, every arch's compute dtype
+# replaced by sys.argv[2], each arch's weights (its model.init) saved
+# under sys.argv[1]/<arch> for the twin's --params
+REF_SERVE_DECODE = (
+    "import dataclasses, importlib.util, sys\n"
+    "from repro.checkpoint import save_checkpoint\n"
+    "spec = importlib.util.spec_from_file_location(\n"
+    "    'serve_decode', 'examples/serve_decode.py')\n"
+    "mod = importlib.util.module_from_spec(spec)\n"
+    "spec.loader.exec_module(mod)\n"
+    "out, dtype, arch = sys.argv[1], sys.argv[2], [None]\n"
+    "get, build = mod.get_config, mod.build_model\n"
+    "def get_config(a, smoke=False):\n"
+    "    arch[0] = a\n"
+    "    return dataclasses.replace(get(a, smoke=smoke),\n"
+    "                               compute_dtype=dtype)\n"
+    "def build_model(cfg):\n"
+    "    model, name = build(cfg), arch[0]\n"
+    "    init = model.init\n"
+    "    def saved(rng):\n"
+    "        params = init(rng)\n"
+    "        save_checkpoint(f'{out}/{name}', 0, params)\n"
+    "        return params\n"
+    "    model.init = saved\n"
+    "    return model\n"
+    "mod.get_config, mod.build_model = get_config, build_model\n"
+    "mod.main()\n")
+
+
 def _start(args):
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
                OMP_NUM_THREADS="1")
@@ -63,11 +95,20 @@ def _run(args, timeout=300):
 
 
 @pytest.fixture(scope="module")
-def background():
-    """The JAX package's two examples at ``N`` points and the analytics
-    twin's ``--dist`` run, started at once so they run while the twins
-    do; {name: a function giving its stdout}."""
+def serve_params(tmp_path_factory):
+    """Where the reference's serve_decode run saves its weights."""
+    return str(tmp_path_factory.mktemp("serve_decode"))
+
+
+@pytest.fixture(scope="module")
+def background(serve_params):
+    """The JAX package's three examples (two at ``N`` points, serve_decode
+    at float32 compute) and the analytics twin's ``--dist`` run, started
+    at once so they run while the twins do; {name: a function giving
+    its stdout}."""
     procs = {"quickstart": _start(["-c", REF_QUICKSTART, str(N)]),
+             "serve_decode": _start(["-c", REF_SERVE_DECODE, serve_params,
+                                     "float32"]),
              "analytics": _start(["examples/spatial_analytics.py", "--n",
                                   str(N)]),
              "dist": _start(["-m", "torch.distributed.run", "--standalone",
@@ -229,3 +270,26 @@ def test_spatial_analytics_dist_matches_unmeshed(analytics, background):
     assert analytics_got(out) == analytics_got(analytics)
     assert comparable(out) == comparable(background("analytics"))
     assert out.count("commercial zones") == 1          # rank 0 prints
+
+
+def first_tokens(out: str) -> dict:
+    """{arch: its first tokens} of a serve_decode example's lines."""
+    got = {}
+    for ln in out.splitlines():
+        if "first tokens: " in ln:
+            got[ln.split()[0]] = ast.literal_eval(
+                ln.split("first tokens: ", 1)[1])
+    return got
+
+
+def test_serve_decode_prints_the_reference_tokens(background,
+                                                  serve_params):
+    """The twin at float32 compute on the reference's weights (each
+    arch's ``model.init(PRNGKey(0))``, read from the checkpoints the
+    reference's run saved) prints the reference's first tokens."""
+    want = first_tokens(background("serve_decode"))
+    assert list(want) == ["qwen2.5-3b", "deepseek-v2-lite-16b", "rwkv6-3b",
+                          "hymba-1.5b"]
+    out = _run(["examples/serve_decode_torch.py", "--device", "cpu",
+                "--compute-dtype", "float32", "--params", serve_params])
+    assert first_tokens(out) == want

@@ -1,5 +1,6 @@
-"""On the card: each CUDA kernel against its plain version, and the
-engine's cuda backend against its torch backend and the golden fixture.
+"""On the card: each CUDA kernel against its plain version, the
+engine's cuda backend against its torch backend and the golden fixture,
+and LM serving (plain PyTorch) against the same weights on the CPU.
 
 This file imports neither jax nor the JAX package, so it runs where only
 the port is installed. Every test carries the ``gpu`` marker and skips
@@ -2125,3 +2126,102 @@ def test_gpu_meshed_engine_at_world_size_one(cuda, tmp_path):
         assert rep[f"{tag}/serving_host_syncs"] == 0
     assert rep["part/qshard_executables"] == 0
     assert rep["part_query/qshard_executables"] > 0
+
+
+# -- LM serving (ROADMAP item 19a): the card against the CPU ----------------
+
+# float32 logits and caches: relative to the CPU's largest magnitude, the
+# bound tests/test_torch_lm_models.py holds the port to against the
+# reference (cuBLAS and the CPU's BLAS sum in other orders)
+LM_F32_RTOL = 2e-5
+LM_ARCHS = ["qwen2.5-3b", "deepseek-v2-lite-16b", "rwkv6-3b", "hymba-1.5b"]
+
+
+def lm_card_vs_cpu(arch: str, dev, steps: int = 8, batch: int = 2,
+                   prompt: int = 32) -> dict:
+    """The arch's smoke config at float32 compute, the same weights (the
+    port's ``init`` on the CPU, carried to the card through
+    ``convert``) and prompts on the card and on the CPU: prefill logits,
+    one decode step's logits and greedy ``generate`` tokens. Returns the
+    largest differences (relative to the CPU's largest logit) and
+    whether every token agrees; raises on a non-finite logit."""
+    import dataclasses
+
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import make_batch
+    from repro_torch.models import build_model
+    from repro_torch.serve import generate
+    cfg = dataclasses.replace(get_config(arch, smoke=True),
+                              compute_dtype="float32")
+    model = build_model(cfg)
+    host = model.init(0, device="cpu")
+    on = {"cpu": host, "card": convert.params_from_arrays(
+        convert.params_to_arrays(host), device=dev)}
+    cpu_batch = make_batch(cfg, batch, prompt, seed=1, device="cpu")
+    cpu_batch = {k: v for k, v in cpu_batch.items()
+                 if k not in ("labels", "mask")}
+    out = {}
+    for where, d in (("cpu", torch.device("cpu")), ("card", dev)):
+        b = {k: v.to(d) for k, v in cpu_batch.items()}
+        p = on[where]
+        logits, cache = model.prefill(p, b, max_len=prompt + steps)
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+        step1, _ = model.decode_step(p, cache, tok, prompt)
+        toks = generate(model, p, b, steps=steps, device=d)
+        for t in (logits, step1):
+            if not bool(torch.isfinite(t).all()):
+                raise AssertionError(f"{arch} on {where}: non-finite logit")
+        out[where] = [t.cpu().double() for t in (logits, step1)] + [
+            toks.cpu()]
+    scale = max(float(out["cpu"][0].abs().max()), 1e-30)
+    rep = {"prefill_rel_err": float((out["card"][0] - out["cpu"][0]).abs()
+                                    .max()) / scale,
+           "decode_rel_err": float((out["card"][1] - out["cpu"][1]).abs()
+                                   .max()) / scale,
+           "tokens_equal": bool(torch.equal(out["card"][2],
+                                            out["cpu"][2]))}
+    rep["ok"] = (rep["prefill_rel_err"] <= LM_F32_RTOL and
+                 rep["decode_rel_err"] <= LM_F32_RTOL and
+                 rep["tokens_equal"])
+    return rep
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_gpu_lm_card_matches_cpu(cuda, arch):
+    rep = lm_card_vs_cpu(arch, cuda)
+    assert rep["ok"], rep
+
+
+def test_gpu_gqa_decode_clamps_past_the_cache(cuda):
+    """Past the cache's end the card writes the last slot, as the CPU
+    (and the reference's ``dynamic_update_slice``) does."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as A
+    from repro_torch.models.common import layer
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_config("qwen2.5-3b", smoke=True),
+                              compute_dtype="float32")
+    lp = layer(build_model(cfg).init(3, device="cpu")["layers"], 0)["attn"]
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((2, 1, cfg.d_model))
+                         .astype(np.float32))
+    ck = torch.from_numpy(rng.standard_normal(
+        (2, 16, cfg.n_kv_heads, cfg.head_dim)).astype(np.float32))
+    cv = torch.from_numpy(rng.standard_normal(ck.shape).astype(np.float32))
+    for pos in (15, 16, 40):
+        got = {}
+        for d in ("cpu", cuda):
+            p = {k: v.to(d) for k, v in lp.items()}
+            out, (k, v) = A.gqa_decode(p, x.to(d), cfg, cache_k=ck.to(d),
+                                       cache_v=cv.to(d),
+                                       pos=torch.tensor(pos, device=d))
+            got[str(d)] = [t.cpu() for t in (out, k, v)]
+        for a, b in zip(got["cpu"], got[str(cuda)]):
+            assert float((a - b).abs().max()) <= LM_F32_RTOL * float(
+                a.abs().max())
+        k = got[str(cuda)][1]
+        assert torch.equal(k[:, :15], ck[:, :15])
+        assert not torch.equal(k[:, 15], ck[:, 15])

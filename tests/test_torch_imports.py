@@ -10,6 +10,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import ARCHS
+
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 
@@ -27,7 +29,8 @@ def _imported_roots(path: Path) -> set:
 @pytest.mark.parametrize(
     "path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] +
     [ROOT / "examples" / n for n in ("quickstart_torch.py",
-                                     "spatial_analytics_torch.py")],
+                                     "spatial_analytics_torch.py",
+                                     "serve_decode_torch.py")],
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_repro_import_statement(path):
     assert not _imported_roots(path) & {"jax", "jaxlib", "repro"}
@@ -37,7 +40,8 @@ def test_scan_covers_this_slice():
     """The import scan above sees the modules of the circle and join
     path, of serving mode, of the morton kernel, of the serve scheduler,
     of the launchers, of warm start's store, of the mesh, of the
-    checkpoint store and of the dry run."""
+    checkpoint store, of the dry run, and of LM serving (the configs,
+    the models, the token pipeline, the serving API)."""
     scanned = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
     assert {"kernels/circle_filter.py", "kernels/point_in_polygon.py",
             "kernels/morton.py", "core/executor.py", "core/local_ops.py",
@@ -46,7 +50,12 @@ def test_scan_covers_this_slice():
             "serve/spatial.py", "serve/scheduler.py", "launch/__init__.py",
             "launch/spatial.py", "launch/serve.py", "launch/mesh.py",
             "core/compile_cache.py", "checkpoint/store.py",
-            "launch/dryrun_spatial.py"} <= scanned
+            "launch/dryrun_spatial.py", "configs/__init__.py",
+            "models/__init__.py", "models/common.py", "models/attention.py",
+            "models/transformer.py", "models/moe.py",
+            "models/linear_attn.py", "models/rwkv6.py", "models/hymba.py",
+            "models/registry.py", "data/tokens.py", "serve/api.py"} <= scanned
+    assert {f"configs/{a}.py" for a in ARCHS} <= scanned
 
 
 def test_importing_the_port_loads_neither_jax_nor_repro():
@@ -64,6 +73,12 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "import repro_torch.launch.serve, repro_torch.core.compile_cache\n"
         "import repro_torch.launch.mesh\n"
         "import repro_torch.checkpoint, repro_torch.launch.dryrun_spatial\n"
+        "import repro_torch.configs, repro_torch.data.tokens\n"
+        "import repro_torch.models.transformer, repro_torch.models.rwkv6\n"
+        "import repro_torch.models.hymba, repro_torch.models.registry\n"
+        "import repro_torch.serve.api\n"
+        "from repro_torch.configs import ARCHS, get_config\n"
+        "for a in ARCHS: get_config(a)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n")

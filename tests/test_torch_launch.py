@@ -1,7 +1,8 @@
 """The port's launchers run to the end on the CPU at a tiny size:
 ``repro_torch.launch.spatial`` and ``repro_torch.launch.serve --spatial``
 with and without ``--scheduler``, and with ``--compile-cache``; the
-serve launcher refuses the LM mode, and both run on the card by
+serve launcher asks for ``--arch`` without ``--spatial`` (its LM mode
+runs in tests/test_torch_lm_serve.py), and both run on the card by
 default; the spatial launcher on a mesh of two gloo ranks."""
 import os
 import subprocess
@@ -96,14 +97,15 @@ def test_serve_without_spatial_exits_non_zero():
                          env=env, cwd=ROOT, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode != 0
-    assert "item 19" in out.stderr
+    assert "--arch is required" in out.stderr
 
 
 @pytest.mark.parametrize("run", [
     lambda: spatial.main(["--n", "2000", "--queries", "8"]),
     lambda: serve.main(["--spatial", "--n", "2000", "--batch", "8"]),
     lambda: serve.main(["--spatial", "--scheduler", "--n", "2000"]),
-], ids=["spatial", "serve", "serve_scheduler"])
+    lambda: serve.main(["--arch", "qwen2.5-3b", "--smoke"]),
+], ids=["spatial", "serve", "serve_scheduler", "serve_lm"])
 def test_launchers_default_to_the_card(run):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device works")
