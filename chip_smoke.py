@@ -303,7 +303,27 @@ result line):
               against prefill over them, both within LM_BF16_REL of the
               largest logit, (c) the smoke config at float32 on the card
               against the CPU on the same weights (LM_F32_RTOL, greedy
-              tokens equal), (d) every logit finite and TF32 off.
+              tokens equal), (d) every logit finite and TF32 off;
+ 18. train    LM training (plain PyTorch, no kernel of the seven) in a
+              process of its own (``chip_smoke.py --train``): (a)
+              qwen2.5-3b at its published width, float32 master
+              weights, bf16 compute, each layer checkpointed (remat
+              "none"), one 4 x 512 batch of TokenPipeline(seed 0)
+              repeated, donated (in-place) steps: 2 warm and 4 timed
+              steps (each under sync-debug "error"), then one traced:
+              step wall, busy, idle share and device activities, tokens
+              per second, mfu (6 N tokens per wall over the bf16 peak;
+              the recompute's 2 N tokens apart), peak memory against the
+              float32 state; the loss finite and falling, the gradient
+              norm finite and positive, TF32 off; (b) the loss and
+              gradients of n_micro 2 against n_micro 1 on that batch
+              (TRAIN_MICRO_RTOL); (c) every arch's smoke config at
+              float32, 3 steps on the card and on the CPU
+              (test_torch_gpu.TRAIN_F32_RTOL); (d) the qwen smoke model's
+              loop crashed after step 8 and resumed, bitwise the
+              uninterrupted 12 steps (else again under
+              torch.use_deterministic_algorithms); (e) the example twin
+              examples/train_tiny_lm_torch.py --steps 20.
 
 Device busy time and idle share come from torch.profiler traces; each
 trace is checked against the wrappers' launch counts (``traced``): a
@@ -2783,6 +2803,285 @@ def lm_phase(card) -> dict:
     return rep
 
 
+# phase 18: LM training at qwen2.5-3b's published width
+TRAIN_ARCH = "qwen2.5-3b"
+TRAIN_BATCH, TRAIN_SEQ = 4, 512
+TRAIN_WARM, TRAIN_TIMED = 2, 4
+TRAIN_LR = 3e-4
+# (e): the example twin's arguments (its defaults otherwise)
+TRAIN_EXAMPLE_ARGS = ("--steps", "20")
+# (b): n_micro 2 against 1 at bf16 compute: the loss and the global
+# gradient norm (other GEMM shapes, the loss summed in two halves)
+TRAIN_MICRO_RTOL = 1e-3
+# H100 SXM dense bf16 peak (NVIDIA data sheet), for mfu
+PEAK_BF16 = 989e12
+
+
+def _quiet(*_):
+    pass
+
+
+def train_main() -> int:
+    """``chip_smoke.py --train``: phase 18 in a process of its own (the
+    earlier phases' index, graphs and the LM phase's weights do not
+    share the card with it). Prints the report as the last line, one
+    JSON object."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke --train: no CUDA device", file=sys.stderr)
+        return 2
+    print(json.dumps(train_run(torch.device(DEVICE), card_line())))
+    return 0
+
+
+def _global_norm(grads):
+    import torch
+
+    from repro_torch.models.common import tree_items
+    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                          for _, g in tree_items(grads)))
+
+
+def train_run(dev, card: str) -> dict:
+    """Phase 18's checks (a)-(e) on ``dev`` (any failure raises).
+    Returns the report."""
+    import os
+    import shutil
+
+    import torch
+    sys.path.insert(0, str(ROOT / "tests"))
+    from test_torch_gpu import TRAIN_F32_RTOL, train_card_vs_cpu
+
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_items
+    from repro_torch.train import (TrainLoopConfig, adamw_init,
+                                   make_train_step, train_loop)
+    from repro_torch.train.loop import InjectedCrash
+    t_start = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    require((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+             cfg.head_dim, cfg.d_ff, cfg.vocab, cfg.tie_embeddings,
+             cfg.compute_dtype) == (36, 2048, 16, 2, 128, 11008, 151936,
+                                    True, "bfloat16"),
+            f"train: {TRAIN_ARCH} is not at its published width: {cfg}")
+    prec = (torch.backends.cuda.matmul.allow_tf32,
+            torch.get_float32_matmul_precision())
+    require(prec == (False, "highest"), f"train: TF32 allowed {prec}")
+    rep = {"card": card, "arch": cfg.name, "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "remat": "none"}
+
+    # (a) full width: float32 master weights and AdamW state, donated
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(0, device=dev)
+    opt = adamw_init(params)
+    torch.cuda.synchronize()
+    rep["init_s"] = time.perf_counter() - t0
+    n = sum(v.numel() for _, v in tree_items(params))
+    require(n == cfg.param_count(), "train: param count")
+    rep["param_count"] = n
+    rep["state_bytes"] = 4 * 4 * n      # params, gradients, m, v
+    batch = next(TokenPipeline(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0,
+                               device=dev))
+    step = make_train_step(model, peak_lr=TRAIN_LR, warmup=0,
+                           total_steps=100)
+    metrics, walls = [], []
+    for i in range(TRAIN_WARM + TRAIN_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i >= TRAIN_WARM:     # no host sync inside a step
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            params, opt, m = step(params, opt, batch)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        metrics.append(m)
+    losses = [float(m["loss"]) for m in metrics]
+    norms = [float(m["grad_norm"]) for m in metrics]
+    rep["losses"], rep["grad_norms"] = losses, norms
+    rep["lr"] = [float(m["lr"]) for m in metrics]
+    require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+            f"train: (a) losses {losses}")
+    require(all(np.isfinite(norms)) and min(norms) > 0,
+            f"train: (a) gradient norms {norms}")
+    rep["step_walls_ms"] = walls
+    rep["step_wall_ms"] = statistics.median(walls[TRAIN_WARM:])
+    per_step: dict = {}
+    prof = device_profile(lambda: step(params, opt, batch), 1, per_step,
+                          warm=False)
+    rep["step_launches"] = round(sum(per_step.values()))
+    rep["step_busy_ms"] = sum(prof.values())
+    rep["step_idle_share"] = max(0.0, 1 - rep["step_busy_ms"] /
+                                 rep["step_wall_ms"])
+    rep["step_top"] = dict(sorted(prof.items(), key=lambda kv: -kv[1])[:10])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    rep["tokens_per_s"] = tokens / (rep["step_wall_ms"] / 1e3)
+    rep["flop_6nd"] = 6 * n * tokens
+    rep["flop_recompute"] = 2 * n * tokens
+    rep["mfu"] = rep["flop_6nd"] / (rep["step_wall_ms"] / 1e3) / PEAK_BF16
+    rep["peak_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"[train] {card}: {cfg.name} ({n} parameters; float32 params, "
+        f"gradients, m and v {rep['state_bytes']} B; init "
+        f"{rep['init_s']:.2f} s); batch {TRAIN_BATCH} x {TRAIN_SEQ}, bf16 "
+        f"compute, remat none, donated: step wall "
+        f"{rep['step_wall_ms']:.3f} ms (median of {TRAIN_TIMED}; all "
+        f"{[round(w, 3) for w in walls]}), busy {rep['step_busy_ms']:.3f} "
+        f"ms in the trace (idle share {rep['step_idle_share']:.3f}, "
+        f"{rep['step_launches']} device activities), "
+        f"{rep['tokens_per_s']:.1f} tokens/s, mfu {rep['mfu']:.4f} "
+        f"(6ND {rep['flop_6nd']:.4e} FLOP a step; recompute "
+        f"{rep['flop_recompute']:.4e} more), peak {rep['peak_bytes']} B; "
+        f"no host sync in a step")
+    log(f"[train] losses {[round(v, 4) for v in losses]}, gradient norms "
+        f"{[round(v, 4) for v in norms]}; the step's top device "
+        f"activities (ms): {json.dumps(rep['step_top'])}")
+
+    # (b) microbatching at full width: loss and gradients, 2 against 1
+    del opt, metrics, m
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    l2, g2 = make_train_step(model, n_micro=2).grads(params, batch)
+    n2 = _global_norm(g2)
+    l1, g1 = make_train_step(model, n_micro=1).grads(params, batch)
+    n1 = _global_norm(g1)
+    worst = max(float((a.float() - g1_).abs().max() /
+                      g1_.float().abs().max().clamp(min=1e-30))
+                for (_, a), (_, g1_) in zip(tree_items(g2), tree_items(g1)))
+    rep["micro"] = {"loss": [float(l1), float(l2)],
+                    "grad_norm": [float(n1), float(n2)],
+                    "loss_rel": abs(float(l2) / float(l1) - 1),
+                    "grad_norm_rel": abs(float(n2) / float(n1) - 1),
+                    "worst_leaf_rel": worst,
+                    "peak_bytes": torch.cuda.max_memory_allocated()}
+    require(rep["micro"]["loss_rel"] <= TRAIN_MICRO_RTOL and
+            rep["micro"]["grad_norm_rel"] <= TRAIN_MICRO_RTOL,
+            f"train: (b) n_micro 2 against 1 {rep['micro']}")
+    log(f"[train] (b) n_micro 2 against 1: loss {float(l2):.6f} / "
+        f"{float(l1):.6f} (rel {rep['micro']['loss_rel']:.2e}), gradient "
+        f"norm {float(n2):.6f} / {float(n1):.6f} (rel "
+        f"{rep['micro']['grad_norm_rel']:.2e}; bound {TRAIN_MICRO_RTOL}); "
+        f"largest leaf difference over its largest gradient {worst:.3e}; "
+        f"peak {rep['micro']['peak_bytes']} B")
+    del params, g1, g2, l1, l2
+    torch.cuda.empty_cache()
+
+    # (c) every arch's smoke config at float32: the card against the CPU
+    rep["card_vs_cpu"] = {a: train_card_vs_cpu(a, dev) for a in ARCHS}
+    bad = {a: r for a, r in rep["card_vs_cpu"].items() if not r["ok"]}
+    require(not bad, f"train: (c) card against CPU {bad}")
+    log(f"[train] (c) 3 steps at float32, card against CPU, largest "
+        f"relative loss difference: " + ", ".join(
+            f"{a} {r['max_rel']:.2e}" for a, r in
+            rep["card_vs_cpu"].items()) + f" (bound {TRAIN_F32_RTOL})")
+
+    # (d) crash after step 8 and resume: bitwise the uninterrupted run
+    small = get_config(TRAIN_ARCH, smoke=True)
+    smodel = build_model(small)
+    sstep = make_train_step(smodel, peak_lr=1e-3, warmup=2, total_steps=20)
+    base = ROOT / "build" / "train_resume"
+
+    def run(d, crash_at=None):
+        lc = TrainLoopConfig(steps=12, ckpt_every=4, ckpt_dir=str(d),
+                             log_every=0, crash_at_step=crash_at)
+        return train_loop(smodel, sstep, TokenPipeline(
+            small, 2, 32, seed=0, device=dev), lc, seed=0, log_fn=_quiet)
+
+    def crash_and_resume():
+        shutil.rmtree(base, ignore_errors=True)
+        whole = run(base / "whole")
+        try:
+            run(base / "crashed", crash_at=8)
+            crashed = False
+        except InjectedCrash:
+            crashed = True
+        require(crashed, "train: (d) no crash after step 8")
+        resumed = run(base / "crashed")
+        same = resumed[2]["loss"] == whole[2]["loss"][8:] and all(
+            torch.equal(a, b) for tree_a, tree_b in
+            ((resumed[0], whole[0]), (resumed[1].m, whole[1].m),
+             (resumed[1].v, whole[1].v))
+            for (_, a), (_, b) in zip(tree_items(tree_a),
+                                      tree_items(tree_b)))
+        return same, whole[2]["loss"], resumed[2]["loss"]
+
+    same, whole, resumed = crash_and_resume()
+    rep["resume"] = {"bitwise": same, "deterministic_algorithms": False,
+                     "losses": whole, "resumed": resumed}
+    if not same:
+        torch.use_deterministic_algorithms(True)
+        same, whole, resumed = crash_and_resume()
+        torch.use_deterministic_algorithms(False)
+        rep["resume"].update(bitwise=same, deterministic_algorithms=True,
+                             losses=whole, resumed=resumed)
+    require(same, f"train: (d) resumed run differs {rep['resume']}")
+    how = "with" if rep["resume"]["deterministic_algorithms"] else "without"
+    log(f"[train] (d) qwen smoke on the card, crashed after step 8 and "
+        f"resumed: losses and params bitwise the uninterrupted run ({how} "
+        f"torch.use_deterministic_algorithms); losses "
+        f"{[round(v, 5) for v in whole]}")
+
+    # (e) the example twin, 20 steps, in a process of its own
+    ck = ROOT / "build" / "train_tiny_lm"
+    shutil.rmtree(ck, ignore_errors=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "examples" / "train_tiny_lm_torch.py"),
+         *TRAIN_EXAMPLE_ARGS, "--ckpt", str(ck), "--device", DEVICE],
+        capture_output=True,
+        text=True, timeout=600, cwd=str(ROOT),
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    require(proc.returncode == 0, f"train: (e) example failed:\n"
+            f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    last = proc.stdout.strip().splitlines()[-1]
+    got = last.split()
+    require(got[0] == "loss:" and got[4] == "(20", f"train: (e) {last}")
+    rep["example"] = {"first_loss": float(got[1]), "last_loss": float(got[3]),
+                      "seconds": time.perf_counter() - t0, "line": last}
+    require(np.isfinite([rep["example"]["first_loss"],
+                         rep["example"]["last_loss"]]).all(),
+            f"train: (e) {last}")
+    log(f"[train] (e) examples/train_tiny_lm_torch.py --steps 20: {last} "
+        f"({rep['example']['seconds']:.1f} s)")
+    rep["seconds"] = time.perf_counter() - t_start
+    return rep
+
+
+def train_phase(card) -> dict:
+    """Phase 18: ``chip_smoke.py --train`` in a process of its own; a
+    failed check there fails the script. cuBLAS's workspace is pinned
+    before CUDA starts there, so (d) can turn deterministic algorithms
+    on. Returns its report."""
+    import os
+
+    import torch
+    # this process's cached blocks go back to the card: the step needs
+    # about 53 GB of its 80
+    torch.cuda.empty_cache()
+    log(f"[train] before the phase this process holds "
+        f"{torch.cuda.memory_allocated()} B ({torch.cuda.memory_reserved()}"
+        f" B reserved)")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                           "--train"], capture_output=True, text=True,
+                          timeout=900, cwd=str(ROOT),
+                          env=dict(os.environ,
+                                   CUBLAS_WORKSPACE_CONFIG=":4096:8"))
+    secs = time.perf_counter() - t0
+    log(proc.stdout.strip().rsplit("\n", 1)[0] if proc.stdout.strip()
+        else "[train] no output")
+    require(proc.returncode == 0, f"train failed:\n{proc.stdout[-3000:]}\n"
+            f"{proc.stderr[-3000:]}")
+    rep = json.loads(proc.stdout.strip().splitlines()[-1])
+    rep["process_s"] = secs
+    log(f"[train] {card}: phase {secs:.1f} s")
+    return rep
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3526,6 +3825,10 @@ def main() -> int:
     # 17. LM serving at qwen2.5-3b's published width, in its own process
     report["lm"] = lm_phase(card)
 
+    phase("train")
+    # 18. LM training at qwen2.5-3b's published width, in its own process
+    report["train"] = train_phase(card)
+
     for row in rows:
         require(row["max_abs_err"] == 0, f"{row['name']} differs from plain")
     require(len(rows) == len(KERN.KERNELS), "a kernel row is missing")
@@ -3550,4 +3853,6 @@ if __name__ == "__main__":
         sys.exit(example_main(sys.argv[2:]))
     if sys.argv[1:2] == ["--lm"]:
         sys.exit(lm_main())
+    if sys.argv[1:2] == ["--train"]:
+        sys.exit(train_main())
     sys.exit(main())

@@ -8,10 +8,14 @@ the other:
         arrays.npz          flat {path -> np.ndarray}
         manifest.json       step, keys, user meta
 
-A tree is nested dicts, lists and tuples whose leaves are tensors (on
-any device), numpy arrays or Python numbers; a None is no leaf. A leaf's
-path joins its dict keys and sequence indices with ``/``, dict keys
-sorted, as the reference's ``tree_flatten_with_path`` names them. A
+A tree is nested dicts, lists, tuples and dataclasses whose leaves are
+tensors (on any device), numpy arrays or Python numbers; a None is no
+leaf. A leaf's path joins its dict keys, sequence indices and
+``.field`` names with ``/``, dict keys sorted and fields in declaration
+order, as the reference's ``tree_flatten_with_path`` names them (a
+registered dataclass's ``GetAttrKey`` prints as ``.field``: an
+``AdamWState`` saves as ``opt/.step``, ``opt/.m/<path>``,
+``opt/.v/<path>``). A
 checkpoint is written to ``step_X.tmp-<pid>`` and renamed into place
 (an older ``step_X`` is moved to ``.old`` first and removed after), so
 a crash mid-write never corrupts the newest valid one.
@@ -25,6 +29,7 @@ a rank's shard of an index this way for its meshed ``Executor``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import shutil
@@ -48,6 +53,9 @@ def _paths(tree, prefix=()):
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
             yield from _paths(v, prefix + (str(i),))
+    elif dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        for f in dataclasses.fields(tree):
+            yield from _paths(getattr(tree, f.name), prefix + ("." + f.name,))
     else:
         yield prefix, tree
 
@@ -66,7 +74,7 @@ def _flatten(tree, copy: bool) -> dict:
 
 
 def _np_dtype(dtype: torch.dtype) -> np.dtype:
-    return torch.empty(0, dtype=dtype).numpy().dtype
+    return torch.empty(0, dtype=dtype, device="cpu").numpy().dtype
 
 
 def _unflatten_into(tree_like, flat: dict, device, place, prefix=()):
@@ -80,6 +88,12 @@ def _unflatten_into(tree_like, flat: dict, device, place, prefix=()):
         out = [_unflatten_into(v, flat, device, place, prefix + (str(i),))
                for i, v in enumerate(tree_like)]
         return type(tree_like)(out)
+    if dataclasses.is_dataclass(tree_like) and not isinstance(tree_like,
+                                                              type):
+        return dataclasses.replace(tree_like, **{
+            f.name: _unflatten_into(getattr(tree_like, f.name), flat,
+                                    device, place, prefix + ("." + f.name,))
+            for f in dataclasses.fields(tree_like)})
     key = "/".join(prefix)
     if key not in flat:
         raise KeyError(f"checkpoint missing leaf {key}")

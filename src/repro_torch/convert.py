@@ -20,6 +20,9 @@ its ``meta``) for a restart to restore:
 ``params_from_arrays`` takes an LM's parameter tree (the JAX package's
 ``model.init(...)``: nested dicts of arrays) as tensors with the same
 paths, shapes and dtypes; ``params_to_arrays`` gives it back as numpy.
+``opt_state_from_arrays`` and ``opt_state_to_arrays`` do the same for
+an optimizer state (``step`` and the ``m`` and ``v`` trees, e.g. the
+JAX package's ``adamw_init``/``adamw_update`` output).
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ from repro_torch.core import local_ops as L
 from repro_torch.core.build import (LEAVES, OPTIONAL_LEAVES,
                                     LearnedSpatialIndex)
 from repro_torch.core.plan import EngineConfig
+from repro_torch.train.optimizer import AdamWState
 
 
 def index_from_arrays(leaves: dict, *, device="cuda", key_spec=None,
@@ -182,3 +186,22 @@ def params_to_arrays(params):
     if t.dtype == torch.bfloat16:
         t = t.float()
     return t.numpy()
+
+
+def opt_state_from_arrays(state, *, device="cuda") -> AdamWState:
+    """An ``AdamWState`` from an optimizer state built elsewhere: an
+    object with ``step``, ``m`` and ``v`` (the JAX package's
+    ``AdamWState``) or a dict of them (``opt_state_to_arrays``'), each
+    leaf a tensor of its dtype on ``device``."""
+    get = state.get if isinstance(state, dict) else \
+        lambda k: getattr(state, k)
+    return AdamWState(step=params_from_arrays(get("step"), device=device),
+                      m=params_from_arrays(get("m"), device=device),
+                      v=params_from_arrays(get("v"), device=device))
+
+
+def opt_state_to_arrays(state: AdamWState) -> dict:
+    """The inverse of ``opt_state_from_arrays``: {"step", "m", "v"} as
+    numpy on the host."""
+    return {"step": params_to_arrays(state.step),
+            "m": params_to_arrays(state.m), "v": params_to_arrays(state.v)}

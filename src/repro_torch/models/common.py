@@ -142,16 +142,29 @@ def layer(tree, i: int):
     return tree_map(lambda a: a[i], tree)
 
 
+def unstack(tree) -> list:
+    """Every layer of a stacked subtree, in order, as views (``unbind``).
+    The forward passes that train take their layers from here: the
+    gradient of one ``unbind`` is one stack into the stacked leaf, where
+    a ``layer`` view per layer would each write a zero tensor of the
+    whole stack (L of them, each L layers big)."""
+    per = tree_map(lambda a: a.unbind(0), tree)
+    n = len(next(leaf for _, leaf in tree_items(per)))
+    return [tree_map(lambda views: views[i], per) for i in range(n)]
+
+
 # ---------------------------------------------------------------------------
 # primitive layers (pure functions over param dicts)
 # ---------------------------------------------------------------------------
 
 def rms_norm(x, scale, eps):
-    # in float32, then ``* (1 + scale)``, then back: the reference's order
+    # in float32, then ``* (1 + scale)``, then back: the reference's order.
+    # A bfloat16 scale (``bf16_weights`` training) is summed in float32:
+    # XLA:CPU keeps the excess precision of ``1 + scale`` there
     dt = x.dtype
     x = x.float()
     var = torch.mean(x * x, dim=-1, keepdim=True)
-    return ((x * torch.rsqrt(var + eps)) * (1.0 + scale)).to(dt)
+    return ((x * torch.rsqrt(var + eps)) * (1.0 + scale.float())).to(dt)
 
 
 def rope_tables(positions, dim: int, theta: float):
@@ -179,6 +192,17 @@ def apply_rope(x, cos, sin):
     out1 = x1 * cos - x2 * sin
     out2 = x2 * cos + x1 * sin
     return torch.cat([out1, out2], dim=-1).to(x.dtype)
+
+
+def embed(table, tokens, dtype):
+    """Rows ``tokens`` of ``table`` cast to ``dtype``. The reference casts
+    the whole table, then gathers. The port gathers, then casts (the
+    same values, without the cast of the whole table), except where the
+    table takes a gradient: there it casts first, as the reference does,
+    so the rows' gradients accumulate in ``dtype`` as the reference's."""
+    if table.requires_grad and torch.is_grad_enabled():
+        return table.to(dtype)[tokens]
+    return table[tokens].to(dtype)
 
 
 def swiglu(x, w1, w3, w2):
@@ -345,7 +369,14 @@ def init_params(cfg: ModelConfig,
     ``torch.Generator`` on that device; leaves are drawn in the
     reference's flattening order. The values differ from the
     reference's ``jax.random`` draws by design: carry its weights over
-    with ``convert.params_from_arrays`` for parity."""
+    with ``convert.params_from_arrays`` for parity. On ``meta`` the
+    leaves are empty tensors of the same shapes."""
+    if torch.device(device).type == "meta":
+        # shapes and dtypes only, nothing drawn: the prototype that
+        # checkpoint.restore_or_init loads into
+        return tree_map(lambda s: torch.empty(s, dtype=torch.float32,
+                                              device="meta"),
+                        init_shapes(cfg))
     dev = resolve_device(device)
     if isinstance(seed, torch.Generator):
         gen = seed

@@ -18,10 +18,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import attention as A
-from repro_torch.models.common import (ModelConfig, init_params, layer,
-                                       rms_norm, softmax_xent, swiglu)
+from repro_torch.models.common import (ModelConfig, embed, init_params,
+                                       layer, rms_norm, softmax_xent,
+                                       swiglu, unstack)
 from repro_torch.models.linear_attn import chunked_linear_attn
-from repro_torch.models.transformer import GLOBAL_WINDOW, pad_seq
+from repro_torch.models.transformer import (GLOBAL_WINDOW, checkpointed,
+                                            pad_seq)
 
 
 def _ssd_project(p, x, cfg: ModelConfig):
@@ -107,18 +109,22 @@ class HymbaModel:
                        f["w2"].to(h.dtype))
         return x, kv, new_ssm
 
-    def forward(self, params, batch, *, collect_cache=False):
+    def forward(self, params, batch, *, remat=False, collect_cache=False):
+        """(logits, None), or with ``collect_cache`` (last-token logits,
+        ((K, V), SSM states)) stacked over the layers; with ``remat``
+        each layer is checkpointed."""
         cfg = self.cfg
         tok = batch["tokens"]
-        x = params["embed"][tok].to(cfg.cdtype)
+        x = embed(params["embed"], tok, cfg.cdtype)
         s = tok.shape[1]
         positions = torch.arange(s, dtype=torch.int32, device=tok.device)
         qc, kc = min(512, s), min(1024, s)
         ks, vs, ssms = [], [], []
-        for i in range(cfg.n_layers):
-            x, (k, v), st = self._layer_full(
-                layer(params["layers"], i), x, positions,
-                cfg.window_for_layer(i) or GLOBAL_WINDOW, qc, kc)
+        for i, lp in enumerate(unstack(params["layers"])):
+            args = (lp, x, positions,
+                    cfg.window_for_layer(i) or GLOBAL_WINDOW, qc, kc)
+            x, (k, v), st = (checkpointed(self._layer_full, *args) if remat
+                             else self._layer_full(*args))
             if collect_cache:
                 ks.append(k)
                 vs.append(v)
@@ -133,7 +139,7 @@ class HymbaModel:
                         torch.stack(ssms))
 
     def train_loss(self, params, batch):
-        logits, _ = self.forward(params, batch)
+        logits, _ = self.forward(params, batch, remat=True)
         return softmax_xent(logits, batch["labels"], batch["mask"])
 
     def prefill(self, params, batch, max_len: Optional[int] = None):
@@ -148,7 +154,7 @@ class HymbaModel:
         """tokens (B,1), pos (an int or a 0-dim tensor) -> (logits
         (B,1,V), cache); ``cache`` itself is left as it was."""
         cfg = self.cfg
-        x = params["embed"][tokens].to(cfg.cdtype)
+        x = embed(params["embed"], tokens, cfg.cdtype)
         pos = A.as_pos(pos, x.device)
         ck, cv = cache["k"].clone(), cache["v"].clone()
         news = []

@@ -16,9 +16,10 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import (ModelConfig, init_params, layer,
-                                       rms_norm, softmax_xent)
+from repro_torch.models.common import (ModelConfig, embed, init_params,
+                                       rms_norm, softmax_xent, unstack)
 from repro_torch.models.linear_attn import chunked_linear_attn
+from repro_torch.models.transformer import checkpointed
 
 
 def _token_shift(x, last):
@@ -88,21 +89,29 @@ class RWKV6Model:
                                    **z),
         }
 
-    def _forward(self, params, tokens, state, *, last_only: bool = False):
+    def _layer(self, lp, x, wkv, sh_t, sh_c):
         cfg = self.cfg
-        # gather, then cast: the same values as the reference's cast of
-        # the whole table, without it
-        x = params["embed"][tokens].to(cfg.cdtype)
+        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        out, wkv2, sh_t2 = _time_mix(lp, h, sh_t, cfg, wkv)
+        x = x + out
+        h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+        out, sh_c2 = _channel_mix(lp, h, sh_c, cfg)
+        return x + out, wkv2, sh_t2, sh_c2
+
+    def _forward(self, params, tokens, state, *, remat: bool = False,
+                 last_only: bool = False):
+        """With ``remat`` each layer is checkpointed and recomputed
+        whole: the reference wraps this scan body in a plain
+        ``jax.checkpoint``, which no remat policy reaches."""
+        cfg = self.cfg
+        x = embed(params["embed"], tokens, cfg.cdtype)
         news = ([], [], [])
-        for i in range(cfg.n_layers):
-            lp = layer(params["layers"], i)
-            h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-            out, wkv2, sh_t2 = _time_mix(lp, h, state["shift_t"][i], cfg,
-                                         state["wkv"][i])
-            x = x + out
-            h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-            out, sh_c2 = _channel_mix(lp, h, state["shift_c"][i], cfg)
-            x = x + out
+        for i, lp in enumerate(unstack(params["layers"])):
+            args = (lp, x, state["wkv"][i], state["shift_t"][i],
+                    state["shift_c"][i])
+            x, wkv2, sh_t2, sh_c2 = (
+                checkpointed(self._layer, *args, policy=False) if remat
+                else self._layer(*args))
             for acc, new in zip(news, (wkv2, sh_t2, sh_c2)):
                 acc.append(new)
         if last_only:
@@ -116,7 +125,8 @@ class RWKV6Model:
     def train_loss(self, params, batch):
         state = self.init_state(batch["tokens"].shape[0],
                                 device=batch["tokens"].device)
-        logits, _ = self._forward(params, batch["tokens"], state)
+        logits, _ = self._forward(params, batch["tokens"], state,
+                                  remat=True)
         return softmax_xent(logits, batch["labels"], batch["mask"])
 
     def prefill(self, params, batch, max_len: Optional[int] = None):

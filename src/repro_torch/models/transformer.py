@@ -5,24 +5,68 @@ leading axis, as in the reference, and run as a Python loop over views
 ``params["layers"][name][i]`` where the reference runs ``lax.scan``;
 each layer's sliding window comes from ``cfg.window_for_layer`` (global
 layers get GLOBAL_WINDOW), so gemma3's 5:1 local:global pattern lives
-in one stack.
+in one stack. In training (``train_loss``) every layer of the stack
+runs under ``torch.utils.checkpoint`` where the reference wraps its
+scan body in ``jax.checkpoint``; ``set_remat_policy`` picks what the
+recomputation may keep.
 
 DeepSeek-style "first layer dense FFN" layers (``layer{i}``) run before
 the stack (their shapes differ from the MoE stack).
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.models import attention as A
-from repro_torch.models.common import (ModelConfig, init_params, layer,
-                                       rms_norm, softmax_xent, swiglu)
+from repro_torch.models.common import (ModelConfig, embed, init_params,
+                                       layer, rms_norm, softmax_xent,
+                                       swiglu, unstack)
 from repro_torch.models.moe import moe_ffn
 
 GLOBAL_WINDOW = A.GLOBAL_WINDOW
+
+# the products without batch dimensions: 2-D matmuls (a 3-D activation
+# times a 2-D weight runs as one ``mm``). Batched products (``bmm``:
+# attention's einsums, the experts) have batch dimensions.
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``:
+    keep the outputs of the products without batch dimensions, recompute
+    everything else."""
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+# remat policy toggle (the reference's ``_REMAT``): which intermediates
+# a checkpointed layer may keep instead of recomputing
+_REMAT = {"policy": None}
+
+
+def set_remat_policy(name: str):
+    """``"none"`` recomputes everything in the backward pass; ``"dots"``
+    keeps the outputs of the products without batch dimensions."""
+    table = {"none": None, "dots": _save_dots}
+    _REMAT["policy"] = table[name]
+
+
+def checkpointed(fn, *args, policy=True):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant):
+    the backward pass runs ``fn`` again instead of keeping its
+    intermediates, except those the remat policy keeps (``policy``
+    False: none, as the reference's plain ``jax.checkpoint``)."""
+    pol = _REMAT["policy"] if policy else None
+    if pol is None:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return checkpoint(fn, *args, use_reentrant=False, context_fn=partial(
+        create_selective_checkpoint_contexts, pol))
 
 
 def pad_seq(a, max_len: int):
@@ -47,9 +91,7 @@ class TransformerModel:
 
     def _embed(self, params, batch):
         cfg = self.cfg
-        # gather, then cast: the same values as the reference's cast of
-        # the whole table, without it
-        x = params["embed"][batch["tokens"]].to(cfg.cdtype)
+        x = embed(params["embed"], batch["tokens"], cfg.cdtype)
         if cfg.patch_input and "patches" in batch:
             pe = batch["patches"].to(cfg.cdtype) @ \
                 params["patch_proj"].to(cfg.cdtype)
@@ -93,20 +135,24 @@ class TransformerModel:
         return x, kv, aux
 
     def _layers(self, params):
-        """(params of layer i, its window) for every layer, in order."""
+        """(params of layer i, its window, whether it is in the stack)
+        for every layer, in order."""
         cfg = self.cfg
         fd = cfg.first_dense
+        stack = unstack(params["layers"])
         for i in range(cfg.n_layers):
-            p = (params[f"layer{i}"] if i < fd
-                 else layer(params["layers"], i - fd))
-            yield p, cfg.window_for_layer(i) or GLOBAL_WINDOW
+            p = params[f"layer{i}"] if i < fd else stack[i - fd]
+            yield p, cfg.window_for_layer(i) or GLOBAL_WINDOW, i >= fd
 
-    # -- full-sequence forward (prefill) -------------------------------------
+    # -- full-sequence forward (train / prefill) -----------------------------
 
-    def forward(self, params, batch, *, collect_cache: bool = False):
+    def forward(self, params, batch, *, remat: bool = False,
+                collect_cache: bool = False):
         """(logits, aux) over the whole sequence; with ``collect_cache``,
         (last-token logits, aux, the first_dense layers' [(k, v)], the
-        stack's (K, V)) where K and V stack the stack's layers."""
+        stack's (K, V)) where K and V stack the stack's layers. With
+        ``remat`` each layer of the stack is checkpointed (the
+        first_dense layers are not, as in the reference)."""
         cfg = self.cfg
         x = self._embed(params, batch)
         s = x.shape[1]
@@ -115,10 +161,15 @@ class TransformerModel:
         kc = min(1024, s)
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         kvs = []
-        for p, w in self._layers(params):
-            x, kv, aux = self._layer_full(p, x, positions, w, qc, kc)
+        for p, w, stacked in self._layers(params):
+            if remat and stacked:
+                x, kv, aux = checkpointed(self._layer_full, p, x, positions,
+                                          w, qc, kc)
+            else:
+                x, kv, aux = self._layer_full(p, x, positions, w, qc, kc)
             aux_total = aux_total + aux
-            kvs.append(kv)
+            if collect_cache:
+                kvs.append(kv)
         if not collect_cache:
             x = rms_norm(x, params["final_norm"], cfg.norm_eps)
             return self._logits(params, x), aux_total
@@ -132,7 +183,7 @@ class TransformerModel:
     # -- training -----------------------------------------------------------
 
     def train_loss(self, params, batch):
-        logits, aux = self.forward(params, batch)
+        logits, aux = self.forward(params, batch, remat=True)
         loss = softmax_xent(logits, batch["labels"], batch["mask"])
         return loss + 0.01 * aux
 
@@ -181,11 +232,11 @@ class TransformerModel:
         """tokens (B,1), pos (an int or a 0-dim tensor) -> (logits
         (B,1,V), cache); ``cache`` itself is left as it was."""
         cfg = self.cfg
-        x = params["embed"][tokens].to(cfg.cdtype)
+        x = embed(params["embed"], tokens, cfg.cdtype)
         pos = A.as_pos(pos, x.device)       # one copy to the device
         n0, n1 = self._names()
         c0, c1 = cache[n0].clone(), cache[n1].clone()
-        for i, (p, w) in enumerate(self._layers(params)):
+        for i, (p, w, _) in enumerate(self._layers(params)):
             h = rms_norm(x, p["ln1"], cfg.norm_eps)
             if cfg.attn == "mla":
                 out, _ = A.mla_decode(p["attn"], h, cfg, cache_c=c0[i],
@@ -216,8 +267,7 @@ class EncDecModel:
         s = x.shape[1]
         positions = torch.arange(s, dtype=torch.int32, device=x.device)
         qc, kc = min(512, s), min(1024, s)
-        for i in range(cfg.enc_layers):
-            lp = layer(params["enc_layers"], i)
+        for lp in unstack(params["enc_layers"]):
             h = rms_norm(x, lp["ln1"], cfg.norm_eps)
             out, _ = A.gqa_attn(lp["attn"], h, cfg, positions=positions,
                                 q_chunk=qc, kv_chunk=kc, causal=False)
@@ -269,15 +319,15 @@ class EncDecModel:
         mem = self.encode(params, batch["frames"])
         mem_len = batch.get("frame_len")
         tok = batch["tokens"]
-        x = params["embed"][tok].to(cfg.cdtype)
+        x = embed(params["embed"], tok, cfg.cdtype)
         s = x.shape[1]
         positions = torch.arange(s, dtype=torch.int32, device=x.device)
         qc, kc = min(512, s), min(1024, s)
         kvs = []
-        for i in range(cfg.dec_layers):
-            x, kv = self._dec_layer(layer(params["dec_layers"], i), x, mem,
-                                    positions, mem_len, qc, kc)
-            kvs.append(kv)
+        for lp in unstack(params["dec_layers"]):
+            x, kv = self._dec_layer(lp, x, mem, positions, mem_len, qc, kc)
+            if collect_cache:
+                kvs.append(kv)
         if collect_cache:
             x = x[:, -1:]
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -325,7 +375,7 @@ class EncDecModel:
         """tokens (B,1), pos (an int or a 0-dim tensor) -> (logits
         (B,1,V), cache); ``cache`` itself is left as it was."""
         cfg = self.cfg
-        x = params["embed"][tokens].to(cfg.cdtype)
+        x = embed(params["embed"], tokens, cfg.cdtype)
         pos = A.as_pos(pos, x.device)
         b = x.shape[0]
         g = cfg.n_heads // cfg.n_kv_heads

@@ -3,7 +3,7 @@
 The port of ``repro.serve.api``. The decode step is ONE token for the
 whole batch. The steps run eagerly (the reference jits them); meshed
 serving (``mesh=``, ``rules=``: FSDP x TP parameters, sharded caches)
-is ROADMAP item 19b, and those arguments are accepted only as None.
+is ROADMAP item 19d, and those arguments are accepted only as None.
 """
 from __future__ import annotations
 
@@ -18,7 +18,7 @@ from repro_torch.models.common import tree_items
 def _unmeshed(mesh, rules):
     if mesh is not None or rules is not None:
         raise ValueError("meshed LM serving (mesh=, rules=) is not ported "
-                         "yet (ROADMAP item 19b); pass None")
+                         "yet (ROADMAP item 19d); pass None")
 
 
 def _on(params, dev: torch.device):

@@ -1,7 +1,10 @@
 """One rank of the port's meshed executor on the CPU (gloo), or the JAX
 reference at the same mesh on fake CPU devices: the multi-process half
 of tests/test_torch_dist.py, test_torch_query_shard.py and
-test_torch_updates.py.
+test_torch_updates.py; and the ``compress`` scenario of
+tests/test_torch_train_compress.py (mesh ``4pod``): the error-feedback
+int8 gradient sync, each port rank one worker, the reference's workers
+under ``jax.jit(jax.vmap(..., axis_name="pod"))``.
 
     python tests/_dist_worker.py --side port --scenario queries \
         --mesh 4 --rank R --world 4 --init file:///tmp/x/store --out DIR
@@ -37,6 +40,7 @@ MESHES = {
     "4": ((4,), ("data",), "data", None),
     "2x2pd": ((2, 2), ("pod", "data"), ("pod", "data"), None),
     "2x2dq": ((2, 2), ("data", "query"), "data", "query"),
+    "4pod": ((4,), ("pod",), None, None),
 }
 QSHARD_THRESHOLD = 16
 N = 8000
@@ -334,6 +338,67 @@ def point_two_index(build, x, y, part):
     return idx, pb, q
 
 
+# the compress scenario: rounds of error-feedback sync of one gradient
+# tree per worker, the same every round (tests/test_compress.py's
+# convergence test, widened to a tree with a padded block)
+COMPRESS_ROUNDS = 30
+
+
+def compress_grads() -> dict:
+    """{leaf: (WORLD, ...) float32}, worker w's gradient at row w."""
+    rng = np.random.default_rng(0)
+    return {"b": rng.standard_normal((WORLD, 64)).astype(np.float32),
+            "w": (rng.standard_normal((WORLD, 3, 300)) * 1e-3).astype(
+                np.float32)}
+
+
+def compress_main(a) -> int:
+    """The compress scenario: every round's synced gradients and new
+    residuals, ``synced/<leaf>/<round>`` and ``res/<leaf>/<round>`` (the
+    reference's with a leading worker axis)."""
+    true = compress_grads()
+    out = {}
+    if a.side == "port":
+        import torch
+        torch.set_num_threads(1)
+        from repro_torch.launch import mesh as M
+        from repro_torch.train.compress import (ef_compress_grads,
+                                                init_residuals)
+        dev = M.init_process("cpu", init_method=a.init, world_size=a.world,
+                             rank=a.rank,
+                             timeout=datetime.timedelta(seconds=240))
+        shape, names, _, _ = MESHES[a.mesh]
+        axis = M.make_host_mesh(shape, names, device=dev).axis(names)
+        g = {k: torch.from_numpy(v[a.rank].copy()) for k, v in true.items()}
+        res = init_residuals(g)
+        for i in range(COMPRESS_ROUNDS):
+            gs, res = ef_compress_grads(g, res, axis)
+            for k in g:
+                out[f"synced/{k}/{i}"] = gs[k].numpy()
+                out[f"res/{k}/{i}"] = res[k].numpy()
+        fname = f"port_{a.scenario}_{a.mesh}_r{a.rank}.npz"
+    else:
+        import jax
+        import jax.numpy as jnp
+        from repro.train.compress import ef_compress_grads
+        sync = jax.jit(jax.vmap(
+            lambda g, r: ef_compress_grads(g, r, axis_name="pod"),
+            axis_name="pod"))
+        res = {k: jnp.zeros(v.shape, jnp.float32) for k, v in true.items()}
+        for i in range(COMPRESS_ROUNDS):
+            gs, res = sync(true, res)
+            for k in true:
+                out[f"synced/{k}/{i}"] = np.asarray(gs[k])
+                out[f"res/{k}/{i}"] = np.asarray(res[k])
+        fname = f"ref_{a.scenario}_{a.mesh}.npz"
+    np.savez(os.path.join(a.out, fname), **out)
+    if a.side == "port":
+        import torch.distributed as dist
+        dist.barrier()
+        dist.destroy_process_group()
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--side", choices=["port", "ref"], required=True)
@@ -346,6 +411,8 @@ def main(argv=None) -> int:
     ap.add_argument("--init", default=None)
     ap.add_argument("--out", required=True)
     a = ap.parse_args(argv)
+    if a.scenario == "compress":
+        return compress_main(a)
     if not set(a.scenario.split("+")) <= {"queries", "qshard", "updates"}:
         ap.error(f"unknown scenario in {a.scenario}")
     shape, names, paxis, qaxis = MESHES[a.mesh]

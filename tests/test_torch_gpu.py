@@ -2225,3 +2225,59 @@ def test_gpu_gqa_decode_clamps_past_the_cache(cuda):
         k = got[str(cuda)][1]
         assert torch.equal(k[:, :15], ck[:, :15])
         assert not torch.equal(k[:, 15], ck[:, 15])
+
+
+# -- LM training (ROADMAP item 19b): the card against the CPU -------------
+
+# every arch's smoke config at float32 compute: a step's loss, card
+# against CPU on the same weights and batches (summation orders only)
+TRAIN_F32_RTOL = 1e-4
+
+
+def train_card_vs_cpu(arch: str, dev, steps: int = 3, batch: int = 2,
+                      seq: int = 32) -> dict:
+    """``steps`` train steps of the arch's smoke config at float32
+    compute on the card and on the CPU, from the same weights (the port's
+    ``init`` on the CPU, carried to the card through ``convert``) and the
+    same batches (``TokenPipeline``, seed 0). Returns both loss lists,
+    their largest relative difference and whether it is within
+    ``TRAIN_F32_RTOL`` with every loss and gradient norm finite."""
+    import dataclasses
+    import math
+
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.models import build_model
+    from repro_torch.train import adamw_init, make_train_step
+    cfg = dataclasses.replace(get_config(arch, smoke=True),
+                              compute_dtype="float32")
+    model = build_model(cfg)
+    host = model.init(0, device="cpu")
+    on = {"cpu": host, "card": convert.params_from_arrays(
+        convert.params_to_arrays(host), device=dev)}
+    rep = {}
+    for where, d in (("cpu", torch.device("cpu")), ("card", dev)):
+        params, opt = on[where], adamw_init(on[where])
+        step = make_train_step(model, peak_lr=1e-3, warmup=0,
+                               total_steps=20)
+        pipe = TokenPipeline(cfg, batch, seq, seed=0, device=d)
+        losses, norms = [], []
+        for _ in range(steps):
+            params, opt, m = step(params, opt, next(pipe))
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        rep[where] = losses
+        rep[f"{where}_grad_norm"] = norms
+    rep["max_rel"] = max(abs(a - b) / abs(b)
+                         for a, b in zip(rep["card"], rep["cpu"]))
+    rep["ok"] = (rep["max_rel"] <= TRAIN_F32_RTOL and all(
+        math.isfinite(v) for k in ("cpu", "card", "cpu_grad_norm",
+                                   "card_grad_norm") for v in rep[k]))
+    return rep
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_gpu_train_card_matches_cpu(cuda, arch):
+    rep = train_card_vs_cpu(arch, cuda)
+    assert rep["ok"], rep

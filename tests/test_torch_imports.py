@@ -30,7 +30,8 @@ def _imported_roots(path: Path) -> set:
     "path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] +
     [ROOT / "examples" / n for n in ("quickstart_torch.py",
                                      "spatial_analytics_torch.py",
-                                     "serve_decode_torch.py")],
+                                     "serve_decode_torch.py",
+                                     "train_tiny_lm_torch.py")],
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_repro_import_statement(path):
     assert not _imported_roots(path) & {"jax", "jaxlib", "repro"}
@@ -40,8 +41,9 @@ def test_scan_covers_this_slice():
     """The import scan above sees the modules of the circle and join
     path, of serving mode, of the morton kernel, of the serve scheduler,
     of the launchers, of warm start's store, of the mesh, of the
-    checkpoint store, of the dry run, and of LM serving (the configs,
-    the models, the token pipeline, the serving API)."""
+    checkpoint store, of the dry run, of LM serving (the configs, the
+    models, the token pipeline, the serving API) and of LM training (the
+    optimizer, the step, the loop, compression, the launcher)."""
     scanned = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
     assert {"kernels/circle_filter.py", "kernels/point_in_polygon.py",
             "kernels/morton.py", "core/executor.py", "core/local_ops.py",
@@ -54,7 +56,10 @@ def test_scan_covers_this_slice():
             "models/__init__.py", "models/common.py", "models/attention.py",
             "models/transformer.py", "models/moe.py",
             "models/linear_attn.py", "models/rwkv6.py", "models/hymba.py",
-            "models/registry.py", "data/tokens.py", "serve/api.py"} <= scanned
+            "models/registry.py", "data/tokens.py", "serve/api.py",
+            "train/__init__.py", "train/optimizer.py", "train/step.py",
+            "train/loop.py", "train/compress.py",
+            "launch/train.py"} <= scanned
     assert {f"configs/{a}.py" for a in ARCHS} <= scanned
 
 
@@ -76,7 +81,8 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "import repro_torch.configs, repro_torch.data.tokens\n"
         "import repro_torch.models.transformer, repro_torch.models.rwkv6\n"
         "import repro_torch.models.hymba, repro_torch.models.registry\n"
-        "import repro_torch.serve.api\n"
+        "import repro_torch.serve.api, repro_torch.train\n"
+        "import repro_torch.train.compress, repro_torch.launch.train\n"
         "from repro_torch.configs import ARCHS, get_config\n"
         "for a in ARCHS: get_config(a)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"

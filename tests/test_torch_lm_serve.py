@@ -6,7 +6,7 @@ the same weights, past ``max_len`` too (both write the last slot there),
 and gives the same logits at every step. The launcher's LM mode runs on
 the CPU when asked; without ``device=`` every LM entry point asks for
 the card, and raises here where there is none. ``mesh=`` and ``rules=``
-are not ported (ROADMAP item 19b) and raise.
+are not ported (ROADMAP item 19d) and raise.
 """
 import dataclasses
 import os
@@ -103,5 +103,5 @@ def test_meshed_serving_is_refused():
                                   mesh=object(), device=CPU),
                  lambda: ServeSession(model, params, 2, 16, mesh=object(),
                                       device=CPU)):
-        with pytest.raises(ValueError, match="19b"):
+        with pytest.raises(ValueError, match="19d"):
             call()
